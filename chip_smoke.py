@@ -10,8 +10,10 @@ Phases (any failure raises and exits nonzero; nothing is caught):
 2. kernels: at the main-path shape (16, 294912) each kernel is held
    against its plain torch version on the card, on seeded inputs and on
    the arrays a real L6 and L1 batch hand it; equality must be exact (the
-   codec is integer-only). Device times: the kernel, the plain version,
-   the bound, and for propagate_matches a library yardstick;
+   codec is integer-only); parse_rows also on an input off that shape.
+   Device times: the kernel (parse_rows also per launch: exits, marks),
+   the plain version, the bound, and for propagate_matches a library
+   yardstick;
 3. main path: compress() on a seeded 8 MiB corpus at level 6 gzip and
    level 1 zlib with 256 KiB chunks; each output must decode with stdlib
    zlib to the input, and every kernel must have launched (counts reset
@@ -48,7 +50,10 @@ REF_INPUT_SEED = 7
 REF_SHA256_L6_4K = "5fb898053468dc47e80f13c50044f253ad40d6dc18c3b0f6b6d19f4149f7f15e"
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
-INT_OPS_PER_S = 67e12  # H100 SXM non-tensor 32-bit rate
+# H100 SXM 32-bit integer rate: the compare, select, min and add work of
+# the bounds runs on the integer pipe, 64 lanes per SM (not the 128 fp32
+# lanes, nor an FMA counted twice): 132 SMs x 64 lanes x 1.98 GHz.
+INT_OPS_PER_S = 132 * 64 * 1.98e9  # 16.7e12 op/s
 
 KERNELS = {
     # name: (source, TPU kernel replaced)
@@ -109,6 +114,33 @@ class DeviceTimer:
         torch.cuda.synchronize()
         return statistics.median(s.elapsed_time(e) for s, e in ev)
 
+    def phases_ms(self, phases, reps: int = 15) -> dict:
+        """Median device time of each launch of a call made of several
+        (name, launch) pairs, from events recorded between the launches;
+        as in kernel_ms, the L2 is flushed before each call."""
+        torch = self.torch
+
+        def call(ev):
+            ev[0].record()
+            for k, (name, launch) in enumerate(phases):
+                rc = launch()
+                if rc:
+                    raise RuntimeError(f"{name}: cudaError {rc}")
+                ev[k + 1].record()
+
+        call([torch.cuda.Event() for _ in range(len(phases) + 1)])
+        torch.cuda.synchronize()
+        evs = [[torch.cuda.Event(enable_timing=True)
+                for _ in range(len(phases) + 1)] for _ in range(reps)]
+        torch.cuda._sleep(20_000_000)
+        for ev in evs:
+            self.flush.zero_()
+            call(ev)
+        torch.cuda.synchronize()
+        return {name: statistics.median(ev[k].elapsed_time(ev[k + 1])
+                                        for ev in evs)
+                for k, (name, _) in enumerate(phases)}
+
     def wall_ms(self, fn, reps: int = 3) -> float:
         """Event time of a call that launches many small ops (the plain
         versions): host gaps between its launches are part of its cost."""
@@ -155,11 +187,15 @@ def seeded_inputs(torch, n: int, seed: int):
     step = torch.where(torch.rand((BATCH, n), generator=g, device=dev) < 0.3,
                        ri(3, 259), 1).int()
     starts = ri(0, 40000, (BATCH,))
+    # Off the main-path shape: 570 rows per chunk (not a multiple of the
+    # 32-row segment) and every chunk starting at 0.
+    edge_step = step[:, : 570 * 512].contiguous()
+    edge_starts = torch.zeros((BATCH,), dtype=torch.int32, device=dev)
     return {
         "scan_candidates": [(adj, spos, ws, 16, 64, False),
                             (adj, spos, ws, 8, 16, True)],
         "propagate_matches": [(pk.int().contiguous(),)],
-        "parse_rows": [(step, starts, 512)],
+        "parse_rows": [(step, starts, 512), (edge_step, edge_starts, 512)],
     }
 
 
@@ -203,9 +239,10 @@ def phase_kernels(torch, kernels, zt, timer, data):
         kfn = getattr(kernels, name)
         err = 0
         checked = 0
-        for args in seeded[name] + [a for _, a in real[name]]:
+        for _, args in real[name]:
             if tuple(args[0].shape) != (BATCH, n):
                 raise AssertionError(f"{name}: shape {tuple(args[0].shape)}")
+        for args in seeded[name] + [a for _, a in real[name]]:
             e = max_abs_err(torch, kfn(*args), plain[name](*args))
             torch.cuda.synchronize()
             if e:
@@ -219,6 +256,11 @@ def phase_kernels(torch, kernels, zt, timer, data):
                     f"{timer.kernel_ms(lambda: kfn(*args)):.4f} ms")
         # Time on the real L6 batch's call (for the scan: order B, K=16).
         level, args = [la for la in real[name] if la[0] == 6][-1]
+        if name == "parse_rows":
+            _, phases = kernels.parse_rows_phases(*args)
+            split = timer.phases_ms(phases)
+            log("  parse_rows phases: " + ", ".join(
+                f"{k} {v:.4f} ms" for k, v in split.items()))
         ms = timer.kernel_ms(lambda: kfn(*args))
         plain_ms = timer.wall_ms(lambda: plain[name](*args))
         bound_ms, bound_by, extra = bound(kernels, name, args)
@@ -262,8 +304,14 @@ def bound(kernels, name, args):
         mark = kernels.parse_rows(*args)
         committed = int(mark.sum().item())
         ops = (elems + committed) * 4 + step.shape[0] * rows_per * 4
-        extra = (f"; serial steps {row} + {rows_per} + {row}; "
-                 f"{committed} committed of {elems}")
+        # 32-row segments, rows cut into 8 parts (csrc/parse.cu); the last
+        # segment chains the maps of those between it and the start's.
+        w = row // 8
+        seg0 = max(int(starts.min()), 0) // row // 32
+        chain = max(-(-rows_per // 32) - seg0 - 2, 0)
+        extra = (f"; serial shared-memory steps: exits {w} + 8 + 32, marks "
+                 f"up to {chain} + {w} + 8 + {w}; {committed} committed of "
+                 f"{elems}")
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / INT_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else

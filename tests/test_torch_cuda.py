@@ -61,6 +61,66 @@ def test_kernels_match_plain_versions(n):
     assert kernels.launches["parse_rows"] == before + 1
 
 
+# name: (B, rows per chunk, starts, steps), as in test_torch_kernels.py,
+# plus enough 32-row segments for two passes of the marks kernel's map
+# staging (32 segment maps a pass).
+PARSE_CASES = {
+    "start-0": (2, 5, [0, 0], "mixed"),
+    "row-boundary": (2, 6, [3 * 512, 512], "mixed"),
+    "later-segment-mid-row": (2, 40, [33 * 512 + 300, 39 * 512 + 7], "mixed"),
+    "rows-not-multiple-of-32": (2, 37, [100, 31 * 512 + 511], "mixed"),
+    "batch-1": (1, 9, [777], "mixed"),
+    "all-literal": (2, 5, [5, 0], "literal"),
+    "all-258": (2, 5, [0, 1000], "max"),
+    "negative-start": (2, 5, [-5, -600], "mixed"),
+    "start-past-end": (2, 5, [5 * 512, 5 * 512 + 9], "mixed"),
+    "many-segments": (3, 1100, [3 * 512 + 5, 40 * 512 + 400, 1099 * 512],
+                      "mixed"),
+}
+
+
+@pytest.mark.parametrize("case", list(PARSE_CASES))
+def test_parse_rows_edge_cases_match_plain(case):
+    _card()
+    b, rows, starts, kind = PARSE_CASES[case]
+    rng = np.random.default_rng(list(PARSE_CASES).index(case))
+    shape = (b, rows * 512)
+    if kind == "literal":
+        step = np.ones(shape)
+    elif kind == "max":
+        step = np.full(shape, 258)
+    else:
+        step = np.where(rng.random(shape) < 0.3,
+                        rng.integers(3, 259, shape), 1)
+    step, starts = _t(step), _t(starts)
+    got = kernels.parse_rows(step, starts, 512)
+    torch.cuda.synchronize()
+    assert torch.equal(got, kernels.parse_rows_plain(step, starts, 512))
+
+
+@pytest.mark.parametrize("row", [384, 1024])
+def test_parse_rows_other_row_widths_match_plain(row):
+    """Parts of 48 positions (fewer than a step's reach) and, at 1024,
+    both kernels above 48 KB of shared memory."""
+    _card()
+    rng = np.random.default_rng(row)
+    shape = (2, 70 * row)
+    step = _t(np.where(rng.random(shape) < 0.3, rng.integers(3, 259, shape),
+                       1))
+    starts = _t([row * 40 + 100, 5])
+    got = kernels.parse_rows(step, starts, row)
+    torch.cuda.synchronize()
+    assert torch.equal(got, kernels.parse_rows_plain(step, starts, row))
+
+
+def test_parse_rows_rejects_misaligned_step():
+    _card()
+    flat = torch.ones(2 * 512 + 1, dtype=torch.int32, device="cuda")
+    step = flat[1:].view(2, 512)
+    with pytest.raises(ValueError):
+        kernels.parse_rows(step, _t([0, 0]), 512)
+
+
 DATA = mixed_corpus(20000, 31)
 CASES = {
     "gzip": dict(format="gzip"),

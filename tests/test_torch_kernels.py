@@ -143,6 +143,152 @@ def test_parse_rows_plain_matches_pallas(lazy):
     assert got.sum() > 0
 
 
+# name: (B, rows per chunk, starts, steps). Rows are 512 wide; the CUDA
+# kernel cuts them into segments of 32.
+_PARSE_CASES = {
+    "start-0": (2, 5, [0, 0], "mixed"),
+    "row-boundary": (2, 6, [3 * 512, 512], "mixed"),
+    "later-segment-mid-row": (2, 40, [33 * 512 + 300, 39 * 512 + 7], "mixed"),
+    "rows-not-multiple-of-32": (2, 37, [100, 31 * 512 + 511], "mixed"),
+    "batch-1": (1, 9, [777], "mixed"),
+    "all-literal": (2, 5, [5, 0], "literal"),
+    "all-258": (2, 5, [0, 1000], "max"),
+    "negative-start": (2, 5, [-5, -600], "mixed"),
+    "start-past-end": (2, 5, [5 * 512, 5 * 512 + 9], "mixed"),
+}
+
+
+def _parse_case(name):
+    b, rows, starts, kind = _PARSE_CASES[name]
+    rng = np.random.default_rng(list(_PARSE_CASES).index(name))
+    shape = (b, rows * 512)
+    if kind == "literal":
+        step = np.ones(shape)
+    elif kind == "max":
+        step = np.full(shape, 258)
+    else:
+        step = np.where(rng.random(shape) < 0.3,
+                        rng.integers(3, 259, shape), 1)
+    return step.astype(np.int32), np.array(starts, np.int32)
+
+
+@pytest.mark.parametrize("case", list(_PARSE_CASES))
+def test_parse_rows_edge_cases_match_pallas(case):
+    step, starts = _parse_case(case)
+    got = kernels.parse_rows(_t(step), _t(starts), 512).numpy()
+    exp = np.asarray(pk.parse_rows(jnp.asarray(step), jnp.asarray(starts),
+                                   512, interpret=True))
+    np.testing.assert_array_equal(got, exp)
+
+
+@pytest.mark.parametrize("row", [384, 1024])
+def test_parse_rows_other_row_widths_match_pallas(row):
+    """The row widths the wrapper takes besides the main path's 512."""
+    rng = np.random.default_rng(row)
+    shape = (2, 11 * row)
+    step = np.where(rng.random(shape) < 0.3, rng.integers(3, 259, shape),
+                    1).astype(np.int32)
+    starts = np.array([row * 4 + 100, 5], np.int32)
+    got = kernels.parse_rows(_t(step), _t(starts), row).numpy()
+    exp = np.asarray(pk.parse_rows(jnp.asarray(step), jnp.asarray(starts),
+                                   row, interpret=True))
+    np.testing.assert_array_equal(got, exp)
+    _, _, mark = _segmented(step, starts, row, 4)
+    np.testing.assert_array_equal(mark, got)
+
+
+def _take(a, idx):
+    return np.take_along_axis(a, np.minimum(idx, a.shape[-1] - 1)[..., None],
+                              -1)[..., 0]
+
+
+def _segmented(step, starts, row, g, parts=8):
+    """The CUDA kernels' arithmetic (csrc/parse.cu) in numpy: the exits
+    kernel's part sweeps, fix-up rounds and prefix tables, the start
+    segment's chain and head; the marks kernel's chain over segment maps,
+    part entries and part walks. Returns (entries, exits, mark)."""
+    t = 258
+    b, npad = step.shape
+    rows_per = npad // row
+    nseg = -(-rows_per // g)
+    w = row // parts
+    st = np.clip(step, 1, t).reshape(b, rows_per, row).astype(np.int64)
+    land = np.zeros_like(st)  # first landing past the position's part
+    for q in range(parts):
+        end = (q + 1) * w
+        for j in range(end - 1, q * w - 1, -1):
+            to = j + st[:, :, j]
+            land[:, :, j] = np.where(to >= end, to, _take(land, to))
+    ex = land.copy()
+    for q in range(parts - 1, -1, -1):
+        cut = ex[:, :, q * w:(q + 1) * w]
+        ex[:, :, q * w:(q + 1) * w] = np.where(
+            cut >= row, cut - row,
+            np.take_along_axis(ex, np.minimum(cut, row - 1), 2))
+    pre = np.zeros((b, rows_per, t), np.int64)
+    for s in range(nseg):
+        x = np.tile(np.arange(t), (b, 1))
+        for r in range(s * g, min((s + 1) * g, rows_per)):
+            x = np.take_along_axis(ex[:, r, :], x, 1)
+            pre[:, r] = x
+    ent = np.full((b, rows_per), -1, np.int64)
+    for i in range(b):
+        r0, off = divmod(max(int(starts[i]), 0), row)
+        if r0 >= rows_per:
+            continue
+        x = off  # exits kernel, the block holding r0
+        for r in range(r0, min((r0 // g + 1) * g, rows_per)):
+            ent[i, r] = x
+            x = ex[i, r, x]
+        for s in range(r0 // g + 1, nseg):  # marks kernel, from head
+            last = min((s + 1) * g, rows_per) - 1
+            for r in range(s * g + 1, last + 1):
+                ent[i, r] = pre[i, r - 1, x]
+            ent[i, s * g] = x
+            x = pre[i, last, x]
+    mark = np.zeros((b, rows_per, row), np.int32)
+    for i in range(b):
+        for r in range(rows_per):
+            part_entry = {}
+            j = ent[i, r]
+            while 0 <= j < row:
+                part_entry[j // w] = j
+                j = land[i, r, j]
+            for q, j in part_entry.items():
+                while j < (q + 1) * w:
+                    mark[i, r, j] = 1
+                    j += st[i, r, j]
+    return ent, ex, mark.reshape(b, npad)
+
+
+@pytest.mark.parametrize("g", [4, 32])
+@pytest.mark.parametrize("case", list(_PARSE_CASES))
+def test_parse_rows_segment_chain_equals_serial_chain(case, g):
+    """Rehearses the CUDA kernel's arithmetic on the CPU: its exits equal
+    one reverse sweep of each whole row, the row entries it derives from
+    prefix tables and segment maps equal the serial chain
+    e_{r+1} = E_r(e_r) from the start, and its marks equal
+    parse_rows_plain's."""
+    step, starts = _parse_case(case)
+    row = 512
+    ent, ex, mark = _segmented(step, starts, row, g)
+    st = np.clip(step, 1, 258).reshape(ex.shape).astype(np.int64)
+    whole = np.zeros_like(ex)
+    for j in range(row - 1, -1, -1):
+        to = j + st[:, :, j]
+        whole[:, :, j] = np.where(to >= row, to - row, _take(whole, to))
+    np.testing.assert_array_equal(ex, whole)
+    serial = np.full_like(ent, -1)
+    for i in range(len(starts)):
+        r0, x = divmod(max(int(starts[i]), 0), row)
+        for r in range(r0, ent.shape[1]):
+            serial[i, r] = x
+            x = ex[i, r, x]
+    np.testing.assert_array_equal(ent, serial)
+    plain = kernels.parse_rows_plain(_t(step), _t(starts), row).numpy()
+    np.testing.assert_array_equal(mark, plain)
+
+
 def test_wrappers_route_cpu_tensors_to_plain_versions():
     step, starts = _parse_fixture(False)
     before = dict(kernels.launches)
@@ -162,12 +308,15 @@ def test_wrappers_route_cpu_tensors_to_plain_versions():
         (lambda: kernels.parse_rows(torch.ones((1, 512), dtype=torch.int32),
                                     torch.zeros(1, dtype=torch.int32), 256),
          ValueError),
+        (lambda: kernels.parse_rows(torch.ones((1, 600), dtype=torch.int32),
+                                    torch.zeros(1, dtype=torch.int32), 300),
+         ValueError),
         (lambda: kernels.scan_candidates(
             torch.zeros((2, 8), dtype=torch.int32),
             torch.zeros((2, 9), dtype=torch.int32),
             torch.zeros(2, dtype=torch.int32), 4, 16), ValueError),
     ],
-    ids=["dtype", "ndim", "contiguity", "row", "shape"],
+    ids=["dtype", "ndim", "contiguity", "row", "row-multiple", "shape"],
 )
 def test_wrappers_reject_what_the_kernels_do_not_take(call, exc):
     with pytest.raises(exc):

@@ -1,4 +1,4 @@
-// Plain C interface of the matcher's three CUDA kernels.
+// Plain C interface of the matcher's CUDA kernels.
 //
 // Every entry launches on the given stream without synchronising and
 // returns cudaGetLastError() as an int (0 = cudaSuccess). All arrays are
@@ -19,9 +19,16 @@ int zz_scan_candidates(const int* adj, const int* spos, const int* wstart,
 int zz_propagate_matches(const int* pk, int* out, int batch, int n,
                          void* stream);
 
-int zz_parse_rows(const int* step, const int* starts, int* exit_scratch,
-                  int* entry_scratch, int* mark, int batch, int npad,
-                  int row, void* stream);
+// parse_rows in two launches, called in turn: exits and prefix tables
+// (pre: batch * npad / row * 258 u16; seg0_ent: batch * 33 int, the start
+// segment's row entries and the next segment's entry), then the marks.
+// row % 128 == 0; step and mark 16-byte aligned.
+int zz_parse_exits(const int* step, const int* starts, unsigned short* pre,
+                   int* seg0_ent, int batch, int npad, int row, void* stream);
+
+int zz_parse_marks(const int* step, const int* starts,
+                   const unsigned short* pre, const int* seg0_ent, int* mark,
+                   int batch, int npad, int row, void* stream);
 
 #ifdef __cplusplus
 }

@@ -121,9 +121,10 @@ def _load():
             p, i = ctypes.c_void_p, ctypes.c_int
             lib.zz_scan_candidates.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
             lib.zz_propagate_matches.argtypes = [p, p, i, i, p]
-            lib.zz_parse_rows.argtypes = [p, p, p, p, p, i, i, i, p]
+            lib.zz_parse_exits.argtypes = [p, p, p, p, i, i, i, p]
+            lib.zz_parse_marks.argtypes = [p, p, p, p, p, i, i, i, p]
             for fn in (lib.zz_scan_candidates, lib.zz_propagate_matches,
-                       lib.zz_parse_rows):
+                       lib.zz_parse_exits, lib.zz_parse_marks):
                 fn.restype = ctypes.c_int
             _lib = lib
     return _lib
@@ -278,7 +279,10 @@ def propagate_matches_plain(pk):
 # ---------------------------------------------------------------------------
 
 _SINK = 1 << 30
-_MAX_ROW = 768  # P1 keeps row x 32 u16 exit offsets in 48 KB of shared memory
+# The marks kernel stages 32 rows of u16 steps and part landings, and the
+# part entries, in 128 * (row + 2) + 1024 bytes of shared memory: 66.8 KB
+# at row 512, 132 KB at 1024 (a block may have 227 KB).
+_MAX_ROW = 1024
 
 
 def parse_rows(step, starts, row: int):
@@ -291,26 +295,51 @@ def parse_rows(step, starts, row: int):
     b, npad = step.shape
     if starts.shape != (b,):
         raise ValueError("parse_rows: starts must be (B,)")
-    if not MAX_MATCH < row <= _MAX_ROW or npad % row:
+    if not MAX_MATCH < row <= _MAX_ROW or row % 128 or npad % row:
         raise ValueError(
-            f"parse_rows: need 258 < row <= {_MAX_ROW} and npad % row == 0"
+            f"parse_rows: need 258 < row <= {_MAX_ROW}, row % 128 == 0 "
+            "and npad % row == 0"
         )
     if not _route(step, starts):
         return parse_rows_plain(step, starts, row)
-    mark = torch.empty_like(step)
-    if b and npad:
-        exits = torch.empty_like(step)
-        entries = torch.empty((b, npad // row), dtype=torch.int32,
-                              device=step.device)
+    mark, phases = parse_rows_phases(step, starts, row)
+    if phases:
         with torch.cuda.device(step.device):
-            rc = _load().zz_parse_rows(
-                step.data_ptr(), starts.data_ptr(), exits.data_ptr(),
-                entries.data_ptr(), mark.data_ptr(), b, npad, row,
-                _stream(step),
-            )
-        _raise_rc("parse_rows", rc)
+            for name, launch in phases:
+                _raise_rc(f"parse_rows ({name})", launch())
         launches["parse_rows"] += 1
     return mark
+
+
+def parse_rows_phases(step, starts, row: int):
+    """The output and the kernel launches of one parse_rows call on the
+    card, as (name, launch) pairs to be run in turn: 'exits' (exits and
+    prefix tables), 'marks' (segment chain and marks); each launch returns
+    the CUDA error code. Takes what parse_rows has checked; chip_smoke.py
+    times each phase."""
+    b, npad = step.shape
+    mark = torch.empty_like(step)
+    if not (b and npad):
+        return mark, []
+    if step.data_ptr() % 16:
+        raise ValueError("parse_rows: step must be 16-byte aligned")
+    dev = step.device
+    # u16 prefix tables, 258 a row; the start segment's 32 row entries and
+    # the next segment's entry.
+    pre = torch.empty((b, npad // row, MAX_MATCH), dtype=torch.int16,
+                      device=dev)
+    seg0_ent = torch.empty((b, 33), dtype=torch.int32, device=dev)
+    lib = _load()
+    s = _stream(step)
+    # The launches hold the tensors, so the scratch outlives them.
+    return mark, [
+        ("exits", lambda: lib.zz_parse_exits(
+            step.data_ptr(), starts.data_ptr(), pre.data_ptr(),
+            seg0_ent.data_ptr(), b, npad, row, s)),
+        ("marks", lambda: lib.zz_parse_marks(
+            step.data_ptr(), starts.data_ptr(), pre.data_ptr(),
+            seg0_ent.data_ptr(), mark.data_ptr(), b, npad, row, s)),
+    ]
 
 
 def parse_rows_plain(step, starts, row: int):
