@@ -11,9 +11,10 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    against its plain torch version on the card, on seeded inputs and on
    the arrays a real L6 and L1 batch hand it; equality must be exact (the
    codec is integer-only); parse_rows also on an input off that shape.
-   Device times: the kernel (parse_rows also per launch: exits, marks),
-   the plain version, the bound, and for propagate_matches a library
-   yardstick;
+   Device times: the kernel (parse_rows also per launch: exits, marks;
+   scan_candidates on each of its four real launches, with the bound and
+   the share of it), the plain version, the bound, and for
+   propagate_matches a library yardstick;
 3. main path: compress() on a seeded 8 MiB corpus at level 6 gzip and
    level 1 zlib with 256 KiB chunks; each output must decode with stdlib
    zlib to the input, and every kernel must have launched (counts reset
@@ -93,11 +94,17 @@ def capture(kernels, calls: dict):
 class DeviceTimer:
     """Device time per call from CUDA events. The GPU first sleeps while
     the host queues every rep, so host launch overhead is not timed; an
-    L2 flush precedes each rep, as the main path finds its inputs cold."""
+    L2 flush precedes each rep, as the main path finds its inputs cold.
+    The flush reads a 128 MB buffer (more than the 50 MB L2), so it leaves
+    the L2 full of clean lines: the timed call pays no write-back of the
+    previous call's outputs."""
 
     def __init__(self, torch):
         self.torch = torch
-        self.flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+        self.buf = torch.zeros(128 << 20, dtype=torch.uint8, device="cuda")
+
+    def flush(self) -> None:
+        self.buf.max()
 
     def kernel_ms(self, fn, reps: int = 15) -> float:
         torch = self.torch
@@ -107,7 +114,7 @@ class DeviceTimer:
                torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
         torch.cuda._sleep(20_000_000)
         for s, e in ev:
-            self.flush.zero_()
+            self.flush()
             s.record()
             fn()
             e.record()
@@ -134,7 +141,7 @@ class DeviceTimer:
                 for _ in range(len(phases) + 1)] for _ in range(reps)]
         torch.cuda._sleep(20_000_000)
         for ev in evs:
-            self.flush.zero_()
+            self.flush()
             call(ev)
         torch.cuda.synchronize()
         return {name: statistics.median(ev[k].elapsed_time(ev[k + 1])
@@ -148,7 +155,7 @@ class DeviceTimer:
         fn()
         out = []
         for _ in range(reps):
-            self.flush.zero_()
+            self.flush()
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
             s.record()
@@ -249,11 +256,21 @@ def phase_kernels(torch, kernels, zt, timer, data):
                 raise AssertionError(f"{name}: kernel != plain (max err {e})")
             err = max(err, e)
             checked += 1
+        per_launch = None
         if name == "scan_candidates":
+            per_launch = []
             for level, args in real[name]:
+                t = timer.kernel_ms(lambda: kfn(*args))
+                b_ms, b_by, _ = bound(kernels, name, args)
+                per_launch.append({
+                    "level": level, "k_each": args[3], "lcp_cap": args[4],
+                    "backward_only": bool(args[5]), "ms": t,
+                    "bound_ms": b_ms, "bound_by": b_by, "share": b_ms / t,
+                })
                 log(f"  scan L{level} K={args[3]} cap={args[4]} "
-                    f"{'backward' if args[5] else 'both ways'}: "
-                    f"{timer.kernel_ms(lambda: kfn(*args)):.4f} ms")
+                    f"{'backward' if args[5] else 'both ways'}: {t:.4f} ms, "
+                    f"bound {b_ms * 1e3:.2f} us ({b_by}), share "
+                    f"{b_ms / t:.3f}")
         # Time on the real L6 batch's call (for the scan: order B, K=16).
         level, args = [la for la in real[name] if la[0] == 6][-1]
         if name == "parse_rows":
@@ -272,6 +289,8 @@ def phase_kernels(torch, kernels, zt, timer, data):
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms,
         }
+        if per_launch:
+            results[name]["per_launch"] = per_launch
         log(f"kernel {name}: {checked} comparisons exact; shape "
             f"{tuple(args[0].shape)}; kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, bound {bound_ms * 1e3:.2f} us ({bound_by})"
@@ -288,7 +307,14 @@ def bound(kernels, name, args):
         adj, spos, ws, k_each, _cap, backward_only = args
         elems = adj.numel()
         nbytes = elems * 16 + ws.numel() * 4
-        ops = elems * k_each * (1 if backward_only else 2) * 8
+        # Per element and neighbour-direction the function needs 3
+        # operations on the integer pipe: the running min of the LCPs, one
+        # compare for the one-range validity test (lo <= cpos <= p0 - 1,
+        # unsigned), and one max of the packed key (m << 15) + cpos into
+        # the best. Its two adds (cpos - lo, and the key's) can issue on
+        # the FMA pipe as IMAD, 64 lanes per SM of its own, so they take
+        # no integer-pipe time and, at 2 per 3, never bound alone.
+        ops = elems * k_each * (1 if backward_only else 2) * 3
         extra = f"; K={k_each} {'backward' if backward_only else 'both ways'}"
     elif name == "propagate_matches":
         elems = args[0].numel()

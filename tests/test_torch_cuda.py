@@ -61,6 +61,81 @@ def test_kernels_match_plain_versions(n):
     assert kernels.launches["parse_rows"] == before + 1
 
 
+def _scan_input(rng, b, n, ws_kind="mid", adj_kind="random", cap=64):
+    lo = -cap if adj_kind == "negative" else 0
+    adj = (np.full((b, n), cap) if adj_kind == "cap"
+           else rng.integers(lo, cap + 8, (b, n)))
+    spos = np.stack([rng.permutation(n) for _ in range(b)])
+    ws = {"zero": np.zeros(b), "mid": rng.integers(0, n, b),
+          "past": np.full(b, n + 7)}[ws_kind]
+    return _t(adj), _t(spos), _t(ws)
+
+
+def _scan_exact(adj, spos, ws, k_each, cap, back):
+    before = kernels.launches["scan_candidates"]
+    got = kernels.scan_candidates(adj, spos, ws, k_each, cap, back)
+    torch.cuda.synchronize()
+    assert kernels.launches["scan_candidates"] == before + 1
+    exp = kernels.scan_candidates_plain(adj, spos, ws, k_each, cap, back)
+    for g, e in zip(got, exp):
+        assert torch.equal(g, e)
+
+
+@pytest.mark.parametrize("backward_only", [False, True],
+                         ids=["both", "backward"])
+@pytest.mark.parametrize("k_each", [4, 6, 8, 12, 16, 1, 5, 64])
+def test_scan_every_k_matches_plain(k_each, backward_only):
+    """The compile-time-K instances (4, 6, 8, 12, 16) and the runtime-K
+    one (1, 5, 64); n odd (4-byte copies) and n a multiple of 4 but not
+    of the tile (16-byte copies, a ragged last tile)."""
+    _card()
+    rng = np.random.default_rng(k_each * 2 + int(backward_only))
+    for n in (12345, 40000):
+        cap = (16, 32, 64)[n % 3]
+        _scan_exact(*_scan_input(rng, 3, n, cap=cap), k_each, cap,
+                    backward_only)
+
+
+# name: (B, n, window_start, adj)
+SCAN_CASES = {
+    "n-below-2k": (2, 20, "mid", "random"),
+    "batch-1": (1, 5000, "mid", "random"),
+    "window-start-0": (3, 9000, "zero", "random"),
+    "window-start-past-row": (3, 9000, "past", "random"),
+    "long-ties-at-cap": (2, 9000, "zero", "cap"),
+    "negative-lcp": (2, 9000, "mid", "negative"),
+    "main-path-shape": (16, 294912, "mid", "random"),
+}
+
+
+@pytest.mark.parametrize("case", list(SCAN_CASES))
+def test_scan_edge_cases_match_plain(case):
+    _card()
+    b, n, ws_kind, adj_kind = SCAN_CASES[case]
+    rng = np.random.default_rng(list(SCAN_CASES).index(case))
+    inputs = _scan_input(rng, b, n, ws_kind, adj_kind)
+    for k_each, cap, back in ((16, 64, False), (8, 16, True), (4, 16, False),
+                              (64, 32, False)):
+        _scan_exact(*inputs, k_each, cap, back)
+
+
+def test_scan_misaligned_view_matches_plain():
+    """Contiguous rows that start 4 bytes past a 16-byte boundary take the
+    4-byte copies and stores."""
+    _card()
+    rng = np.random.default_rng(11)
+    b, n = 2, 4096
+    views = []
+    for t in _scan_input(rng, b, n)[:2]:
+        flat = torch.empty(b * n + 1, dtype=torch.int32, device="cuda")
+        v = flat[1:].view(b, n)
+        v.copy_(t)
+        assert v.is_contiguous() and v.data_ptr() % 16
+        views.append(v)
+    ws = _t(rng.integers(0, n, b))
+    _scan_exact(*views, ws, 16, 64, False)
+
+
 # name: (B, rows per chunk, starts, steps), as in test_torch_kernels.py,
 # plus enough 32-row segments for two passes of the marks kernel's map
 # staging (32 segment maps a pass).

@@ -71,6 +71,158 @@ def test_scan_plain_batch_rows_are_independent():
         np.testing.assert_array_equal(s_dist[r].numpy(), np.asarray(e_dist))
 
 
+_PAD_POS = -(1 << 30)
+
+
+def _scan_mirror(adj, spos, ws, k_each, lcp_cap, backward_only, e=4):
+    """csrc/scan.cu's arithmetic in numpy, in its order: each row cut into
+    tiles of 256 threads x e elements staged with an H-wide halo (LCP 0,
+    position -2^30 outside the row), each thread's e elements scored from
+    its window of e + 2H values; LCPs clamped to [0, cap] and shifted into
+    the key's length field, the one-range unsigned test with the
+    empty-range guard,
+    the add-max per candidate, and the unpack at the end."""
+    adj = np.asarray(adj, np.int64)
+    spos = np.asarray(spos, np.int64)
+    b, n = adj.shape
+    threads, h = 256, (k_each + 3) & ~3
+    tile = threads * e
+    ntiles = -(-n // tile)
+    tail = ntiles * tile - n + h
+    out_len = np.zeros((b, n), np.int64)
+    out_dist = np.zeros((b, n), np.int64)
+    for r in range(b):
+        sa = np.concatenate([np.zeros(h), adj[r], np.zeros(tail)])
+        sp = np.concatenate([np.full(h, _PAD_POS), spos[r],
+                             np.full(tail, _PAD_POS)]).astype(np.int64)
+        for t in range(ntiles):
+            idx = (t * tile + np.arange(threads)[:, None] * e
+                   + np.arange(e + 2 * h)[None, :])
+            wa = np.clip(sa[idx].astype(np.int64), 0, lcp_cap) << 15
+            wp = sp[idx]
+            for el in range(e):
+                c = h + el
+                p0 = wp[:, c]
+                lo = np.maximum(ws[r], p0 - WINDOW_SIZE)
+                span = p0 - 1 - lo
+                empty = span < 0
+                lo = np.where(empty, 2 ** 31 - 1, lo)
+                span = np.where(empty, 0, span)
+                best = p0 - WINDOW_SIZE - 1
+                for d in (-1,) if backward_only else (-1, 1):
+                    m = np.full_like(p0, lcp_cap << 15)
+                    for k in range(1, k_each + 1):
+                        m = np.minimum(m, wa[:, c - k + 1] if d < 0
+                                       else wa[:, c + k])
+                        cpos = wp[:, c + d * k]
+                        ok = ((cpos - lo) & 0xFFFFFFFF) <= span
+                        key = m + cpos
+                        assert np.all(np.abs(key[ok]) < 2 ** 31)
+                        best = np.where(ok, np.maximum(key, best), best)
+                kt = np.maximum(best + WINDOW_SIZE - p0, 0)
+                ln = kt >> 15
+                i = t * tile + np.arange(threads) * e + el
+                keep = i < n
+                out_len[r, i[keep]] = ln[keep]
+                out_dist[r, i[keep]] = np.where(
+                    ln > 0, WINDOW_SIZE - (kt & (WINDOW_SIZE - 1)), 0)[keep]
+    return out_len, out_dist
+
+
+def _scan_case(name, rng):
+    """(adj, spos, ws, lcp_cap) of one named case, (B, n) arrays."""
+    if name == "random":
+        n, cap = 1000, 32
+        adj = rng.integers(0, cap + 8, (2, n))
+        spos = np.stack([rng.permutation(n) for _ in range(2)])
+        return adj, spos, np.array([37, 0]), cap
+    if name == "ties":
+        # Every length equal to the cap, and repeated positions: ties in
+        # length at different and at equal distances (and distance 0).
+        n, cap = 600, 16
+        return (np.full((2, n), cap), rng.integers(0, n // 3, (2, n)),
+                np.array([0, 50]), cap)
+    if name == "zero-lcp":
+        n, cap = 800, 64
+        adj = np.where(rng.random((2, n)) < 0.5, 0, rng.integers(1, 70, (2, n)))
+        spos = np.stack([rng.permutation(n) for _ in range(2)])
+        return adj, spos, np.array([0, 0]), cap
+    if name == "empty-range":
+        # window_start past every position, and mid-row.
+        n, cap = 700, 32
+        adj = rng.integers(0, 40, (2, n))
+        spos = np.stack([rng.permutation(n) for _ in range(2)])
+        return adj, spos, np.array([n + 100, n // 2]), cap
+    if name == "window-edge":
+        # Neighbours at distances 32767, 32768 and 32769.
+        n, cap = 300, 16
+        spos = np.arange(n) * WINDOW_SIZE + (np.arange(n) % 3 == 0)
+        spos = np.stack([spos, spos[::-1].copy()])
+        return rng.integers(0, 20, (2, n)), spos, np.array([0, 0]), cap
+    if name == "row-ends":
+        # Three short rows: most neighbours fall outside their row.
+        n, cap = 37, 64
+        adj = rng.integers(0, 70, (3, n))
+        spos = np.stack([rng.permutation(n) for _ in range(3)])
+        return adj, spos, np.array([0, 5, 0]), cap
+    if name == "n-below-k":
+        n, cap = 5, 16
+        adj = rng.integers(0, 20, (2, n))
+        spos = np.stack([rng.permutation(n) for _ in range(2)])
+        return adj, spos, np.array([0, 0]), cap
+    if name == "negative-lcp":
+        # Negative LCPs count as 0: no candidate past one.
+        n, cap = 600, 32
+        adj = rng.integers(-40, 40, (2, n))
+        spos = np.stack([rng.permutation(n) for _ in range(2)])
+        return adj, spos, np.array([0, 9]), cap
+    assert name == "cap-0"
+    n = 500
+    adj = rng.integers(0, 20, (2, n))
+    spos = np.stack([rng.permutation(n) for _ in range(2)])
+    return adj, spos, np.array([0, 0]), 0
+
+
+def _scan_mirror_check(name, k_each, backward_only, cap=None):
+    rng = np.random.default_rng([k_each, int(backward_only), len(name)])
+    adj, spos, ws, case_cap = _scan_case(name, rng)
+    cap = case_cap if cap is None else cap
+    got = _scan_mirror(adj, spos, ws, k_each, cap, backward_only)
+    plain = kernels.scan_candidates_plain(_t(adj), _t(spos), _t(ws),
+                                          k_each, cap, backward_only)
+    for g, p in zip(got, plain):
+        np.testing.assert_array_equal(g, p.numpy())
+    for r in range(adj.shape[0]):
+        exp = pk.scan_candidates(
+            jnp.asarray(adj[r], jnp.int32), jnp.asarray(spos[r], jnp.int32),
+            jnp.int32(ws[r]), k_each, lcp_cap=cap,
+            backward_only=backward_only, interpret=True,
+        )
+        for g, x in zip(got, exp):
+            np.testing.assert_array_equal(g[r], np.asarray(x))
+
+
+@pytest.mark.parametrize("backward_only", [False, True],
+                         ids=["both", "backward"])
+@pytest.mark.parametrize("k_each", [1, 4, 6, 8, 12, 16, 64])
+def test_scan_kernel_arithmetic_every_k(k_each, backward_only):
+    """The kernel's formulation (packed key, folded range test, add-max,
+    unpack) in register-window order equals scan_candidates_plain and the
+    JAX scan_candidates for every K the levels use and the runtime-K
+    instance's 1 and 64, at lcp_cap 16, 32 and 64."""
+    cap = (16, 32, 64)[k_each % 3]
+    _scan_mirror_check("random", k_each, backward_only, cap)
+
+
+@pytest.mark.parametrize("k_each, backward_only", [(16, False), (4, True)],
+                         ids=["k16-both", "k4-backward"])
+@pytest.mark.parametrize("case", ["ties", "zero-lcp", "empty-range",
+                                  "window-edge", "row-ends", "n-below-k",
+                                  "cap-0", "negative-lcp"])
+def test_scan_kernel_arithmetic_edge_cases(case, k_each, backward_only):
+    _scan_mirror_check(case, k_each, backward_only)
+
+
 def _packed(rng, n, max_len=258):
     mlen = rng.integers(3, max_len + 1, size=n).astype(np.int32)
     mlen = np.where(rng.random(n) < 0.6, 0, mlen)
@@ -315,8 +467,17 @@ def test_wrappers_route_cpu_tensors_to_plain_versions():
             torch.zeros((2, 8), dtype=torch.int32),
             torch.zeros((2, 9), dtype=torch.int32),
             torch.zeros(2, dtype=torch.int32), 4, 16), ValueError),
+        (lambda: kernels.scan_candidates(
+            torch.zeros((2, 8), dtype=torch.int32),
+            torch.zeros((2, 8), dtype=torch.int32),
+            torch.zeros(2, dtype=torch.int32), 4, 1 << 15), ValueError),
+        (lambda: kernels.scan_candidates(
+            torch.zeros((2, 8), dtype=torch.int32),
+            torch.zeros((2, 8), dtype=torch.int32),
+            torch.zeros(2, dtype=torch.int32), 4, -1), ValueError),
     ],
-    ids=["dtype", "ndim", "contiguity", "row", "row-multiple", "shape"],
+    ids=["dtype", "ndim", "contiguity", "row", "row-multiple", "shape",
+         "lcp-cap-high", "lcp-cap-negative"],
 )
 def test_wrappers_reject_what_the_kernels_do_not_take(call, exc):
     with pytest.raises(exc):

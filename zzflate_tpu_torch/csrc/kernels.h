@@ -11,6 +11,9 @@
 extern "C" {
 #endif
 
+// spos: positions in [0, 2^30) (the matcher's suffix order is a permutation
+// of 0..n-1); adj: any int32, a negative LCP counts as 0; 0 <= lcp_cap <
+// 2^15 (checked by the wrapper).
 int zz_scan_candidates(const int* adj, const int* spos, const int* wstart,
                        int* out_len, int* out_dist, int batch, int n,
                        int k_each, int lcp_cap, int backward_only,

@@ -172,8 +172,11 @@ def scan_candidates(adj, spos, window_start, k_each: int, lcp_cap: int,
                     backward_only: bool = False):
     """K-neighbour candidate scan over a sorted suffix order.
 
-    adj, spos: (B, n) int32 (adjacent LCPs and positions in sort order);
-    window_start: (B,) int32. Returns (s_len, s_dist), (B, n) int32.
+    adj, spos: (B, n) int32 (adjacent LCPs and positions in sort order;
+    the kernel is exact for positions in [0, 2^30), which a suffix order
+    of n < 2^30 positions gives); window_start: (B,) int32. Returns
+    (s_len, s_dist), (B, n) int32. The kernel packs len << 15 into one
+    key, so lcp_cap must be below 2^15.
     """
     for nm, t, d in (("adj", adj, 2), ("spos", spos, 2),
                      ("window_start", window_start, 1)):
@@ -182,6 +185,8 @@ def scan_candidates(adj, spos, window_start, k_each: int, lcp_cap: int,
         raise ValueError("scan_candidates: shape mismatch")
     if not 1 <= k_each <= 64:
         raise ValueError("scan_candidates: k_each must be in 1..64")
+    if not 0 <= lcp_cap < 1 << 15:
+        raise ValueError("scan_candidates: lcp_cap must be in [0, 2^15)")
     if not _route(adj, spos, window_start):
         return scan_candidates_plain(adj, spos, window_start, k_each,
                                      lcp_cap, backward_only)
