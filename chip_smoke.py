@@ -9,10 +9,13 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    nvcc build of the three kernels from zzflate_tpu_torch/csrc;
 2. kernels: at the main-path shape (16, 294912) each kernel is held
    against its plain torch version on the card, on seeded inputs and on
-   the arrays a real L6 and L1 batch hand it; equality must be exact (the
-   codec is integer-only); parse_rows also on an input off that shape.
-   Device times: the kernel (parse_rows also per launch: exits, marks;
-   scan_candidates on each of its four real launches, with the bound and
+   the arrays the main path's L6 and L1 calls (two batches each) hand
+   it; equality must be exact (the codec is integer-only). parse_rows
+   and propagate_matches also on an input off that shape;
+   propagate_matches also on lengths up to 65 535, an all-match row, and
+   lengths 514 and 515 at the window's edge. Device times: the kernel
+   (parse_rows also per launch: exits, marks; scan_candidates and
+   propagate_matches on each of their real launches, with the bound and
    the share of it), the plain version, the bound, and for
    propagate_matches a library yardstick;
 3. main path: compress() on a seeded 8 MiB corpus at level 6 gzip and
@@ -187,10 +190,22 @@ def seeded_inputs(torch, n: int, seed: int):
     spos = torch.argsort(torch.rand((BATCH, n), generator=g, device=dev),
                          dim=1).int()
     ws = ri(0, 32769, (BATCH,))
-    # Lengths up to 400 exercise the 512-wide propagation window.
+    # Propagation: lengths up to 400 exercise the 512-wide window, a few up
+    # to 65 535 the domain's edge. Row 0 is all matches. Row 1 holds only a
+    # length of 514 at 100 (length 3 at k = 511: kept) and one of 515 at
+    # 2000 (length 3 at k = 512, one past the window: not carried).
     mlen = torch.where(torch.rand((BATCH, n), generator=g, device=dev) < 0.4,
                        ri(3, 401), 0)
-    pk = torch.where(mlen > 0, (mlen << 15) | (32768 - ri(1, 32769)), 0)
+    mlen = torch.where(torch.rand((BATCH, n), generator=g, device=dev) < 0.02,
+                       ri(3, 65536), mlen)
+    mlen[0] = ri(3, 259, (n,))
+    mlen[1] = 0
+    mlen[1, 100] = 514
+    mlen[1, 2000] = 515
+    pk = torch.where(mlen > 0, (mlen << 15) | (32768 - ri(1, 32769)), 0).int()
+    # Off the main-path shape: n not a multiple of 512 or of the tile, and
+    # n % 4 == 3 (4-byte loads and stores).
+    edge_pk = pk[:, : n - 1001].contiguous()
     step = torch.where(torch.rand((BATCH, n), generator=g, device=dev) < 0.3,
                        ri(3, 259), 1).int()
     starts = ri(0, 40000, (BATCH,))
@@ -201,7 +216,7 @@ def seeded_inputs(torch, n: int, seed: int):
     return {
         "scan_candidates": [(adj, spos, ws, 16, 64, False),
                             (adj, spos, ws, 8, 16, True)],
-        "propagate_matches": [(pk.int().contiguous(),)],
+        "propagate_matches": [(pk,), (edge_pk,)],
         "parse_rows": [(step, starts, 512), (edge_step, edge_starts, 512)],
     }
 
@@ -230,9 +245,8 @@ def phase_kernels(torch, kernels, zt, timer, data):
     real = {}
     for level in (6, 1):
         calls: dict = {}
-        with capture(kernels, calls):
-            zt.compress(data[: BATCH * MAIN_CHUNK], level=level,
-                        chunk_bytes=MAIN_CHUNK)
+        with capture(kernels, calls):  # two batches, as on the main path
+            zt.compress(data, level=level, chunk_bytes=MAIN_CHUNK)
         for name, args in calls.items():
             real.setdefault(name, []).extend((level, a) for a in args)
     plain = {
@@ -257,21 +271,10 @@ def phase_kernels(torch, kernels, zt, timer, data):
             err = max(err, e)
             checked += 1
         per_launch = None
-        if name == "scan_candidates":
-            per_launch = []
-            for level, args in real[name]:
-                t = timer.kernel_ms(lambda: kfn(*args))
-                b_ms, b_by, _ = bound(kernels, name, args)
-                per_launch.append({
-                    "level": level, "k_each": args[3], "lcp_cap": args[4],
-                    "backward_only": bool(args[5]), "ms": t,
-                    "bound_ms": b_ms, "bound_by": b_by, "share": b_ms / t,
-                })
-                log(f"  scan L{level} K={args[3]} cap={args[4]} "
-                    f"{'backward' if args[5] else 'both ways'}: {t:.4f} ms, "
-                    f"bound {b_ms * 1e3:.2f} us ({b_by}), share "
-                    f"{b_ms / t:.3f}")
-        # Time on the real L6 batch's call (for the scan: order B, K=16).
+        if name in ("scan_candidates", "propagate_matches"):
+            per_launch = [launch_line(timer, kernels, name, kfn, level, args)
+                          for level, args in real[name]]
+        # Time on the last real L6 launch (for the scan: order B, K=16).
         level, args = [la for la in real[name] if la[0] == 6][-1]
         if name == "parse_rows":
             _, phases = kernels.parse_rows_phases(*args)
@@ -299,6 +302,24 @@ def phase_kernels(torch, kernels, zt, timer, data):
     return results
 
 
+def launch_line(timer, kernels, name, kfn, level, args) -> dict:
+    """Time, bound and share of one real launch, printed and returned."""
+    t = timer.kernel_ms(lambda: kfn(*args))
+    b_ms, b_by, _ = bound(kernels, name, args)
+    line = {"level": level}
+    if name == "scan_candidates":
+        line.update(k_each=args[3], lcp_cap=args[4],
+                    backward_only=bool(args[5]))
+        what = (f"scan L{level} K={args[3]} cap={args[4]} "
+                f"{'backward' if args[5] else 'both ways'}")
+    else:
+        what = f"propagate L{level}"
+    line.update(ms=t, bound_ms=b_ms, bound_by=b_by, share=b_ms / t)
+    log(f"  {what}: {t:.4f} ms, bound {b_ms * 1e3:.2f} us ({b_by}), share "
+        f"{b_ms / t:.3f}")
+    return line
+
+
 def bound(kernels, name, args):
     """Least time for the call's work: max(bytes / HBM rate, ops / rate).
     Bytes: every input read once, every output written once. Ops: the
@@ -319,7 +340,13 @@ def bound(kernels, name, args):
     elif name == "propagate_matches":
         elems = args[0].numel()
         nbytes = elems * 8
-        ops = elems * 9 * 5  # nine rounds of sub, two gates, max
+        # The sliding-window max needs about 3 maxima per element (the
+        # prefix, the suffix, and their join), then the gate's compare and
+        # the final max: 5 integer-pipe operations. The offsets (u = pk -
+        # (E - m) * 2^15, and back) are adds that can issue on the FMA pipe
+        # as IMAD, which has 64 lanes of its own. Bytes bound it: 8 B per
+        # element against 5 operations.
+        ops = elems * 5
         extra = ""
     else:
         step, starts, row = args

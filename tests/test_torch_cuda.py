@@ -136,6 +136,84 @@ def test_scan_misaligned_view_matches_plain():
     _scan_exact(*views, ws, 16, 64, False)
 
 
+def _pack(length, dist):
+    return (np.asarray(length, np.int64) << 15) | (32768 - np.asarray(dist))
+
+
+# name: (B, n, lengths), as in test_torch_kernels.py (random lengths reach
+# 400 here), plus the main path's shape. Tiles are 4096 positions (8 blocks
+# of 512).
+PROP_CASES = {
+    "n-below-512": (2, 300, "random"),
+    "n-512": (1, 512, "random"),
+    "tile-minus-1": (2, 4095, "random"),
+    "tile-plus-1-rows-differ": (3, 4097, "random"),
+    "n-mod-4-is-1": (2, 5001, "random"),
+    "all-zero": (2, 1500, "zero"),
+    "all-match": (2, 1500, "all"),
+    "lengths-1-2": (2, 1500, "short"),
+    "ties": (2, 1500, "ties"),
+    "window-edge": (2, 1300, "edge"),
+    "lengths-to-65535": (2, 9000, "long"),
+    "main-path-shape": (16, 294912, "random"),
+}
+
+
+def _prop_case(name):
+    b, n, kind = PROP_CASES[name]
+    rng = np.random.default_rng(list(PROP_CASES).index(name))
+    if kind == "zero":
+        return np.zeros((b, n), np.int32)
+    if kind == "edge":
+        # 514 reaches 511 on as length 3 (kept); 515 would reach 512 on.
+        pk = np.zeros((b, n), np.int64)
+        pk[0, 100] = _pack(514, 7)
+        pk[1, 100] = _pack(515, 9)
+        pk[0, 700] = _pack(3, 5)
+        return pk.astype(np.int32)
+    lo, hi, density = {"random": (3, 401, 0.4), "all": (3, 259, 1.0),
+                       "short": (1, 5, 0.6), "ties": (3, 7, 0.7),
+                       "long": (3, 65536, 0.05)}[kind]
+    length = rng.integers(lo, hi, (b, n))
+    if kind == "long":
+        length[:, :3] = [65535, 65535, 259]
+        length[:, n // 2] = 65535
+    keep = rng.random((b, n)) < density
+    keep[:, :3] |= kind == "long"
+    dist = rng.integers(1, 32769, (b, n))
+    return np.where(keep, _pack(length, dist), 0).astype(np.int32)
+
+
+def _prop_exact(pk):
+    before = kernels.launches["propagate_matches"]
+    got = kernels.propagate_matches(pk)
+    torch.cuda.synchronize()
+    assert kernels.launches["propagate_matches"] == before + 1
+    assert torch.equal(got, kernels.propagate_matches_plain(pk))
+    return got
+
+
+@pytest.mark.parametrize("case", list(PROP_CASES))
+def test_propagate_edge_cases_match_plain(case):
+    _card()
+    got = _prop_exact(_t(_prop_case(case)))
+    if case == "window-edge":
+        assert got[0, 100 + 511].item() == _pack(3, 7)
+        assert got[1, 100 + 512].item() == 0
+
+
+def test_propagate_misaligned_view_matches_plain():
+    """Contiguous rows that start 4 bytes past a 16-byte boundary take the
+    4-byte loads and stores."""
+    _card()
+    b, n = 2, 9000
+    flat = torch.empty(b * n + 1, dtype=torch.int32, device="cuda")
+    pk = flat[1:].view(b, n)
+    pk.copy_(_t(_prop_case("lengths-to-65535")))
+    assert pk.is_contiguous() and pk.data_ptr() % 16
+    _prop_exact(pk)
+
+
 # name: (B, rows per chunk, starts, steps), as in test_torch_kernels.py,
 # plus enough 32-row segments for two passes of the marks kernel's map
 # staging (32 segment maps a pass).

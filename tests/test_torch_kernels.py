@@ -269,6 +269,124 @@ def test_propagate_plain_keeps_the_reference_512_window():
     assert tpu[100 + 300] == 0
 
 
+_C = 1 << 15
+_NEG = -(1 << 30)
+_PROP_TILE = 8 * 512  # csrc/propagate.cu: kWarps blocks of kReach
+
+
+def _prop_mirror(pk):
+    """csrc/propagate.cu's arithmetic in numpy, in its order: each row cut
+    into tiles of 8 blocks of 512 aligned to the row start, with one halo
+    block in front (0 outside the row); offsets taken down from the tile's
+    end E, u = pk - (E - m) * 2^15, held to int32; per block the prefix max
+    and the max over the positions after each element; M = max(prefix, the
+    block before's after-max); then + (E - i) * 2^15 and the gate."""
+    pk = np.asarray(pk, np.int64)
+    b, n = pk.shape
+    out = np.zeros((b, n), np.int64)
+    for r in range(b):
+        for t in range(-(-n // _PROP_TILE)):
+            end = (t + 1) * _PROP_TILE
+            idx = t * _PROP_TILE - 512 + np.arange(_PROP_TILE + 512)
+            v = np.where((idx >= 0) & (idx < n), pk[r, np.clip(idx, 0, n - 1)],
+                         0)
+            u = v - (end - idx) * _C
+            assert u.min() >= -2 ** 31 and u.max() < 2 ** 31
+            blk = u.reshape(-1, 512)
+            pre = np.maximum.accumulate(blk, axis=1)
+            suf = np.maximum.accumulate(blk[:, ::-1], axis=1)[:, ::-1]
+            after = np.concatenate([suf[:, 1:], np.full((len(blk), 1), _NEG)],
+                                   axis=1)
+            m = np.maximum(pre[1:], after[:-1]).reshape(-1) + (end - idx[512:]) * _C
+            assert m.max() < 2 ** 31
+            res = np.where(m >= 3 * _C, m, v[512:])
+            keep = idx[512:] < n
+            out[r, idx[512:][keep]] = res[keep]
+    return out
+
+
+def _pack(length, dist):
+    return (np.asarray(length, np.int64) << 15) | (WINDOW_SIZE - np.asarray(dist))
+
+
+# name: (B, n, lengths). Tiles are 4096 positions (8 blocks of 512).
+_PROP_CASES = {
+    "n-below-512": (2, 300, "random"),
+    "n-512": (1, 512, "random"),
+    "tile-minus-1": (2, 4095, "random"),
+    "tile-plus-1-rows-differ": (3, 4097, "random"),
+    "n-mod-4-is-1": (2, 5001, "random"),
+    "all-zero": (2, 1500, "zero"),
+    "all-match": (2, 1500, "all"),
+    "lengths-1-2": (2, 1500, "short"),
+    "ties": (2, 1500, "ties"),
+    "window-edge": (2, 1300, "edge"),
+    "lengths-to-65535": (2, 9000, "long"),
+}
+
+
+def _prop_case(name):
+    """(B, n) packed input of one named case."""
+    b, n, kind = _PROP_CASES[name]
+    rng = np.random.default_rng(list(_PROP_CASES).index(name))
+    dist = rng.integers(1, WINDOW_SIZE + 1, (b, n))
+    if kind == "zero":
+        return np.zeros((b, n), np.int32)
+    if kind == "edge":
+        # A length of 514 reaches 511 on (length 3, kept); 515 would be
+        # length 3 at 512 on, one past the window (not carried).
+        pk = np.zeros((b, n), np.int64)
+        pk[0, 100] = _pack(514, 7)
+        pk[1, 100] = _pack(515, 9)
+        pk[0, 700] = _pack(3, 5)
+        return pk.astype(np.int32)
+    lo, hi, density = {"random": (3, 259, 0.4), "all": (3, 259, 1.0),
+                       "short": (1, 5, 0.6), "ties": (3, 7, 0.7),
+                       "long": (3, 65536, 0.05)}[kind]
+    length = rng.integers(lo, hi, (b, n))
+    if kind == "long":
+        # The domain's edge at both ends of the range, and mid-row.
+        length[:, :3] = [65535, 65535, 259]
+        length[:, n // 2] = 65535
+    keep = rng.random((b, n)) < density
+    keep[:, :3] |= kind == "long"
+    return np.where(keep, _pack(length, dist), 0).astype(np.int32)
+
+
+@pytest.mark.parametrize("case", list(_PROP_CASES))
+def test_propagate_kernel_arithmetic_edge_cases(case):
+    """The kernel's formulation (512-aligned blocks, one halo block, offsets
+    from the tile end, the gate after the offset is added back) equals
+    propagate_matches_plain and the reference's doubling loop, and the JAX
+    Pallas kernel where every length is in [3, 258] (its 256-wide window is
+    exact only up to 258, and it gates lengths 1-2 to 0)."""
+    packed = _prop_case(case)
+    got = _prop_mirror(packed)
+    plain = kernels.propagate_matches_plain(_t(packed)).numpy()
+    np.testing.assert_array_equal(got, plain)
+    lengths = packed >> 15
+    short = ((lengths == 0) | ((lengths >= 3) & (lengths <= 258))).all()
+    for r in range(packed.shape[0]):
+        np.testing.assert_array_equal(got[r], _jax_doubling(packed[r]))
+        if short:
+            exp = pk.propagate_matches(jnp.asarray(packed[r]), interpret=True)
+            np.testing.assert_array_equal(got[r], np.asarray(exp))
+    if case == "window-edge":
+        assert got[0, 100 + 511] == _pack(3, 7)
+        assert got[0, 100 + 512] == 0
+        assert got[1, 100 + 511] == _pack(4, 9)
+        assert got[1, 100 + 512] == 0
+        assert got[0, 701] == 0  # length 3 at 700 decays to 2: gated
+
+
+def test_propagate_plain_maps_negative_entries_to_zero():
+    """Outside the kernels' domain, [0, 2^31): the plain version takes
+    max(pk, gated candidate or 0), so a negative entry becomes 0 (or a
+    carried match); the CUDA kernel is not defined there."""
+    got = kernels.propagate_matches_plain(_t([[-5, 0, 7 << 15, -3]]))
+    np.testing.assert_array_equal(got.numpy(), [[0, 0, 7 << 15, 6 << 15]])
+
+
 def _parse_fixture(lazy):
     from zzflate_tpu_torch.ops import matcher
 

@@ -19,6 +19,9 @@ int zz_scan_candidates(const int* adj, const int* spos, const int* wstart,
                        int k_each, int lcp_cap, int backward_only,
                        void* stream);
 
+// pk: every entry in [0, 2^31): 0, or len << 15 | (32768 - dist), which is
+// what the matcher hands in. The kernel is not defined for a negative entry
+// (the plain version maps one to 0).
 int zz_propagate_matches(const int* pk, int* out, int batch, int n,
                          void* stream);
 

@@ -249,8 +249,10 @@ def scan_candidates_plain(adj, spos, window_start, k_each: int,
 def propagate_matches(pk):
     """Interior-suffix propagation of the packed best array.
 
-    pk: (B, n) int32, len << 15 | (32768 - dist), 0 where no match.
-    Returns (B, n) int32 after nine doubling rounds (shifts 1..256)."""
+    pk: (B, n) int32, len << 15 | (32768 - dist), 0 where no match: every
+    entry in [0, 2^31), which is what the matcher hands in. Returns (B, n)
+    int32 after nine doubling rounds (shifts 1..256). The CUDA kernel is
+    not defined for a negative entry, which the plain version maps to 0."""
     _check("pk", pk, 2)
     if not _route(pk):
         return propagate_matches_plain(pk)
