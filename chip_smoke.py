@@ -5,12 +5,15 @@
 
 Phases (any failure raises and exits nonzero; nothing is caught):
 
-1. card: the device name, nvidia-smi's name and power limit, and the
-   nvcc build of the three kernels from zzflate_tpu_torch/csrc;
+1. card: the device name, nvidia-smi's name and power limit, the nvcc
+   build of the three kernels from zzflate_tpu_torch/csrc and the host
+   C compiler's build of the port's C runtime (zzflate_tpu_torch/native);
 2. kernels: at the main-path shape (16, 294912) each kernel is held
    against its plain torch version on the card, on seeded inputs and on
-   the arrays the main path's L6 and L1 calls (two batches each) hand
-   it; equality must be exact (the codec is integer-only). parse_rows
+   the arrays the main path's L6, L1 and L9 calls and an L7 and an L8
+   call (two batches each) hand it (their order-B scans run K=20, 24
+   and 32 both ways, the runtime-K instance); equality must be exact
+   (the codec is integer-only). parse_rows
    and propagate_matches also on an input off that shape;
    propagate_matches also on lengths up to 65 535, an all-match row, and
    lengths 514 and 515 at the window's edge. Device times: the kernel
@@ -18,16 +21,19 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    propagate_matches on each of their real launches, with the bound and
    the share of it), the plain version, the bound, and for
    propagate_matches a library yardstick;
-3. main path: compress() on a seeded 8 MiB corpus at level 6 gzip and
-   level 1 zlib with 256 KiB chunks; each output must decode with stdlib
-   zlib to the input, and every kernel must have launched (counts reset
-   just before the first timed call, read just after). The median time
-   of MAIN_REPS calls, MB/s, size against zlib level 6, stage times
-   (a separate run) and a torch.profiler trace (another run: device time
-   by kernel, the card's idle share) are printed;
-4. reference bytes: a 1 MiB prefix on the card equals the port's CPU
-   path, and a fixed 64 KiB input at level 6 with 4 KiB chunks hashes to
-   REF_SHA256_L6_4K, the digest the JAX reference produces (asserted by
+3. main path: compress() on a seeded 8 MiB corpus at level 6 gzip,
+   level 1 zlib and level 9 gzip (the C optimal parse on the host) with
+   256 KiB chunks; each output must decode to the input with stdlib zlib
+   and with the port's own decompress(), and every kernel must have
+   launched in each level's run (counts reset just before its first
+   timed call, read just after). The median time of MAIN_REPS calls,
+   MB/s, size against zlib levels 6 and 9, stage times (a separate run)
+   and a torch.profiler trace (another run: device time by kernel, the
+   card's idle share) are printed;
+4. reference bytes: a 1 MiB prefix at levels 6 and 9 on the card equals
+   the port's CPU path, and a fixed 64 KiB input with 4 KiB chunks
+   hashes to REF_SHA256_L6_4K at level 6 and REF_SHA256_L9_4K at level
+   9, the digests the JAX reference produces (asserted by
    tests/test_torch_api.py).
 
 The second-to-last lines are the kernels JSON and nvidia-smi's line; the
@@ -48,10 +54,14 @@ import zlib
 MAIN_BYTES = 8 << 20
 MAIN_CHUNK = 1 << 18
 MAIN_REPS = 5  # timed compress() calls per level
+MAIN_RUNS = ((6, "gzip"), (1, "zlib"), (9, "gzip"))  # (level, format)
+# Phase 2 also takes L7's and L8's launches: their scans run K=20 and 24.
+KERNEL_RUNS = MAIN_RUNS + ((7, "gzip"), (8, "gzip"))
 BATCH = 16  # chunks per device batch on the main path
 REF_INPUT_BYTES = 1 << 16
 REF_INPUT_SEED = 7
 REF_SHA256_L6_4K = "5fb898053468dc47e80f13c50044f253ad40d6dc18c3b0f6b6d19f4149f7f15e"
+REF_SHA256_L9_4K = "b15bf0e7a7b67912b3b05250feb1c0a9463f2aec6fd94745db5b6e324a091233"
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 # H100 SXM 32-bit integer rate: the compare, select, min and add work of
@@ -221,7 +231,7 @@ def seeded_inputs(torch, n: int, seed: int):
     }
 
 
-def phase_card(torch, kernels):
+def phase_card(torch, kernels, native):
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -236,6 +246,10 @@ def phase_card(torch, kernels):
     for line in kernels.build_log.splitlines():
         if "registers" in line or "spill" in line or line.startswith("=="):
             log(f"  ptxas {line.strip()}")
+    t0 = time.perf_counter()
+    native.lib()
+    log(f"C runtime build: {time.perf_counter() - t0:.3f} s -> "
+        f"{native.library_path().name}")
     return name, smi
 
 
@@ -243,10 +257,10 @@ def phase_kernels(torch, kernels, zt, timer, data):
     """Each kernel against its plain version at the main-path shape."""
     n = 32768 + MAIN_CHUNK
     real = {}
-    for level in (6, 1):
+    for level, fmt in KERNEL_RUNS:
         calls: dict = {}
         with capture(kernels, calls):  # two batches, as on the main path
-            zt.compress(data, level=level, chunk_bytes=MAIN_CHUNK)
+            zt.compress(data, level=level, format=fmt, chunk_bytes=MAIN_CHUNK)
         for name, args in calls.items():
             real.setdefault(name, []).extend((level, a) for a in args)
     plain = {
@@ -383,14 +397,16 @@ def propagate_library_ms(torch, timer, pk):
 
 
 def phase_main(torch, kernels, zt, profiling, data):
-    """compress() on the 8 MiB corpus: L6 gzip and L1 zlib."""
-    t0 = time.perf_counter()
-    ref6 = zlib.compress(data, 6)
-    zlib_s = time.perf_counter() - t0
-    log(f"zlib-6 (host, one thread): {len(ref6)} B in {zlib_s:.4f} s "
-        f"({len(data) / 1e6 / zlib_s:.2f} MB/s)")
+    """compress() on the 8 MiB corpus: L6 gzip, L1 zlib and L9 gzip."""
+    ref = {}
+    for zl in (6, 9):
+        t0 = time.perf_counter()
+        ref[zl] = len(zlib.compress(data, zl))
+        zlib_s = time.perf_counter() - t0
+        log(f"zlib-{zl} (host, one thread): {ref[zl]} B in {zlib_s:.4f} s "
+            f"({len(data) / 1e6 / zlib_s:.2f} MB/s)")
     counts = {}
-    for level, fmt in ((6, "gzip"), (1, "zlib")):
+    for level, fmt in MAIN_RUNS:
         def run():
             return zt.compress(data, level=level, format=fmt,
                                chunk_bytes=MAIN_CHUNK)
@@ -405,6 +421,8 @@ def phase_main(torch, kernels, zt, profiling, data):
         back = gzip.decompress(out) if fmt == "gzip" else zlib.decompress(out)
         if back != data:
             raise AssertionError(f"L{level} {fmt}: output does not decode")
+        if zt.decompress(out, format=fmt) != data:
+            raise AssertionError(f"L{level} {fmt}: zt.decompress differs")
         idle = [k for k, v in launched.items() if v == 0]
         if idle:
             raise AssertionError(f"L{level}: kernels never launched: {idle}")
@@ -417,8 +435,9 @@ def phase_main(torch, kernels, zt, profiling, data):
         log(f"main L{level} {fmt}: {len(data)} -> {len(out)} B; median "
             f"{dt:.4f} s of {MAIN_REPS} calls (min {min(secs):.4f}, max "
             f"{max(secs):.4f}) = {len(data) / 1e6 / dt:.3f} MB/s; size vs "
-            f"zlib-6 {len(out) / len(ref6):.5f}; decodes with stdlib; "
-            f"launches {launched}")
+            f"zlib-6 {len(out) / ref[6]:.5f}, vs zlib-9 "
+            f"{len(out) / ref[9]:.5f}; decodes with stdlib and "
+            f"zt.decompress; launches {launched}")
         with profiling.collect() as st:
             run()
         log(f"stages L{level} ms (each stage synchronises the card): "
@@ -455,18 +474,20 @@ def trace(torch, run, level: int) -> None:
 
 def phase_reference(torch, zt, data, corpus):
     prefix = data[: 1 << 20]
-    gpu = zt.compress(prefix, level=6, format="gzip")
-    cpu = zt.compress(prefix, level=6, format="gzip", device="cpu")
-    if gpu != cpu:
-        raise AssertionError("1 MiB prefix: card bytes != CPU-path bytes")
     ref_in = corpus.mixed_corpus(REF_INPUT_BYTES, REF_INPUT_SEED)
-    digest = hashlib.sha256(
-        zt.compress(ref_in, level=6, chunk_bytes=4096)
-    ).hexdigest()
-    if digest != REF_SHA256_L6_4K:
-        raise AssertionError(f"REF_SHA256_L6_4K mismatch: {digest}")
-    log(f"reference: 1 MiB prefix card == CPU path ({len(gpu)} B); "
-        f"64 KiB L6/4K sha256 {digest} == REF_SHA256_L6_4K")
+    for level, want in ((6, REF_SHA256_L6_4K), (9, REF_SHA256_L9_4K)):
+        gpu = zt.compress(prefix, level=level, format="gzip")
+        cpu = zt.compress(prefix, level=level, format="gzip", device="cpu")
+        if gpu != cpu:
+            raise AssertionError(
+                f"L{level} 1 MiB prefix: card bytes != CPU-path bytes")
+        digest = hashlib.sha256(
+            zt.compress(ref_in, level=level, chunk_bytes=4096)
+        ).hexdigest()
+        if digest != want:
+            raise AssertionError(f"REF_SHA256_L{level}_4K mismatch: {digest}")
+        log(f"reference L{level}: 1 MiB prefix card == CPU path ({len(gpu)} "
+            f"B); 64 KiB L{level}/4K sha256 {digest} == REF_SHA256_L{level}_4K")
 
 
 def main() -> int:
@@ -476,10 +497,11 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     import zzflate_tpu_torch as zt
+    from zzflate_tpu_torch import native
     from zzflate_tpu_torch.ops import kernels
     from zzflate_tpu_torch.utils import corpus, profiling
 
-    name, smi = phase_card(torch, kernels)
+    name, smi = phase_card(torch, kernels, native)
     data = corpus.mixed_corpus(MAIN_BYTES, seed=0)
     timer = DeviceTimer(torch)
     results = phase_kernels(torch, kernels, zt, timer, data)
@@ -488,7 +510,9 @@ def main() -> int:
 
     line = {"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
-         "launches": counts[6][k], **results[k]}
+         "launches": counts[6][k],
+         "launches_by_level": {f"L{lv}": c[k] for lv, c in counts.items()},
+         **results[k]}
         for k, (src, rep) in KERNELS.items()
     ]}
     log(json.dumps(line))

@@ -3,7 +3,8 @@
 Every case must give byte-identical output (tolerance zero: the codec is
 integer-only and deterministic) that also decodes with stdlib zlib. Plus
 the package's rules: no JAX or reference import anywhere in the port or
-in chip_smoke.py, CUDA by default, levels 7-9 refused.
+in chip_smoke.py, and no path to the reference's C library; CUDA by
+default. Levels 7-9 are in tests/test_torch_optimal.py.
 """
 import ast
 import hashlib
@@ -16,6 +17,11 @@ import torch
 import zzflate_tpu as zf
 import zzflate_tpu_torch as zt
 from zzflate_tpu_torch.utils.corpus import mixed_corpus
+
+# The test processes share the CPU. With torch's default intra-op pool in
+# each of them it is oversubscribed, and a CPU-path call runs tens of
+# times slower; one thread apiece keeps the suite inside its time limit.
+torch.set_num_threads(1)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 CHUNK = 4096
@@ -73,6 +79,22 @@ def test_corner_inputs_equal_reference(level, data):
     _same_bytes(data, level)
 
 
+@pytest.mark.parametrize(
+    "case", ["zlib", "indexed"],
+)
+@pytest.mark.parametrize("level", [2, 3, 4, 5], ids=["L2", "L3", "L4", "L5"])
+def test_middle_levels_equal_reference(level, case):
+    """L2 and L5 scan at K=6 and K=12, L4-5 sort on 8 key words."""
+    _same_bytes(DATA, level, **CASES[case])
+
+
+@pytest.mark.parametrize("mem_level", [1, 2])
+def test_multi_batch_equals_reference(mem_level):
+    """mem_level 1 and 2 cut 70000 bytes at 4 KiB chunks into 3 and 2
+    device batches."""
+    _same_bytes(mixed_corpus(70000, 33), 6, mem_level=mem_level)
+
+
 def test_level0_and_default_chunk_equal_reference():
     """Level 0 (stored) and one run at the default 256 KiB chunk, whose
     four sub-blocks per chunk are the main path's layout."""
@@ -90,6 +112,21 @@ def test_reference_digest():
                           chip_smoke.REF_INPUT_SEED)
     out = _same_bytes(ref_in, 6)
     assert hashlib.sha256(out).hexdigest() == chip_smoke.REF_SHA256_L6_4K
+
+
+def test_reference_digest_l9():
+    """chip_smoke.py holds the card's bytes to REF_SHA256_L9_4K; this is
+    the JAX reference's digest of that input at level 9, taken with the
+    reference's C library built (without it the reference keeps the lazy
+    parse)."""
+    import chip_smoke
+    from zzflate_tpu import native as jax_native
+
+    assert jax_native.lib() is not None
+    ref_in = mixed_corpus(chip_smoke.REF_INPUT_BYTES,
+                          chip_smoke.REF_INPUT_SEED)
+    out = _same_bytes(ref_in, 9)
+    assert hashlib.sha256(out).hexdigest() == chip_smoke.REF_SHA256_L9_4K
 
 
 @pytest.mark.parametrize("kind", ["adler", "crc"])
@@ -124,6 +161,12 @@ def test_port_imports_neither_jax_nor_the_reference():
         if name.split(".")[0] in ("jax", "jaxlib", "zzflate_tpu")
     ]
     assert not bad
+    # Nor does any source name the reference's C library or its directory.
+    sources = files + sorted((ROOT / "zzflate_tpu_torch").rglob("*.c"))
+    named = [str(f.relative_to(ROOT)) for f in sources
+             if "zzflate_tpu/native" in f.read_text()
+             or "_libzzflate" in f.read_text()]
+    assert not named
 
 
 def test_default_device_is_cuda():
@@ -131,9 +174,3 @@ def test_default_device_is_cuda():
         pytest.skip("a CUDA card is present: the default runs there")
     with pytest.raises(RuntimeError):
         zt.compress(b"x")
-
-
-@pytest.mark.parametrize("level", [7, 8, 9])
-def test_optimal_levels_are_refused(level):
-    with pytest.raises(NotImplementedError):
-        zt.compress(b"x", level=level, device="cpu")

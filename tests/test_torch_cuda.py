@@ -83,11 +83,12 @@ def _scan_exact(adj, spos, ws, k_each, cap, back):
 
 @pytest.mark.parametrize("backward_only", [False, True],
                          ids=["both", "backward"])
-@pytest.mark.parametrize("k_each", [4, 6, 8, 12, 16, 1, 5, 64])
+@pytest.mark.parametrize("k_each", [4, 6, 8, 12, 16, 1, 5, 20, 24, 32, 64])
 def test_scan_every_k_matches_plain(k_each, backward_only):
     """The compile-time-K instances (4, 6, 8, 12, 16) and the runtime-K
-    one (1, 5, 64); n odd (4-byte copies) and n a multiple of 4 but not
-    of the tile (16-byte copies, a ragged last tile)."""
+    one (1, 5, 64, and 20, 24, 32: levels 7, 8, 9); n odd (4-byte copies)
+    and n a multiple of 4 but not of the tile (16-byte copies, a ragged
+    last tile)."""
     _card()
     rng = np.random.default_rng(k_each * 2 + int(backward_only))
     for n in (12345, 40000):
@@ -290,13 +291,26 @@ CASES = {
 
 
 @pytest.mark.parametrize("case", list(CASES))
-@pytest.mark.parametrize("level", [1, 6], ids=["L1", "L6"])
+@pytest.mark.parametrize("level", [1, 6, 7, 9], ids=["L1", "L6", "L7", "L9"])
 def test_compress_on_card_equals_cpu_path(level, case):
     _card()
     kw = CASES[case]
     gpu = zt.compress(DATA, level=level, chunk_bytes=4096, **kw)
     cpu = zt.compress(DATA, level=level, chunk_bytes=4096, device="cpu", **kw)
     assert gpu == cpu
+
+
+@pytest.mark.parametrize("level, fmt", [(6, "zlib"), (9, "gzip")])
+def test_card_output_decodes_with_port_decompress(level, fmt):
+    """The card's bytes decode with the port's own host decoder, as with
+    stdlib zlib, and an indexed L9 stream reads back by range."""
+    _card()
+    out = zt.compress(DATA, level=level, format=fmt, chunk_bytes=4096)
+    assert zt.decompress(out, format=fmt) == DATA
+    assert zlib.decompress(out, wbits=31 if fmt == "gzip" else 15) == DATA
+    idx = zt.compress(DATA, level=level, format="gzip", chunk_bytes=4096,
+                      indexed=True, seekable=True)
+    assert zt.decompress_range(idx, 5000, 7000) == DATA[5000:12000]
 
 
 def test_full_width_emit_on_card_equals_cpu_path():

@@ -1,6 +1,7 @@
 """The port's two-phase encoder against the JAX package's, on the CPU.
 
-Phase 1 (analyze_chunks_batch): every key of the output dict is equal.
+Phase 1 (analyze_chunks_batch): every key of the output dict is equal
+(at levels 7-9 also mm_packed, the DP's packed candidates).
 Phase 2 (emit_chunks_batch): fed the JAX analysis through
 zzflate_tpu_torch.interop, so a mismatch is the emit's alone; compact
 and full-width, with and without anchors, with one and with two
@@ -23,6 +24,11 @@ from zzflate_tpu_torch.encode_pipeline import build_chunk_batch
 from zzflate_tpu_torch.models import deflate_encoder as enc
 from zzflate_tpu_torch.utils.corpus import mixed_corpus
 
+# The test processes share the CPU. With torch's default intra-op pool in
+# each of them it is oversubscribed, and a CPU-path call runs tens of
+# times slower; one thread apiece keeps the suite inside its time limit.
+torch.set_num_threads(1)
+
 _KEYS = ("freq_ll", "freq_d", "freqs", "committed", "is_match",
          "litlen_sym", "lcode", "dcode", "mlen", "mdist")
 
@@ -40,7 +46,8 @@ def _jax_analysis(level, buf, starts, vends, wstarts, **kw):
         jnp.asarray(buf), jnp.asarray(starts), jnp.asarray(vends),
         jnp.asarray(wstarts), JAX_LEVELS[level], **kw,
     )
-    return {k: np.asarray(ana[k]) for k in _KEYS}
+    return {k: np.asarray(ana[k]) for k in _KEYS + ("mm_packed",)
+            if k in ana}
 
 
 @pytest.fixture(scope="module")
@@ -62,8 +69,8 @@ def _params(level):
 @pytest.mark.parametrize(
     "level, kw",
     [(6, {}), (1, {}), (1, {"strategy": 3}), (1, {"max_dist": 512}),
-     (1, {"huffman_only": True})],
-    ids=["L6", "L1", "L1-rle", "L1-wbits9", "L1-huffman-only"],
+     (1, {"huffman_only": True}), (9, {})],
+    ids=["L6", "L1", "L1-rle", "L1-wbits9", "L1-huffman-only", "L9"],
 )
 def test_analyze_equals_reference(small, ref_l6, level, kw):
     exp = ref_l6 if (level, kw) == (6, {}) else _jax_analysis(level, *small,
@@ -71,7 +78,9 @@ def test_analyze_equals_reference(small, ref_l6, level, kw):
     buf, starts, vends, wstarts = (torch.as_tensor(a) for a in small)
     got = enc.analyze_chunks_batch(buf, starts, vends, wstarts,
                                    _params(level), **kw)
-    for k in _KEYS:
+    assert set(got) == set(exp)
+    assert ("mm_packed" in got) == (level == 9)
+    for k in exp:
         np.testing.assert_array_equal(got[k].numpy(), exp[k], err_msg=k)
 
 

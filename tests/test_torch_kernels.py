@@ -17,6 +17,11 @@ from zzflate_tpu.constants import WINDOW_SIZE
 from zzflate_tpu.ops import pallas_kernels as pk
 from zzflate_tpu_torch.ops import kernels
 
+# The test processes share the CPU. With torch's default intra-op pool in
+# each of them it is oversubscribed, and a CPU-path call runs tens of
+# times slower; one thread apiece keeps the suite inside its time limit.
+torch.set_num_threads(1)
+
 
 def _t(a):
     return torch.as_tensor(np.ascontiguousarray(a, dtype=np.int32))

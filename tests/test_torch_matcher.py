@@ -18,6 +18,11 @@ from zzflate_tpu.ops import matcher as jax_matcher
 from zzflate_tpu_torch.ops import matcher
 from zzflate_tpu_torch.utils.corpus import mixed_corpus
 
+# The test processes share the CPU. With torch's default intra-op pool in
+# each of them it is oversubscribed, and a CPU-path call runs tens of
+# times slower; one thread apiece keeps the suite inside its time limit.
+torch.set_num_threads(1)
+
 N = 32768 + 4096  # one chunk row at chunk_bytes=4096
 
 

@@ -2,16 +2,23 @@
 
 A port of the JAX package ``zzflate_tpu`` (which stays the reference) to
 PyTorch, with the matcher's three TPU kernels rewritten as hand-written
-CUDA kernels for Hopper (sm_90a). This slice covers ``compress`` at
-levels 0-6: zlib, gzip and raw formats, preset dictionaries, window_bits,
-mem_level, strategies and indexed/seekable gzip. Output bytes equal the
-reference's.
+CUDA kernels for Hopper (sm_90a). It covers ``compress`` at levels 0-9
+(levels 7-9 re-parse on the host with the port's C runtime): zlib, gzip
+and raw formats, preset dictionaries, window_bits, mem_level, strategies,
+indexed/seekable gzip and the host C engine; and host ``decompress`` and
+``decompress_range``. Output bytes equal the reference's.
 
     import zzflate_tpu_torch as zt
     blob = zt.compress(data, level=6, format="gzip")   # on the GPU
     blob = zt.compress(data, device="cpu")             # plain torch on the CPU
+    data = zt.decompress(blob, format="gzip")          # C decoder on the host
 """
-from zzflate_tpu_torch.api import compress, compress_bound
+from zzflate_tpu_torch.api import (
+    compress,
+    compress_bound,
+    decompress,
+    decompress_range,
+)
 from zzflate_tpu_torch.config import (
     STRATEGY_DEFAULT,
     STRATEGY_FILTERED,
@@ -24,6 +31,8 @@ from zzflate_tpu_torch.config import (
 __all__ = [
     "compress",
     "compress_bound",
+    "decompress",
+    "decompress_range",
     "CodecConfig",
     "STRATEGY_DEFAULT",
     "STRATEGY_FILTERED",

@@ -1,24 +1,28 @@
-"""Public one-shot API: compress and compress_bound.
+"""Public one-shot API: compress, compress_bound, decompress and
+decompress_range.
 
-Port of ``zzflate_tpu/api.py:24-165`` for levels 0-6 on the device
-pipeline. Bytes in, bytes out, with the reference's level, format,
-dictionary, window_bits, mem_level, strategy and indexed/seekable
-options. Container checksums use the stdlib ``zlib`` functions: they are
-host framing, not compression.
+Port of ``zzflate_tpu/api.py``. Bytes in, bytes out, with the
+reference's level, format, dictionary, window_bits, mem_level, strategy,
+engine and indexed/seekable options. Container checksums use the stdlib
+``zlib`` functions: they are host framing, not compression.
 
-Device rule: ``device=None`` means CUDA and raises RuntimeError when no
-GPU is present; only an explicit ``device="cpu"`` runs the plain torch
-versions of the kernels on the CPU.
+Device rule: ``compress(device=None)`` means CUDA and raises
+RuntimeError when no GPU is present; only an explicit ``device="cpu"``
+runs the plain torch versions of the kernels on the CPU. Decoding and
+``engine="native"`` run on the host, in the port's C runtime.
 """
 from __future__ import annotations
 
+import struct
 import zlib as _zlib
 
 import torch
 
 from zzflate_tpu_torch import config as cfg_mod
+from zzflate_tpu_torch import native
 from zzflate_tpu_torch.config import CodecConfig
 from zzflate_tpu_torch.encode_pipeline import encode_segments
+from zzflate_tpu_torch.models import inflate
 from zzflate_tpu_torch.utils import containers
 
 
@@ -55,6 +59,7 @@ def compress(
     mem_level: int = 8,
     seekable: bool = False,
     device: str | torch.device | None = None,
+    engine: str = "device",
 ) -> bytes:
     """One-shot compress to a zlib/gzip/raw stream (decodable by zlib).
 
@@ -62,28 +67,49 @@ def compress(
     per-chunk compressed sizes, block and anchor offsets; seekable=True
     (requires indexed) also resets the LZ window at every chunk boundary
     so any chunk decodes from its own segment. window_bits 8..15 bounds
-    match distances to 2^window_bits.
+    match distances to 2^window_bits. Levels 7-9 re-parse each chunk
+    with the C shortest-bit-path DP over the device's matches.
+
+    engine="device" (default) runs the pipeline on `device`;
+    engine="native" runs the host C encoder in chunks of at least 1 MiB
+    on a thread pool, never touches the card (`device` is unused) and
+    does not write indexed streams.
     """
     data = bytes(data)
     config = CodecConfig(
         level=level, format=format, chunk_bytes=chunk_bytes,
         strategy=strategy, window_bits=window_bits, mem_level=mem_level,
     )
-    if level >= 7:
-        raise NotImplementedError("levels 7-9 come with the optimal-parse slice")
     if dictionary is not None and format == "gzip":
         raise ValueError("gzip streams cannot carry a preset dictionary")
     if indexed and format != "gzip":
         raise ValueError("indexed output requires format='gzip'")
+    if engine not in ("device", "native"):
+        raise ValueError(f"unknown engine {engine!r}")
+    if engine == "native" and indexed:
+        raise ValueError("indexed output requires engine='device'")
     if seekable and not indexed:
         raise ValueError("seekable output requires indexed=True")
     if indexed and level == 0:
         raise ValueError("indexed output requires level >= 1")
-    dev = _resolve_device(device)
+    if engine == "device":
+        dev = _resolve_device(device)
 
     segments: list[bytes] | None = None
     if level == 0:
         payload = containers.stored_segment(data, final=True)
+    elif engine == "native":
+        # Output bytes depend only on (data, parameters), never on the
+        # machine's core count (deflate_raw_mt's contract).
+        payload = native.deflate_raw_mt(
+            data, level=level, dictionary=dictionary or b"",
+            max_dist=min(32768, 1 << config.window_bits), final=True,
+            strategy=strategy, chunk_bytes=max(chunk_bytes, 1 << 20),
+        )
+        # Whole-stream stored fallback keeps the compress_bound contract.
+        stored_whole = containers.stored_segment(data, final=True)
+        if len(stored_whole) < len(payload):
+            payload = stored_whole
     else:
         enc = encode_segments(
             data, config, dictionary, dev, with_anchors=indexed,
@@ -119,3 +145,70 @@ def compress(
     else:
         hdr = containers.gzip_header()
     return hdr + payload + containers.gzip_trailer(_zlib.crc32(data), len(data))
+
+
+def decompress(data: bytes, format: str = "zlib",
+               dictionary: bytes | None = None) -> bytes:
+    """One-shot decode of a zlib/gzip/raw stream on the host (the C
+    decoder), checksums verified; ValueError on a bad stream."""
+    return inflate.decompress(bytes(data), format=format,
+                              dictionary=dictionary)
+
+
+def decompress_range(data: bytes, offset: int, length: int) -> bytes:
+    """Read [offset, offset+length) of an indexed gzip stream without
+    decoding the whole member.
+
+    Seekable streams decode only the chunks covering the range;
+    halo-encoded indexed streams decode the chunks up to the range's
+    end. Unindexed streams are decoded whole and sliced. Checksums are
+    not verified on partial reads (the gzip CRC covers the whole
+    member); use decompress() for a verified full read."""
+    data = bytes(data)
+    if offset < 0 or length < 0:
+        raise ValueError("offset/length must be non-negative")
+    parsed = containers.parse_gzip_index(data)
+    if parsed is None:
+        out = inflate.decompress(data, format="gzip")
+        if offset + length > len(out):
+            raise ValueError("range beyond the decoded stream")
+        return out[offset : offset + length]
+    header_len, chunk_bytes, _anchor_tokens, chunks = parsed
+    member_len = header_len + sum(sz for sz, _b, _a in chunks) + 8
+    if member_len > len(data):
+        raise ValueError("indexed stream shorter than its index")
+    (isize,) = struct.unpack("<I", data[member_len - 4 : member_len])
+    if offset + length > isize:
+        raise ValueError("range beyond the decoded stream")
+    if length == 0:
+        return b""
+    flags = containers.gzip_index_flags(data) or 0
+    seekable = bool(flags & containers.ZZ_FLAG_SEEKABLE)
+
+    c0 = offset // chunk_bytes
+    c1 = min(len(chunks), -(-(offset + length) // chunk_bytes))
+    lo = c0 if seekable else 0
+    starts = []
+    cpos = header_len
+    for sz, _b, _a in chunks:
+        starts.append(cpos)
+        cpos += sz
+    window = b""
+    parts: list[bytes] = []
+    for ci in range(lo, c1):
+        seg = data[starts[ci] : starts[ci] + chunks[ci][0]]
+        expect = min(chunk_bytes, isize - ci * chunk_bytes)
+        out, _bit, _fin, _more = native.inflate_stream(
+            seg, window=window, out_cap_hint=expect + 16
+        )
+        if len(out) != expect:
+            raise ValueError("indexed segment decoded to the wrong size")
+        if not seekable:
+            # The encode halo is the last 32 KiB of all prior data, which
+            # spans several chunks when chunk_bytes < 32 KiB.
+            window = (window + out)[-32768:]
+        if ci >= c0:
+            parts.append(out)
+    blob = b"".join(parts)
+    rel = offset - c0 * chunk_bytes
+    return blob[rel : rel + length]

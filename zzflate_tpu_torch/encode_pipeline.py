@@ -5,7 +5,9 @@ analyze -> plan -> emit -> finish queue and the device<->host transfers.
 The stitching policy lives in encode_policy.py.
 
 Pipeline shape: device analyze (match, parse, histograms) for every
-batch, host Huffman/header build, device emit, host stitch in order.
+batch, host Huffman/header build (at levels 7-9 then the C optimal parse
+over the device's matches and a second build from its tokens), device
+emit, host stitch in order.
 Eager CUDA is asynchronous, so the overlap comes from the queue order:
 batch i+1's analyze is queued on the device before the host plans batch
 i, and one worker thread fetches and stitches finished batches in order
@@ -50,6 +52,7 @@ class _Ctx:
     params: object = None
     huffman_only: bool = False
     fixed_only: bool = False
+    optimal: bool = False  # levels 7-9: the C DP replaces the lazy parse
     n: int = 0
     nchunks: int = 0
     bsz: int = 0
@@ -133,6 +136,7 @@ def _make_ctx(data, config, dictionary, with_anchors, halo, device) -> _Ctx:
     ctx.params = config.params
     ctx.huffman_only = config.strategy == cfg_mod.STRATEGY_HUFFMAN_ONLY
     ctx.fixed_only = config.strategy == cfg_mod.STRATEGY_FIXED
+    ctx.optimal = ctx.params.optimal and not ctx.huffman_only
     ctx.n = len(data)
     ctx.nchunks = max(1, -(-ctx.n // ctx.chunk_bytes))
     # Never batch far beyond the real chunk count (padded rows run the
@@ -146,7 +150,11 @@ def _make_ctx(data, config, dictionary, with_anchors, halo, device) -> _Ctx:
 
 
 def _dispatch_analyze(ctx: _Ctx, b0: int):
-    """Stage host rows for chunks [b0, b0+bsz) and queue analysis."""
+    """Stage host rows for chunks [b0, b0+bsz) and queue analysis.
+
+    Returns the slice, the analysis, the wait for its freqs and, at
+    levels 7-9, what the DP reads on the host: the rows, their ends and
+    the wait for the packed candidates (copied beside the freqs)."""
     b1 = min(b0 + ctx.bsz, ctx.nchunks)
     cb = ctx.chunk_bytes
     with maybe_stage("build_batches"):
@@ -181,12 +189,16 @@ def _dispatch_analyze(ctx: _Ctx, b0: int):
             *db, ctx.params, huffman_only=ctx.huffman_only,
             strategy=ctx.config.strategy, max_dist=ctx.max_dist,
         )
-    return (b0, b1), ana, _fetch(ctx, ana["freqs"])
+    dp_in = None
+    if ctx.optimal:
+        dp_in = (buf, valid_ends, _fetch(ctx, ana["mm_packed"]))
+    return (b0, b1), ana, _fetch(ctx, ana["freqs"]), dp_in
 
 
-def _plan_and_emit(ctx: _Ctx, sl, ana, freqs_wait):
-    """Take the small freqs, build tables on the host, queue the emit.
-    The per-position analysis arrays are dropped afterwards."""
+def _plan_and_emit(ctx: _Ctx, sl, ana, freqs_wait, dp_in):
+    """Take the small freqs, build tables on the host (at levels 7-9
+    re-parse with the C DP and rebuild them), queue the emit. The
+    per-position analysis arrays are dropped afterwards."""
     b0, b1 = sl
     with maybe_stage("analyze_fetch_freqs"):
         freqs = freqs_wait()  # (bsz, SB, 288 + 30)
@@ -201,13 +213,22 @@ def _plan_and_emit(ctx: _Ctx, sl, ana, freqs_wait):
             )
             for j in range(ctx.bsz)
         ]
+    ntok = int(freq_ll.sum(axis=(1, 2)).max())
+    if dp_in is not None:
+        buf, valid_ends, mm_wait = dp_in
+        with maybe_stage("optimal_parse", ctx.device):
+            override, ntok = policy.optimal_override(
+                ctx, plans, ana, mm_wait(), buf, valid_ends, b0,
+            )
+            ana = dict(ana, **override)
     tables = interop.plan_stack(plans, ctx.device)
     kbm = policy.keep_bits_budget(ctx, b0, b1)
 
-    # Token-compacted emit when every chunk's committed token count fits
-    # the static budget; barely-compressible batches take full width.
+    # Token-compacted emit when every chunk's committed token count (the
+    # lazy parse's, or the DP's own) fits the static budget;
+    # barely-compressible batches take full width.
     budget = deflate_encoder.token_budget(ctx.chunk_bytes)
-    tok_slots = budget if int(freq_ll.sum(axis=(1, 2)).max()) <= budget else 0
+    tok_slots = budget if ntok <= budget else 0
     with maybe_stage("emit_dispatch", ctx.device):
         res = deflate_encoder.emit_chunks_batch(
             ana, ctx.out_words,

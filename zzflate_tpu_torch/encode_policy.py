@@ -1,17 +1,24 @@
-"""Stitching policy for the batched encode pipeline.
+"""Stitching and parse policy for the batched encode pipeline.
 
-Port of ``zzflate_tpu/encode_policy.py:23-99`` for the whole-buffer
+Port of ``zzflate_tpu/encode_policy.py`` for the whole-buffer
 ``compress`` path (every segment framed, the last chunk final): when the
 stored fallback beats the Huffman segment, the device-side keep_bits_max
 budget that mirrors it, how a finished chunk becomes a framed segment,
-and its block/anchor index rows. The level 7-9 optimal-parse override
-comes with the optimal-parse slice.
+its block/anchor index rows, and the level 7-9 optimal-parse override.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
+from zzflate_tpu_torch import constants as C
+from zzflate_tpu_torch import native
+from zzflate_tpu_torch.models import deflate_encoder
+from zzflate_tpu_torch.ops import huffman_host
 from zzflate_tpu_torch.utils import containers
+from zzflate_tpu_torch.utils.profiling import maybe_stage
+
+_WINDOW = 32768
 
 
 def _stored_len(ctx, i: int) -> int:
@@ -81,3 +88,71 @@ def index_rows(plan, sb_bits_row, sb_out_row, anc_bit_row, anc_out_row):
     ]
     anc.sort()
     return blocks, anc
+
+
+def optimal_override(ctx, plans, ana, mm_packed, buf, valid_ends, b0: int):
+    """Levels 7-9: replace the lazy parse of one batch with the C
+    shortest-bit-path DP over the device matcher's (mlen, mdist), priced
+    by the pass-1 trees in `plans`, then rebuild each chunk's plan from
+    the DP's own tokens.
+
+    mm_packed, buf, valid_ends: the batch's host (B, N) int32 candidates
+    (mlen << 16 | mdist), (B, N) uint8 rows and (B,) ends. Every row is
+    parsed, padded ones too (they are empty). Replaces `plans` in place;
+    returns the emit's override arrays on ctx.device (committed,
+    is_match, litlen_sym, lcode, mlen = the DP's length; the analysis'
+    own dcode and mdist) and the largest committed-token count of a row.
+    Port of ``zzflate_tpu/encode_policy.py:102-186``."""
+    bsz, nn = buf.shape
+    mlen = mm_packed >> 16
+    mdist = mm_packed & 0xFFFF
+    bounds = deflate_encoder.sub_block_bounds(nn)
+    sbn = len(bounds) - 1
+    com_b = np.zeros((bsz, nn), bool)
+    take_b = np.zeros((bsz, nn), bool)
+    sel_b = np.zeros((bsz, nn), np.int32)
+    sym_b = np.zeros((bsz, nn), np.int32)
+    lcode_b = np.zeros((bsz, nn), np.int32)
+    for j in range(bsz):
+        with maybe_stage("optimal_parse_dp"):  # the C DP's own share
+            com, take, sel = native.optimal_parse(
+                buf[j], mlen[j], mdist[j], _WINDOW, int(valid_ends[j]),
+                plans[j]["ll_len"], plans[j]["d_len"], bounds,
+            )
+        com_b[j], take_b[j], sel_b[j] = com, take, sel
+        lc = C.LENGTH_TO_CODE[np.clip(sel, 0, C.MAX_MATCH)]
+        lcode_b[j] = lc
+        sym_b[j] = np.where(take, 257 + lc, buf[j].astype(np.int32))
+        # Distance codes of the taken matches only.
+        tk = np.flatnonzero(take)
+        dcode = np.searchsorted(C.DIST_BASE, mdist[j, tk], side="right") - 1
+        fll = np.zeros((sbn, C.NUM_LITLEN_SYMBOLS), np.int64)
+        fd = np.zeros((sbn, C.NUM_DIST_SYMBOLS), np.int64)
+        for b in range(sbn):
+            s, e = bounds[b], bounds[b + 1]
+            fll[b] = np.bincount(sym_b[j, s:e][com[s:e]],
+                                 minlength=C.NUM_LITLEN_SYMBOLS)
+            fd[b] = np.bincount(dcode[(tk >= s) & (tk < e)],
+                                minlength=C.NUM_DIST_SYMBOLS)
+        plans[j] = huffman_host.build_chunk_plan(
+            fll, fd, bfinal=int(b0 + j == ctx.nchunks - 1),
+            fixed_only=ctx.fixed_only,
+        )
+
+    def up(a):
+        t = torch.as_tensor(a)
+        if ctx.device.type == "cuda":
+            # Pinned staging: the upload does not wait for queued work.
+            t = t.pin_memory()
+        return t.to(ctx.device, non_blocking=True)
+
+    override = {
+        "committed": up(com_b),
+        "is_match": up(take_b),
+        "litlen_sym": up(sym_b),
+        "lcode": up(lcode_b),
+        "mlen": up(sel_b),
+        "dcode": ana["dcode"],
+        "mdist": ana["mdist"],
+    }
+    return override, int(com_b.sum(axis=1).max())

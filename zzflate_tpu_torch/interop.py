@@ -26,6 +26,7 @@ _ANALYSIS_DTYPES = {
     "dcode": torch.int32,
     "mlen": torch.int32,
     "mdist": torch.int32,
+    "mm_packed": torch.int32,
 }
 
 # Host-plan keys and the port's dtype (u32 codes ride as int64).

@@ -121,7 +121,8 @@ def analyze_chunks_batch(data, starts, valid_ends, window_starts, params,
     matches shorter than 5). max_dist < 32768 implements reduced
     windowBits by dropping far matches. Returns the reference's dict:
     freq_ll (B, SB, 288), freq_d (B, SB, 30), freqs (both, packed), and
-    the (B, N) committed, is_match, litlen_sym, lcode, dcode, mlen, mdist.
+    the (B, N) committed, is_match, litlen_sym, lcode, dcode, mlen, mdist,
+    and at levels 7-9 mm_packed = mlen << 16 | mdist.
     """
     bch, n = data.shape
     if huffman_only:
@@ -163,7 +164,7 @@ def analyze_chunks_batch(data, starts, valid_ends, window_starts, params,
                           C.NUM_DIST_SYMBOLS)
         for s, e in spans
     ], dim=1)
-    return {
+    out = {
         "freq_ll": freq_ll,
         "freq_d": freq_d,
         # One packed buffer, one device-to-host copy per batch:
@@ -177,6 +178,11 @@ def analyze_chunks_batch(data, starts, valid_ends, window_starts, params,
         "mlen": mlen,
         "mdist": mdist,
     }
+    if params.optimal:
+        # The host optimal-parse DP (levels 7-9) reads the candidates:
+        # (mlen, mdist <= 32768) packed into one int32, one copy.
+        out["mm_packed"] = (mlen << 16) | mdist
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,285 @@
+"""ctypes binding of the port's C runtime: host inflate, the level 7-9
+shortest-bit-path DP and the host deflate engine.
+
+The port's own copy of the JAX package's ``native/__init__.py``
+(:72-243, :322-439), bound to the port's own copy of the C source,
+``zzflate_native.c`` beside this file. At first use the host C compiler
+builds it (``-O3 -shared -fPIC``) into ``zzflate_tpu_torch/_build/``
+under a name keyed on a hash of the source and flags, so an edited
+source rebuilds by itself. There is no fallback: a missing compiler or
+a failed build raises RuntimeError with the compiler's output, and no
+wrapper returns None.
+"""
+from __future__ import annotations
+
+import concurrent.futures
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+
+import numpy as np
+
+_SRC = Path(__file__).resolve().parent / "zzflate_native.c"
+_BUILD = Path(__file__).resolve().parent.parent / "_build"
+CC_FLAGS = ("-O3", "-shared", "-fPIC")
+
+_lib = None
+_lib_lock = threading.Lock()
+
+# zzt_inflate error codes (zzflate_native.c)
+OK = 0
+ERRORS = {
+    -1: "invalid BTYPE",
+    -2: "stored block LEN/NLEN mismatch",
+    -3: "invalid Huffman table",
+    -4: "invalid symbol",
+    -5: "distance too far back",
+    -6: "output buffer full",
+    -7: "input overrun",
+    -8: "need more input",
+}
+E_OUTFULL = -6
+E_AGAIN = -8
+
+
+def library_path() -> Path:
+    """Where the built library lives: _build/, keyed on source and flags."""
+    h = hashlib.sha256(" ".join(CC_FLAGS).encode())
+    h.update(_SRC.read_bytes())
+    return _BUILD / f"libzzflate_native_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the C runtime into _build/ (a no-op when the hash matches)."""
+    target = library_path()
+    if target.exists():
+        return target
+    cc = shutil.which("gcc") or shutil.which("cc")
+    if cc is None:
+        raise RuntimeError(
+            "no host C compiler (gcc or cc): the C runtime cannot be built"
+        )
+    _BUILD.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_BUILD) as tmp:
+        tmp_so = Path(tmp) / target.name
+        r = subprocess.run(
+            [cc, *CC_FLAGS, "-o", str(tmp_so), str(_SRC)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        if r.returncode != 0:
+            raise RuntimeError(f"{cc} failed to build {_SRC.name}:\n{r.stdout}")
+        os.replace(tmp_so, target)
+    return target
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded library, built on first use."""
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            L = ctypes.CDLL(str(build()))
+            p, sz, i = ctypes.c_void_p, ctypes.c_size_t, ctypes.c_int
+            psz = ctypes.POINTER(ctypes.c_size_t)
+            # in, in_len, start_bit, out, out_cap, dict_len, out_len,
+            # end_bit, stop_bytes
+            L.zzt_inflate.argtypes = [ctypes.c_char_p, sz, sz, p, sz, sz,
+                                      psz, psz, sz]
+            # the same, then bfinal_out
+            L.zzt_inflate_stream.argtypes = L.zzt_inflate.argtypes + [
+                ctypes.POINTER(ctypes.c_uint32)]
+            # data, mlen, mdist, n, start, end, ll_bits (SB x 288),
+            # d_bits (SB x 30), sub_bounds, nsb, committed, take, sel_len
+            L.zzt_optimal_parse.argtypes = [
+                p, p, p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+                p, p, p, i, p, p, p]
+            # in, n, level, strategy, dict, dict_len, max_dist, final, out,
+            # out_cap, out_len
+            L.zzt_deflate.argtypes = [
+                ctypes.c_char_p, sz, i, i, ctypes.c_char_p, sz,
+                ctypes.c_int32, i, p, sz, psz]
+            for fn in (L.zzt_inflate, L.zzt_inflate_stream,
+                       L.zzt_optimal_parse, L.zzt_deflate):
+                fn.restype = ctypes.c_int
+            _lib = L
+    return _lib
+
+
+def inflate_raw(
+    data: bytes,
+    dictionary: bytes = b"",
+    bitpos: int = 0,
+    out_cap_hint: int | None = None,
+) -> tuple[bytes, int]:
+    """Raw-deflate decode. Returns (output, end_bitpos).
+
+    Raises ValueError on malformed streams (the contract of the Python
+    decoder in models/inflate.py). Grows the output buffer geometrically
+    when it fills."""
+    L = lib()
+    dictionary = dictionary[-32768:]
+    dlen = len(dictionary)
+    cap = out_cap_hint or max(4 * len(data) + 4096, 1 << 16)
+    while True:
+        buf = ctypes.create_string_buffer(dlen + cap)
+        if dlen:
+            ctypes.memmove(buf, dictionary, dlen)
+        out_len = ctypes.c_size_t(0)
+        end_bit = ctypes.c_size_t(0)
+        rc = L.zzt_inflate(
+            data, len(data), bitpos, ctypes.byref(buf), dlen + cap, dlen,
+            ctypes.byref(out_len), ctypes.byref(end_bit), 0,
+        )
+        if rc == OK:
+            out = ctypes.string_at(ctypes.addressof(buf) + dlen, out_len.value)
+            return out, end_bit.value
+        if rc == E_OUTFULL:
+            cap *= 4
+            continue
+        raise ValueError(ERRORS.get(rc, f"inflate error {rc}"))
+
+
+def inflate_stream(
+    data: bytes,
+    window: bytes = b"",
+    bitpos: int = 0,
+    stop_bytes: int = 0,
+    out_cap_hint: int | None = None,
+) -> tuple[bytes, int, bool, bool]:
+    """Incremental raw-deflate decode of as many complete blocks as `data`
+    allows, starting at `bitpos` with `window` as back-reference context.
+
+    Returns (output, end_bitpos, bfinal_reached, need_more_input). When
+    need_more_input is True, end_bitpos is the last complete block
+    boundary; feed more bytes and call again from there. Raises
+    ValueError on corruption strictly inside the available input."""
+    L = lib()
+    window = window[-32768:]
+    dlen = len(window)
+    cap = out_cap_hint or max(4 * len(data) + 4096, 1 << 16)
+    while True:
+        buf = ctypes.create_string_buffer(dlen + cap)
+        if dlen:
+            ctypes.memmove(buf, window, dlen)
+        out_len = ctypes.c_size_t(0)
+        end_bit = ctypes.c_size_t(0)
+        bfinal = ctypes.c_uint32(0)
+        rc = L.zzt_inflate_stream(
+            data, len(data), bitpos, ctypes.byref(buf), dlen + cap, dlen,
+            ctypes.byref(out_len), ctypes.byref(end_bit), stop_bytes,
+            ctypes.byref(bfinal),
+        )
+        if rc == E_OUTFULL:
+            cap *= 4
+            continue
+        if rc in (OK, E_AGAIN):
+            out = ctypes.string_at(ctypes.addressof(buf) + dlen, out_len.value)
+            return out, end_bit.value, bool(bfinal.value), rc == E_AGAIN
+        raise ValueError(ERRORS.get(rc, f"inflate error {rc}"))
+
+
+def optimal_parse(data, mlen, mdist, start, end, ll_bits, d_bits, bounds):
+    """Shortest-bit-path parse of one chunk (levels 7-9).
+
+    data/mlen/mdist: (N,) uint8/int32/int32; ll_bits (SB, 288) and d_bits
+    (SB, 30) int32 code lengths pricing each sub-block (a zero length is
+    priced at 30 bits); bounds: the SB+1 sub-block boundaries. Positions
+    [start, end) are parsed. Returns (committed, take, sel_len) numpy
+    arrays of length N."""
+    L = lib()
+    n = len(data)
+    data = np.ascontiguousarray(data, np.uint8)
+    mlen = np.ascontiguousarray(mlen, np.int32)
+    mdist = np.ascontiguousarray(mdist, np.int32)
+    ll_bits = np.ascontiguousarray(ll_bits, np.int32)
+    d_bits = np.ascontiguousarray(d_bits, np.int32)
+    sub_bounds = np.ascontiguousarray(bounds, np.int64)
+    nsb = ll_bits.shape[0]
+    if (mlen.shape != (n,) or mdist.shape != (n,)
+            or ll_bits.shape != (nsb, 288) or d_bits.shape != (nsb, 30)
+            or sub_bounds.shape != (nsb + 1,)):
+        raise ValueError("optimal_parse: array shapes do not agree")
+    committed = np.zeros(n, np.uint8)
+    take = np.zeros(n, np.uint8)
+    sel_len = np.zeros(n, np.int32)
+    rc = L.zzt_optimal_parse(
+        data.ctypes.data, mlen.ctypes.data, mdist.ctypes.data,
+        n, int(start), int(end),
+        ll_bits.ctypes.data, d_bits.ctypes.data, sub_bounds.ctypes.data, nsb,
+        committed.ctypes.data, take.ctypes.data, sel_len.ctypes.data,
+    )
+    if rc != 0:
+        raise RuntimeError(f"zzt_optimal_parse failed: {rc}")
+    return committed.astype(bool), take.astype(bool), sel_len
+
+
+def deflate_raw(
+    data: bytes,
+    level: int = 6,
+    dictionary: bytes = b"",
+    max_dist: int = 32768,
+    final: bool = True,
+    strategy: int = 0,
+) -> bytes:
+    """One-shot raw-deflate encode on the host (zzt_deflate): a hash-chain
+    matcher with zlib's good/lazy/nice/chain effort table and a per-64 KiB
+    stored/fixed/dynamic choice. final=False closes with a sync-flush
+    empty stored block, so segments concatenate into one valid stream."""
+    L = lib()
+    dictionary = dictionary[-32768:]
+    n = len(data)
+    # Stored-fallback bound + per-64 KiB block headers + slack.
+    cap = n + 5 * (n // 65535 + 2) + (n // 65536 + 2) * 320 + 1024
+    buf = ctypes.create_string_buffer(cap)
+    out_len = ctypes.c_size_t(0)
+    rc = L.zzt_deflate(
+        data, n, int(level), int(strategy), dictionary, len(dictionary),
+        int(max_dist), 1 if final else 0,
+        ctypes.byref(buf), cap, ctypes.byref(out_len),
+    )
+    if rc != 0:
+        raise RuntimeError(f"zzt_deflate failed: {rc}")
+    return ctypes.string_at(ctypes.addressof(buf), out_len.value)
+
+
+def deflate_raw_mt(
+    data: bytes,
+    level: int = 6,
+    dictionary: bytes = b"",
+    max_dist: int = 32768,
+    final: bool = True,
+    strategy: int = 0,
+    chunk_bytes: int = 1 << 20,
+    threads: int | None = None,
+) -> bytes:
+    """Chunk-parallel host encode: chunks of chunk_bytes, each seeded with
+    the previous 32 KiB as its dictionary, encoded on a thread pool
+    (zzt_deflate releases the GIL) and joined with sync-flush framing into
+    one valid deflate stream.
+
+    The chunk layout, and so the output, depends only on the data and
+    the parameters: `threads` changes wall time, never bytes."""
+    n = len(data)
+    if n <= chunk_bytes:
+        return deflate_raw(
+            data, level=level, dictionary=dictionary, max_dist=max_dist,
+            final=final, strategy=strategy,
+        )
+    nchunks = -(-n // chunk_bytes)
+
+    def one(i: int) -> bytes:
+        lo = i * chunk_bytes
+        hi = min(n, lo + chunk_bytes)
+        dic = dictionary if i == 0 else data[max(0, lo - 32768) : lo]
+        return deflate_raw(
+            data[lo:hi], level=level, dictionary=dic, max_dist=max_dist,
+            final=final and i == nchunks - 1, strategy=strategy,
+        )
+
+    nth = threads or min(8, os.cpu_count() or 1)
+    with concurrent.futures.ThreadPoolExecutor(max_workers=nth) as pool:
+        return b"".join(pool.map(one, range(nchunks)))

@@ -1,0 +1,1537 @@
+/* zzflate_tpu native runtime: fast host-side inflate + checksums.
+ * zzflate_tpu_torch's own copy: equal to the JAX package's file but for this line.
+ *
+ * A from-scratch table-driven raw-DEFLATE decoder (RFC 1951) plus
+ * Adler-32/CRC-32, written for the host side of the TPU codec: the device
+ * owns encode; decode of arbitrary zlib/gzip streams is bit-serial by
+ * nature, so it lives here as native code (the reference-class codec's C2 +
+ * C17 components, SURVEY.md section 2). Built as a plain shared library,
+ * bound via ctypes (no pybind11 in this image).
+ *
+ * Bit order: LSB-first within each byte; Huffman codes are MSB-first so the
+ * decode tables are indexed by bit-reversed codes (SURVEY.md A.1).
+ */
+#include <stdint.h>
+#include <stddef.h>
+#include <string.h>
+#include <stdlib.h>
+
+#define ZZT_OK 0
+#define ZZT_E_BTYPE (-1)
+#define ZZT_E_STORED (-2)
+#define ZZT_E_TABLE (-3)
+#define ZZT_E_SYMBOL (-4)
+#define ZZT_E_DIST (-5)
+#define ZZT_E_OUTFULL (-6)
+#define ZZT_E_INPUT (-7)
+#define ZZT_E_AGAIN (-8) /* stream mode: need more input to finish a block */
+
+/* ---------------- bit reader ---------------- */
+
+typedef struct {
+  const uint8_t *p, *end, *base;
+  uint64_t acc;
+  int n; /* bits valid in acc */
+} bits_t;
+
+static void br_init(bits_t *b, const uint8_t *in, size_t in_len,
+                    size_t start_bit) {
+  b->base = in;
+  b->p = in + (start_bit >> 3);
+  b->end = in + in_len;
+  b->acc = 0;
+  b->n = 0;
+  if (b->p < b->end) {
+    b->acc = (uint64_t)(*b->p++) >> (start_bit & 7);
+    b->n = 8 - (int)(start_bit & 7);
+  }
+}
+
+static inline void br_refill(bits_t *b) {
+  if (b->n <= 56 && (size_t)(b->end - b->p) >= 8) {
+    /* Branch-free bulk refill: one 64-bit load tops the accumulator up
+     * to >= 56 valid bits; the cursor advances by the bytes consumed. */
+    uint64_t chunk;
+    memcpy(&chunk, b->p, 8);
+    b->acc |= chunk << b->n;
+    b->p += (63 - b->n) >> 3;
+    b->n |= 56;
+    return;
+  }
+  while (b->n <= 56 && b->p < b->end) {
+    b->acc |= (uint64_t)(*b->p++) << b->n;
+    b->n += 8;
+  }
+}
+
+static inline uint32_t br_peek(bits_t *b, int k) {
+  br_refill(b);
+  return (uint32_t)(b->acc & ((1u << k) - 1));
+}
+
+static inline void br_consume(bits_t *b, int k) {
+  b->acc >>= k;
+  b->n -= k; /* may go negative past stream end; checked via br_pos */
+}
+
+static inline uint32_t br_get(bits_t *b, int k) {
+  uint32_t v = br_peek(b, k);
+  br_consume(b, k);
+  return v;
+}
+
+static inline size_t br_pos(const bits_t *b) {
+  return (size_t)(b->p - b->base) * 8 - (size_t)b->n;
+}
+
+static void br_align(bits_t *b) {
+  int r = (int)(br_pos(b) & 7);
+  if (r) br_consume(b, 8 - r);
+}
+
+/* ---------------- Huffman decode tables ---------------- */
+
+/* Two-level decode table: a ROOT_BITS-wide root plus per-prefix
+ * subtables for codes longer than ROOT_BITS. Root + pool fit in L1
+ * (a flat 15-bit table is 128 KiB and misses constantly).
+ * entry: (bits<<16) | sym ; bit 31 set => subtable link:
+ *        0x80000000 | (subbits<<16) | pool_offset. 0 == invalid. */
+#define ROOT_BITS 10
+#define POOL_SIZE 4096
+
+typedef struct {
+  uint32_t root[1 << ROOT_BITS];
+  uint32_t pool[POOL_SIZE];
+} htab_t;
+
+static int build_table(const uint8_t *lens, int n, htab_t *t) {
+  int count[16] = {0};
+  int i, l, max_len = 0;
+  for (i = 0; i < n; i++) {
+    if (lens[i] > 15) return ZZT_E_TABLE;
+    count[lens[i]]++;
+    if (lens[i] > max_len) max_len = lens[i];
+  }
+  memset(t->root, 0, sizeof(t->root));
+  if (max_len == 0) return ZZT_OK; /* empty: legal for dist-free blocks */
+  /* Kraft check: over-subscribed is an error; incomplete is legal only in
+   * the 1-code case (DEFLATE allows a single distance code of length 1). */
+  {
+    int left = 1;
+    for (l = 1; l <= 15; l++) {
+      left <<= 1;
+      left -= count[l];
+      if (left < 0) return ZZT_E_TABLE;
+    }
+  }
+  int first[16], code = 0;
+  for (l = 1; l <= max_len; l++) {
+    code = (code + count[l - 1]) << 1;
+    first[l] = code;
+  }
+  int next[16];
+  memcpy(next, first, sizeof(next));
+
+  if (max_len > ROOT_BITS) {
+    /* Pass 1: per-root-prefix deepest long code => subtable sizes. */
+    uint8_t subbits[1 << ROOT_BITS];
+    memset(subbits, 0, sizeof(subbits));
+    int tmp[16];
+    memcpy(tmp, first, sizeof(tmp));
+    for (i = 0; i < n; i++) {
+      l = lens[i];
+      if (l <= ROOT_BITS) {
+        if (l) tmp[l]++;
+        continue;
+      }
+      uint32_t c = (uint32_t)tmp[l]++;
+      uint32_t r = 0;
+      for (int k = 0; k < l; k++) r |= ((c >> k) & 1u) << (l - 1 - k);
+      uint32_t ridx = r & ((1u << ROOT_BITS) - 1);
+      if (l - ROOT_BITS > subbits[ridx]) subbits[ridx] = (uint8_t)(l - ROOT_BITS);
+    }
+    uint32_t pool_used = 0;
+    for (i = 0; i < (1 << ROOT_BITS); i++) {
+      if (subbits[i]) {
+        if (pool_used + (1u << subbits[i]) > POOL_SIZE) return ZZT_E_TABLE;
+        t->root[i] = 0x80000000u | ((uint32_t)subbits[i] << 16) | pool_used;
+        memset(t->pool + pool_used, 0, sizeof(uint32_t) << subbits[i]);
+        pool_used += 1u << subbits[i];
+      }
+    }
+  }
+
+  for (i = 0; i < n; i++) {
+    l = lens[i];
+    if (!l) continue;
+    uint32_t c = (uint32_t)next[l]++;
+    uint32_t r = 0;
+    for (int k = 0; k < l; k++) r |= ((c >> k) & 1u) << (l - 1 - k);
+    uint32_t e = ((uint32_t)l << 16) | (uint32_t)i;
+    if (l <= ROOT_BITS) {
+      for (uint32_t idx = r; idx < (1u << ROOT_BITS); idx += 1u << l)
+        t->root[idx] = e;
+    } else {
+      uint32_t ridx = r & ((1u << ROOT_BITS) - 1);
+      uint32_t link = t->root[ridx];
+      uint32_t sb = (link >> 16) & 0x7FFF;
+      uint32_t base = link & 0xFFFF;
+      for (uint32_t idx = r >> ROOT_BITS; idx < (1u << sb);
+           idx += 1u << (l - ROOT_BITS))
+        t->pool[base + idx] = e;
+    }
+  }
+  return ZZT_OK;
+}
+
+static inline int decode_sym(bits_t *b, const htab_t *t) {
+  br_refill(b);
+  uint32_t bits = (uint32_t)(b->acc & 0x7FFF);
+  uint32_t e = t->root[bits & ((1u << ROOT_BITS) - 1)];
+  if (e & 0x80000000u) {
+    uint32_t sb = (e >> 16) & 0x7FFF;
+    e = t->pool[(e & 0xFFFF) + ((bits >> ROOT_BITS) & ((1u << sb) - 1))];
+  }
+  if (!e) return -1;
+  br_consume(b, (int)(e >> 16));
+  return (int)(e & 0xFFFF);
+}
+
+/* ---------------- DEFLATE constants (RFC 1951 / SURVEY.md A.2-A.5) ---- */
+
+static const uint16_t LBASE[29] = {3, 4, 5, 6, 7, 8, 9, 10, 11, 13,
+                                   15, 17, 19, 23, 27, 31, 35, 43, 51, 59,
+                                   67, 83, 99, 115, 131, 163, 195, 227, 258};
+static const uint8_t LEXT[29] = {0, 0, 0, 0, 0, 0, 0, 0, 1, 1, 1, 1, 2, 2, 2,
+                                 2, 3, 3, 3, 3, 4, 4, 4, 4, 5, 5, 5, 5, 0};
+static const uint16_t DBASE[30] = {1, 2, 3, 4, 5, 7, 9, 13, 17, 25,
+                                   33, 49, 65, 97, 129, 193, 257, 385, 513,
+                                   769, 1025, 1537, 2049, 3073, 4097, 6145,
+                                   8193, 12289, 16385, 24577};
+static const uint8_t DEXT[30] = {0, 0, 0, 0, 1, 1, 2, 2, 3, 3, 4, 4, 5, 5, 6,
+                                 6, 7, 7, 8, 8, 9, 9, 10, 10, 11, 11, 12, 12,
+                                 13, 13};
+static const uint8_t CLORD[19] = {16, 17, 18, 0, 8, 7, 9, 6, 10, 5,
+                                  11, 4, 12, 3, 13, 2, 14, 1, 15};
+
+static htab_t g_fixed_ll, g_fixed_d;
+static int g_fixed_ready = 0;
+
+static void init_fixed(void) {
+  uint8_t lens[288];
+  int i;
+  for (i = 0; i < 144; i++) lens[i] = 8;
+  for (; i < 256; i++) lens[i] = 9;
+  for (; i < 280; i++) lens[i] = 7;
+  for (; i < 288; i++) lens[i] = 8;
+  build_table(lens, 288, &g_fixed_ll);
+  for (i = 0; i < 30; i++) lens[i] = 5;
+  build_table(lens, 30, &g_fixed_d);
+  g_fixed_ready = 1;
+}
+
+/* ---------------- inflate ---------------- */
+
+/* Decode a raw deflate stream.
+ *   in/in_len/start_bit : input bitstream and starting bit offset
+ *   out/out_cap         : output buffer; out[0..dict_len) must hold the
+ *                         preset dictionary (back-reference context)
+ *   dict_len            : bytes of dictionary already in `out`
+ *   out_len (out)       : bytes produced AFTER the dictionary
+ *   end_bit (out)       : bit position one past the final block
+ *   stop_bytes          : if nonzero, return after >= this many output
+ *                         bytes even without BFINAL (streaming support)
+ *   stream              : nonzero enables incremental semantics: on input
+ *                         exhaustion mid-block, return ZZT_E_AGAIN with
+ *                         out_len/end_bit at the last COMPLETE block
+ *                         boundary (the zlib.h:400 inflate() contract's
+ *                         Z_OK-with-avail_in==0 state)
+ *   bfinal_out          : if non-NULL, set to 1 iff decoding stopped at a
+ *                         BFINAL block end
+ * Returns ZZT_OK or a negative error. */
+#define ZFAIL(code) do { rc = (code); goto zz_fail; } while (0)
+
+static int inflate_core(const uint8_t *in, size_t in_len, size_t start_bit,
+                        uint8_t *out, size_t out_cap, size_t dict_len,
+                        size_t *out_len, size_t *end_bit, size_t stop_bytes,
+                        int stream, uint32_t *bfinal_out) {
+  bits_t b;
+  size_t w = dict_len; /* write cursor into out */
+  size_t chk_bit = start_bit, chk_w = dict_len; /* last block boundary */
+  int rc;
+  static __thread htab_t dyn_ll, dyn_d;
+
+  if (bfinal_out) *bfinal_out = 0;
+  if (!g_fixed_ready) init_fixed();
+  br_init(&b, in, in_len, start_bit);
+
+  for (;;) {
+    uint32_t bfinal;
+    chk_bit = br_pos(&b);
+    chk_w = w;
+    bfinal = br_get(&b, 1);
+    uint32_t btype = br_get(&b, 2);
+    const htab_t *ll, *dd;
+    if (btype == 0) {
+      br_align(&b);
+      size_t pos = br_pos(&b) >> 3;
+      if (pos + 4 > in_len) ZFAIL(ZZT_E_INPUT);
+      uint32_t len = in[pos] | ((uint32_t)in[pos + 1] << 8);
+      uint32_t nlen = in[pos + 2] | ((uint32_t)in[pos + 3] << 8);
+      if ((len ^ nlen) != 0xFFFF) ZFAIL(ZZT_E_STORED);
+      if (pos + 4 + len > in_len) ZFAIL(ZZT_E_INPUT);
+      if (w + len > out_cap) ZFAIL(ZZT_E_OUTFULL);
+      memcpy(out + w, in + pos + 4, len);
+      w += len;
+      br_init(&b, in, in_len, (pos + 4 + len) * 8);
+      goto block_done;
+    } else if (btype == 1) {
+      ll = &g_fixed_ll;
+      dd = &g_fixed_d;
+    } else if (btype == 2) {
+      uint32_t hlit = br_get(&b, 5) + 257;
+      uint32_t hdist = br_get(&b, 5) + 1;
+      uint32_t hclen = br_get(&b, 4) + 4;
+      uint8_t cl_lens[19] = {0};
+      uint8_t lens[288 + 32];
+      uint32_t i;
+      htab_t cl_tab;
+      if (hlit > 286 || hdist > 30) ZFAIL(ZZT_E_TABLE);
+      for (i = 0; i < hclen; i++) cl_lens[CLORD[i]] = (uint8_t)br_get(&b, 3);
+      if (build_table(cl_lens, 19, &cl_tab) != ZZT_OK) ZFAIL(ZZT_E_TABLE);
+      for (i = 0; i < hlit + hdist;) {
+        int s = decode_sym(&b, &cl_tab);
+        if (s < 0) ZFAIL(ZZT_E_SYMBOL);
+        if (s < 16) {
+          lens[i++] = (uint8_t)s;
+        } else if (s == 16) {
+          if (i == 0) ZFAIL(ZZT_E_TABLE);
+          uint32_t r = 3 + br_get(&b, 2);
+          uint8_t prev = lens[i - 1];
+          if (i + r > hlit + hdist) ZFAIL(ZZT_E_TABLE);
+          while (r--) lens[i++] = prev;
+        } else {
+          uint32_t r = (s == 17) ? 3 + br_get(&b, 3) : 11 + br_get(&b, 7);
+          if (i + r > hlit + hdist) ZFAIL(ZZT_E_TABLE);
+          while (r--) lens[i++] = 0;
+        }
+      }
+      if (build_table(lens, (int)hlit, &dyn_ll) != ZZT_OK) ZFAIL(ZZT_E_TABLE);
+      if (build_table(lens + hlit, (int)hdist, &dyn_d) != ZZT_OK)
+        ZFAIL(ZZT_E_TABLE);
+      ll = &dyn_ll;
+      dd = &dyn_d;
+    } else {
+      ZFAIL(ZZT_E_BTYPE);
+    }
+
+    /* Hot token loop: one refill covers a full token (litlen <=15 +
+     * len-extra <=5 + dist <=15 + dist-extra <=13 = 48 bits), so all
+     * field extraction runs on the local accumulator without branches. */
+    for (;;) {
+      uint32_t e, s, len, dist;
+      br_refill(&b);
+      if (b.n < 48 && (size_t)(b.end - b.p) < 8 && br_pos(&b) > in_len * 8)
+        ZFAIL(ZZT_E_INPUT);
+      e = ll->root[(uint32_t)b.acc & ((1u << ROOT_BITS) - 1)];
+      if (e & 0x80000000u) {
+        uint32_t sb = (e >> 16) & 0x7FFF;
+        e = ll->pool[(e & 0xFFFF) +
+                     (((uint32_t)b.acc >> ROOT_BITS) & ((1u << sb) - 1))];
+      }
+      if (!e) ZFAIL(ZZT_E_SYMBOL);
+      b.acc >>= (e >> 16);
+      b.n -= (int)(e >> 16);
+      s = e & 0xFFFF;
+      if (s < 256) {
+        if (w >= out_cap) ZFAIL(ZZT_E_OUTFULL);
+        out[w++] = (uint8_t)s;
+        /* Literal burst: keep decoding literals from the same refill
+         * while >=15 accumulator bits remain (a code is <=15 bits). */
+        while (b.n >= 15) {
+          e = ll->root[(uint32_t)b.acc & ((1u << ROOT_BITS) - 1)];
+          if (e & 0x80000000u) {
+            uint32_t sb = (e >> 16) & 0x7FFF;
+            e = ll->pool[(e & 0xFFFF) +
+                         (((uint32_t)b.acc >> ROOT_BITS) & ((1u << sb) - 1))];
+          }
+          if (!e || (e & 0xFFFF) >= 256) break;
+          if (w >= out_cap) ZFAIL(ZZT_E_OUTFULL);
+          b.acc >>= (e >> 16);
+          b.n -= (int)(e >> 16);
+          out[w++] = (uint8_t)(e & 0xFFFF);
+        }
+        continue;
+      }
+      if (s == 256) break;
+      {
+        s -= 257;
+        if (s >= 29) ZFAIL(ZZT_E_SYMBOL);
+        len = LBASE[s] + ((uint32_t)b.acc & ((1u << LEXT[s]) - 1));
+        b.acc >>= LEXT[s];
+        b.n -= LEXT[s];
+        {
+        int ds;
+        e = dd->root[(uint32_t)b.acc & ((1u << ROOT_BITS) - 1)];
+        if (e & 0x80000000u) {
+          uint32_t sb = (e >> 16) & 0x7FFF;
+          e = dd->pool[(e & 0xFFFF) +
+                       (((uint32_t)b.acc >> ROOT_BITS) & ((1u << sb) - 1))];
+        }
+        if (!e) ZFAIL(ZZT_E_SYMBOL);
+        b.acc >>= (e >> 16);
+        b.n -= (int)(e >> 16);
+        ds = (int)(e & 0xFFFF);
+        if (ds >= 30) ZFAIL(ZZT_E_SYMBOL);
+        dist = DBASE[ds] + ((uint32_t)b.acc & ((1u << DEXT[ds]) - 1));
+        b.acc >>= DEXT[ds];
+        b.n -= DEXT[ds];
+        }
+        if (dist > w) ZFAIL(ZZT_E_DIST);
+        if (w + len > out_cap) ZFAIL(ZZT_E_OUTFULL);
+        {
+          const uint8_t *src = out + w - dist;
+          uint8_t *dst = out + w;
+          if (dist >= len) {
+            memcpy(dst, src, len);
+          } else if (dist == 1) {
+            memset(dst, src[0], len);
+          } else if (dist >= 8 && w + ((len + 7u) & ~7u) <= out_cap) {
+            /* Overlapping but with >= 8 bytes of slack: 8-byte strides
+             * never read bytes written in the same stride. The rounded
+             * tail stays inside out_cap (checked) and is overwritten by
+             * the next token. */
+            uint32_t k = 0;
+            do {
+              memcpy(dst + k, src + k, 8);
+              k += 8;
+            } while (k < len);
+          } else {
+            /* Small period: copy one period, then grow by doubling.
+             * Each memcpy source [0,c) and target [filled,filled+c) are
+             * disjoint (c <= filled), and `filled` stays a multiple of
+             * dist except possibly on the final tail copy, which is
+             * phase-aligned anyway. */
+            uint32_t filled, c;
+            for (filled = 0; filled < dist; filled++) dst[filled] = src[filled];
+            while (filled < len) {
+              c = filled < len - filled ? filled : len - filled;
+              memcpy(dst + filled, dst, c);
+              filled += c;
+            }
+          }
+          w += len;
+        }
+      }
+    }
+  block_done:
+    if (br_pos(&b) > in_len * 8) ZFAIL(ZZT_E_INPUT);
+    if (bfinal) {
+      if (bfinal_out) *bfinal_out = 1;
+      break;
+    }
+    if (stop_bytes && w - dict_len >= stop_bytes) break;
+  }
+  *out_len = w - dict_len;
+  *end_bit = br_pos(&b);
+  return ZZT_OK;
+
+zz_fail:
+  /* Stream mode: an explicit input overrun, or any decode error raised
+   * within a refill (64 bits) of the input end, means the current block
+   * is incomplete -- report the last complete block boundary and ask for
+   * more input. Errors strictly inside the available input are definitive
+   * corruption (decode is prefix-deterministic). OUTFULL stays OUTFULL so
+   * the caller can grow the buffer and retry. */
+  if (stream && rc != ZZT_E_OUTFULL &&
+      (rc == ZZT_E_INPUT || br_pos(&b) + 64 > in_len * 8)) {
+    *out_len = chk_w - dict_len;
+    *end_bit = chk_bit;
+    if (bfinal_out) *bfinal_out = 0;
+    return ZZT_E_AGAIN;
+  }
+  *out_len = w - dict_len;
+  *end_bit = br_pos(&b);
+  return rc;
+}
+
+int zzt_inflate(const uint8_t *in, size_t in_len, size_t start_bit,
+                uint8_t *out, size_t out_cap, size_t dict_len,
+                size_t *out_len, size_t *end_bit, size_t stop_bytes) {
+  return inflate_core(in, in_len, start_bit, out, out_cap, dict_len, out_len,
+                      end_bit, stop_bytes, 0, 0);
+}
+
+/* Incremental entry (SURVEY.md C18 decode side): decodes as many COMPLETE
+ * blocks as the input allows; ZZT_E_AGAIN = feed more and call again from
+ * *end_bit with out[0..dict_len) holding the last 32 KiB of output. */
+int zzt_inflate_stream(const uint8_t *in, size_t in_len, size_t start_bit,
+                       uint8_t *out, size_t out_cap, size_t dict_len,
+                       size_t *out_len, size_t *end_bit, size_t stop_bytes,
+                       uint32_t *bfinal_out) {
+  return inflate_core(in, in_len, start_bit, out, out_cap, dict_len, out_len,
+                      end_bit, stop_bytes, 1, bfinal_out);
+}
+
+/* ---------------- anchor pre-scan (device decode of foreign streams) ----
+ *
+ * Walk a raw deflate stream WITHOUT materializing output: record each
+ * block's (start_bit, btype, out_start [, stored byte offset/len]) and
+ * the (bit, out) position of every T-th token within each non-stored
+ * block. The records are exactly what the TPU anchor-walk decoder needs
+ * as lanes (models/inflate_tpu.py), so any zlib/gzip stream — not just
+ * our own indexed output — can decode chunk-parallel on device after
+ * this host scan (SURVEY.md C17: "per-block parallel decode" of
+ * arbitrary streams). The scan is the token walk only: no LZ copies, no
+ * byte writes — it needs only bit positions and output OFFSETS, so it
+ * runs well above the full inflate's throughput and never allocates.
+ *
+ * blocks: 5 int64 per block  [start_bit, btype, out_start, aux0, aux1]
+ *         (stored blocks: aux0 = payload byte offset in `in`, aux1 = len)
+ * anchors: 2 int64 per anchor [bit, out]  (bit BEFORE the token's code)
+ * Returns ZZT_OK, or ZZT_E_OUTFULL if a cap was too small (counts then
+ * hold the required sizes; re-call with bigger buffers). */
+int zzt_scan_anchors(const uint8_t *in, size_t in_len, size_t start_bit,
+                     uint32_t T, size_t dict_len,
+                     int64_t *blocks, size_t blocks_cap,
+                     int64_t *anchors, size_t anchors_cap,
+                     size_t *nblocks, size_t *nanchors,
+                     size_t *total_out, size_t *end_bit) {
+  bits_t b;
+  size_t w = dict_len;
+  size_t nb = 0, na = 0;
+  int overflow = 0;
+  int rc;
+  static __thread htab_t dyn_ll, dyn_d;
+
+  if (!g_fixed_ready) init_fixed();
+  br_init(&b, in, in_len, start_bit);
+
+  for (;;) {
+    uint32_t bfinal, btype;
+    size_t blk_bit = br_pos(&b);
+    const htab_t *ll, *dd;
+    bfinal = br_get(&b, 1);
+    btype = br_get(&b, 2);
+    if (btype == 0) {
+      size_t pos;
+      uint32_t len, nlen;
+      br_align(&b);
+      pos = br_pos(&b) >> 3;
+      if (pos + 4 > in_len) ZFAIL(ZZT_E_INPUT);
+      len = in[pos] | ((uint32_t)in[pos + 1] << 8);
+      nlen = in[pos + 2] | ((uint32_t)in[pos + 3] << 8);
+      if ((len ^ nlen) != 0xFFFF) ZFAIL(ZZT_E_STORED);
+      if (pos + 4 + len > in_len) ZFAIL(ZZT_E_INPUT);
+      if (nb + 1 <= blocks_cap) {
+        blocks[5 * nb] = (int64_t)blk_bit;
+        blocks[5 * nb + 1] = 0;
+        blocks[5 * nb + 2] = (int64_t)(w - dict_len);
+        blocks[5 * nb + 3] = (int64_t)(pos + 4);
+        blocks[5 * nb + 4] = (int64_t)len;
+      } else {
+        overflow = 1;
+      }
+      nb++;
+      w += len;
+      br_init(&b, in, in_len, (pos + 4 + len) * 8);
+      goto scan_block_done;
+    } else if (btype == 1) {
+      ll = &g_fixed_ll;
+      dd = &g_fixed_d;
+    } else if (btype == 2) {
+      uint32_t hlit = br_get(&b, 5) + 257;
+      uint32_t hdist = br_get(&b, 5) + 1;
+      uint32_t hclen = br_get(&b, 4) + 4;
+      uint8_t cl_lens[19] = {0};
+      uint8_t lens[288 + 32];
+      uint32_t i;
+      htab_t cl_tab;
+      if (hlit > 286 || hdist > 30) ZFAIL(ZZT_E_TABLE);
+      for (i = 0; i < hclen; i++) cl_lens[CLORD[i]] = (uint8_t)br_get(&b, 3);
+      if (build_table(cl_lens, 19, &cl_tab) != ZZT_OK) ZFAIL(ZZT_E_TABLE);
+      for (i = 0; i < hlit + hdist;) {
+        int s = decode_sym(&b, &cl_tab);
+        if (s < 0) ZFAIL(ZZT_E_SYMBOL);
+        if (s < 16) {
+          lens[i++] = (uint8_t)s;
+        } else if (s == 16) {
+          uint32_t r;
+          uint8_t prev;
+          if (i == 0) ZFAIL(ZZT_E_TABLE);
+          r = 3 + br_get(&b, 2);
+          prev = lens[i - 1];
+          if (i + r > hlit + hdist) ZFAIL(ZZT_E_TABLE);
+          while (r--) lens[i++] = prev;
+        } else {
+          uint32_t r = (s == 17) ? 3 + br_get(&b, 3) : 11 + br_get(&b, 7);
+          if (i + r > hlit + hdist) ZFAIL(ZZT_E_TABLE);
+          while (r--) lens[i++] = 0;
+        }
+      }
+      if (build_table(lens, (int)hlit, &dyn_ll) != ZZT_OK) ZFAIL(ZZT_E_TABLE);
+      if (build_table(lens + hlit, (int)hdist, &dyn_d) != ZZT_OK)
+        ZFAIL(ZZT_E_TABLE);
+      ll = &dyn_ll;
+      dd = &dyn_d;
+    } else {
+      ZFAIL(ZZT_E_BTYPE);
+    }
+
+    if (nb + 1 <= blocks_cap) {
+      blocks[5 * nb] = (int64_t)blk_bit;
+      blocks[5 * nb + 1] = (int64_t)btype;
+      blocks[5 * nb + 2] = (int64_t)(w - dict_len);
+      blocks[5 * nb + 3] = 0;
+      blocks[5 * nb + 4] = 0;
+    } else {
+      overflow = 1;
+    }
+    nb++;
+
+    {
+      size_t tok = 0;
+      for (;;) {
+        uint32_t e, s, len, dist;
+        br_refill(&b);
+        if (b.n < 48 && (size_t)(b.end - b.p) < 8 && br_pos(&b) > in_len * 8)
+          ZFAIL(ZZT_E_INPUT);
+        if (T && tok && tok % T == 0) {
+          if (na + 1 <= anchors_cap) {
+            anchors[2 * na] = (int64_t)br_pos(&b);
+            anchors[2 * na + 1] = (int64_t)(w - dict_len);
+          } else {
+            overflow = 1;
+          }
+          na++;
+        }
+        e = ll->root[(uint32_t)b.acc & ((1u << ROOT_BITS) - 1)];
+        if (e & 0x80000000u) {
+          uint32_t sb = (e >> 16) & 0x7FFF;
+          e = ll->pool[(e & 0xFFFF) +
+                       (((uint32_t)b.acc >> ROOT_BITS) & ((1u << sb) - 1))];
+        }
+        if (!e) ZFAIL(ZZT_E_SYMBOL);
+        b.acc >>= (e >> 16);
+        b.n -= (int)(e >> 16);
+        s = e & 0xFFFF;
+        if (s < 256) {
+          w++;
+          tok++;
+          continue;
+        }
+        if (s == 256) break;
+        s -= 257;
+        if (s >= 29) ZFAIL(ZZT_E_SYMBOL);
+        len = LBASE[s] + ((uint32_t)b.acc & ((1u << LEXT[s]) - 1));
+        b.acc >>= LEXT[s];
+        b.n -= LEXT[s];
+        {
+          int ds;
+          e = dd->root[(uint32_t)b.acc & ((1u << ROOT_BITS) - 1)];
+          if (e & 0x80000000u) {
+            uint32_t sb = (e >> 16) & 0x7FFF;
+            e = dd->pool[(e & 0xFFFF) +
+                         (((uint32_t)b.acc >> ROOT_BITS) & ((1u << sb) - 1))];
+          }
+          if (!e) ZFAIL(ZZT_E_SYMBOL);
+          b.acc >>= (e >> 16);
+          b.n -= (int)(e >> 16);
+          ds = (int)(e & 0xFFFF);
+          if (ds >= 30) ZFAIL(ZZT_E_SYMBOL);
+          dist = DBASE[ds] + ((uint32_t)b.acc & ((1u << DEXT[ds]) - 1));
+          b.acc >>= DEXT[ds];
+          b.n -= DEXT[ds];
+        }
+        if (dist > w) ZFAIL(ZZT_E_DIST);
+        w += len;
+        tok++;
+      }
+    }
+  scan_block_done:
+    if (br_pos(&b) > in_len * 8) ZFAIL(ZZT_E_INPUT);
+    if (bfinal) break;
+  }
+  *nblocks = nb;
+  *nanchors = na;
+  *total_out = w - dict_len;
+  *end_bit = br_pos(&b);
+  return overflow ? ZZT_E_OUTFULL : ZZT_OK;
+
+zz_fail:
+  *nblocks = nb;
+  *nanchors = na;
+  *total_out = w - dict_len;
+  *end_bit = br_pos(&b);
+  return rc;
+}
+
+/* ---------------- checksums ---------------- */
+
+uint32_t zzt_adler32(uint32_t adler, const uint8_t *buf, size_t len) {
+  const uint32_t MOD = 65521;
+  uint32_t s1 = adler & 0xFFFF, s2 = (adler >> 16) & 0xFFFF;
+  while (len) {
+    size_t n = len < 5552 ? len : 5552; /* max before 32-bit overflow */
+    len -= n;
+    while (n >= 8) {
+      s1 += buf[0]; s2 += s1; s1 += buf[1]; s2 += s1;
+      s1 += buf[2]; s2 += s1; s1 += buf[3]; s2 += s1;
+      s1 += buf[4]; s2 += s1; s1 += buf[5]; s2 += s1;
+      s1 += buf[6]; s2 += s1; s1 += buf[7]; s2 += s1;
+      buf += 8; n -= 8;
+    }
+    while (n--) { s1 += *buf++; s2 += s1; }
+    s1 %= MOD;
+    s2 %= MOD;
+  }
+  return (s2 << 16) | s1;
+}
+
+static uint32_t g_crc_tab[8][256];
+static int g_crc_ready = 0;
+
+static void init_crc(void) {
+  for (int i = 0; i < 256; i++) {
+    uint32_t c = (uint32_t)i;
+    for (int k = 0; k < 8; k++) c = (c >> 1) ^ (0xEDB88320u & (0u - (c & 1)));
+    g_crc_tab[0][i] = c;
+  }
+  for (int t = 1; t < 8; t++)
+    for (int i = 0; i < 256; i++)
+      g_crc_tab[t][i] =
+          (g_crc_tab[t - 1][i] >> 8) ^ g_crc_tab[0][g_crc_tab[t - 1][i] & 0xFF];
+  g_crc_ready = 1;
+}
+
+uint32_t zzt_crc32(uint32_t crc, const uint8_t *buf, size_t len) {
+  if (!g_crc_ready) init_crc();
+  crc = ~crc;
+  while (len >= 8) { /* slice-by-8 */
+    uint32_t lo = crc ^ ((uint32_t)buf[0] | ((uint32_t)buf[1] << 8) |
+                         ((uint32_t)buf[2] << 16) | ((uint32_t)buf[3] << 24));
+    uint32_t hi = (uint32_t)buf[4] | ((uint32_t)buf[5] << 8) |
+                  ((uint32_t)buf[6] << 16) | ((uint32_t)buf[7] << 24);
+    crc = g_crc_tab[7][lo & 0xFF] ^ g_crc_tab[6][(lo >> 8) & 0xFF] ^
+          g_crc_tab[5][(lo >> 16) & 0xFF] ^ g_crc_tab[4][lo >> 24] ^
+          g_crc_tab[3][hi & 0xFF] ^ g_crc_tab[2][(hi >> 8) & 0xFF] ^
+          g_crc_tab[1][(hi >> 16) & 0xFF] ^ g_crc_tab[0][hi >> 24];
+    buf += 8;
+    len -= 8;
+  }
+  while (len--) crc = (crc >> 8) ^ g_crc_tab[0][(crc ^ *buf++) & 0xFF];
+  return ~crc;
+}
+
+/* ---------------------------------------------------------------------------
+ * Optimal (shortest-bit-path) parse for the level-9 encoder.
+ *
+ * Classic DEFLATE cost-aware parsing (the reference-class codec's lazy
+ * heuristic approximates this; SURVEY.md C7/Appendix B): given each
+ * position's best available match (mlen, mdist) from the device matcher
+ * and per-sub-block provisional code lengths, run a backward min-plus DP
+ * over token bit costs.  At a position the choices are: emit the literal,
+ * or emit a match of ANY length 3..mlen[i] at mdist[i] (shorter lengths at
+ * the same distance are always valid sources).  Only one candidate length
+ * per length-code class matters (all lengths in a class cost the same
+ * bits), so each position checks <= 29 match candidates.
+ *
+ * Cost tables: ll_bits (nsb x 288) and d_bits (nsb x 30) Huffman code
+ * lengths; a zero length means "symbol absent from the provisional tree"
+ * and is priced at 30 bits so the DP can still elect it (the final trees
+ * are rebuilt from the DP's token histogram afterwards).
+ * ------------------------------------------------------------------------- */
+
+static const int32_t g_lbase[29] = {3,  4,  5,  6,  7,  8,  9,  10, 11, 13,
+                                    15, 17, 19, 23, 27, 31, 35, 43, 51, 59,
+                                    67, 83, 99, 115, 131, 163, 195, 227, 258};
+static const int32_t g_lext[29] = {0, 0, 0, 0, 0, 0, 0, 0, 1, 1, 1, 1, 2, 2,
+                                   2, 2, 3, 3, 3, 3, 4, 4, 4, 4, 5, 5, 5, 5,
+                                   0};
+static const int32_t g_dbase[30] = {1,    2,    3,    4,    5,    7,    9,
+                                    13,   17,   25,   33,   49,   65,   97,
+                                    129,  193,  257,  385,  513,  769,  1025,
+                                    1537, 2049, 3073, 4097, 6145, 8193, 12289,
+                                    16385, 24577};
+static const int32_t g_dext[30] = {0, 0, 0, 0, 1, 1, 2, 2, 3, 3, 4,  4,  5,
+                                   5, 6, 6, 7, 7, 8, 8, 9, 9, 10, 10, 11, 11,
+                                   12, 12, 13, 13};
+
+#define ZZT_ABSENT_BITS 30
+
+int zzt_optimal_parse(const uint8_t *data, const int32_t *mlen,
+                      const int32_t *mdist, int64_t n, int64_t start,
+                      int64_t end, const int32_t *ll_bits,
+                      const int32_t *d_bits, const int64_t *sub_bounds,
+                      int nsb, uint8_t *committed, uint8_t *take,
+                      int32_t *sel_len) {
+  if (end > n || start > end || nsb < 1) return -1;
+  uint32_t *cost = (uint32_t *)malloc((size_t)(end - start + 1) * 4);
+  int32_t *choice = (int32_t *)malloc((size_t)(end - start) * 4);
+  if (!cost || !choice) {
+    free(cost);
+    free(choice);
+    return -2;
+  }
+#define COST(i) cost[(i) - start]
+  COST(end) = 0;
+  int sb = nsb - 1;
+  for (int64_t i = end - 1; i >= start; i--) {
+    while (sb > 0 && i < sub_bounds[sb]) sb--;
+    const int32_t *llb = ll_bits + (size_t)sb * 288;
+    const int32_t *db = d_bits + (size_t)sb * 30;
+    int32_t lb = llb[data[i]];
+    uint32_t best = (lb ? (uint32_t)lb : ZZT_ABSENT_BITS) + COST(i + 1);
+    int32_t bl = 0;
+    int32_t ml = mlen[i];
+    if (ml >= 3) {
+      int32_t d = mdist[i];
+      int dc = 29;
+      while (dc > 0 && g_dbase[dc] > d) dc--;
+      int32_t dbits =
+          (db[dc] ? db[dc] : ZZT_ABSENT_BITS) + g_dext[dc];
+      if (ml > (int32_t)(end - i)) ml = (int32_t)(end - i);
+      for (int c = 0; c < 29 && g_lbase[c] <= ml; c++) {
+        int32_t top =
+            (c < 28) ? g_lbase[c] + (1 << g_lext[c]) - 1 : 258;
+        if (c == 27 && top > 257) top = 257; /* 258 is code 285 (c=28) */
+        int32_t L = ml < top ? ml : top;
+        int32_t sym = 257 + c;
+        int32_t cb = llb[sym];
+        uint32_t tc = (cb ? (uint32_t)cb : ZZT_ABSENT_BITS) +
+                      (uint32_t)g_lext[c] + (uint32_t)dbits + COST(i + L);
+        if (tc < best) {
+          best = tc;
+          bl = L;
+        }
+      }
+    }
+    COST(i) = best;
+    choice[i - start] = bl;
+  }
+  memset(committed + start, 0, (size_t)(end - start));
+  memset(take + start, 0, (size_t)(end - start));
+  memset(sel_len + start, 0, (size_t)(end - start) * 4);
+  for (int64_t i = start; i < end;) {
+    int32_t bl = choice[i - start];
+    committed[i] = 1;
+    if (bl >= 3) {
+      take[i] = 1;
+      sel_len[i] = bl;
+      i += bl;
+    } else {
+      i += 1;
+    }
+  }
+  free(cost);
+  free(choice);
+  return 0;
+}
+
+/* ---------------------------------------------------------------------------
+ * Deflate ENCODER (one-shot, host-side engine).
+ *
+ * The TPU pipeline (models/deflate_encoder.py) is the production encoder;
+ * this native encoder serves payloads where a device dispatch is all
+ * latency (small buffers, host-only callers) and completes the native
+ * runtime alongside the inflate above.  Written from scratch against the
+ * RFC 1951 contract (SURVEY.md Appendix A): hash-chain candidate lookup
+ * with the classic good/lazy/nice/chain effort table (SURVEY.md Appendix
+ * B), greedy (levels 1-3) or one-byte-defer lazy (4-9) commit, per-64 KiB
+ * blocks with exact stored/fixed/dynamic cost choice, two-queue
+ * length-limited Huffman (the huffman_host.py algorithm in C), CL-RLE
+ * header, LSB-first bit packing.  Emits RAW deflate; containers are
+ * byte-level host work (utils/containers.py).
+ * ------------------------------------------------------------------------- */
+
+/* ---- bit writer (LSB-first within each byte, SURVEY.md A.1) ---- */
+typedef struct {
+  uint8_t *out;
+  size_t cap, pos;
+  uint64_t acc;
+  int nbits;
+  int overflow;
+} zw_t;
+
+static void zw_init(zw_t *w, uint8_t *out, size_t cap) {
+  w->out = out;
+  w->cap = cap;
+  w->pos = 0;
+  w->acc = 0;
+  w->nbits = 0;
+  w->overflow = 0;
+}
+
+static inline void zw_drain(zw_t *w) {
+  /* Flush whole accumulator bytes. Fast path: one unaligned 8-byte
+   * little-endian store covers every pending byte at once (the writer
+   * emits LSB-first, so byte k of the stream is acc bits [8k, 8k+8)). */
+#if defined(__BYTE_ORDER__) && __BYTE_ORDER__ == __ORDER_LITTLE_ENDIAN__
+  if (w->pos + 8 <= w->cap) {
+    memcpy(w->out + w->pos, &w->acc, 8);
+    int bytes = w->nbits >> 3;
+    w->pos += (size_t)bytes;
+    w->acc >>= bytes * 8;
+    w->nbits &= 7;
+    return;
+  }
+#endif
+  while (w->nbits >= 8) {
+    if (w->pos < w->cap)
+      w->out[w->pos] = (uint8_t)w->acc;
+    else
+      w->overflow = 1;
+    w->pos++;
+    w->acc >>= 8;
+    w->nbits -= 8;
+  }
+}
+
+static inline void zw_put(zw_t *w, uint32_t v, int n) {
+  w->acc |= (uint64_t)(v & ((n < 32 ? (1u << n) : 0u) - 1u)) << w->nbits;
+  w->nbits += n;
+  /* Callers pass at most 28 bits; draining at >= 36 keeps acc < 64. */
+  if (w->nbits >= 36) zw_drain(w);
+}
+
+static void zw_align(zw_t *w) {
+  if (w->nbits & 7) zw_put(w, 0, 8 - (w->nbits & 7));
+  zw_drain(w); /* byte-aligned: leaves the accumulator empty */
+}
+
+/* ---- length-limited canonical code lengths ----
+ * Two-queue merge over frequency-sorted leaves, then integer-Kraft
+ * repair to the cap (same algorithm as ops/huffman_host.code_lengths). */
+typedef struct {
+  uint32_t freq;
+  int sym;
+} zh_leaf_t;
+
+static int zh_leaf_cmp(const void *a, const void *b) {
+  const zh_leaf_t *x = (const zh_leaf_t *)a, *y = (const zh_leaf_t *)b;
+  if (x->freq != y->freq) return x->freq < y->freq ? -1 : 1;
+  return x->sym - y->sym;
+}
+
+static void zh_lengths(const uint32_t *freq, int n, int cap, uint8_t *lens) {
+  zh_leaf_t leaves[320];
+  int used = 0;
+  memset(lens, 0, (size_t)n);
+  for (int s = 0; s < n; s++)
+    if (freq[s]) {
+      leaves[used].freq = freq[s];
+      leaves[used].sym = s;
+      used++;
+    }
+  if (used == 0) return;
+  if (used == 1) {
+    lens[leaves[0].sym] = 1;
+    return;
+  }
+  qsort(leaves, (size_t)used, sizeof(zh_leaf_t), zh_leaf_cmp);
+
+  /* Two-queue merge: leaves (sorted) + internal nodes (created in
+   * non-decreasing weight order -> a FIFO).  nodes[k] = weight; par[k]
+   * = parent index (into the internal array, offset by `used`). */
+  uint64_t iw[640];
+  int ipar[640], lpar[320];
+  int li = 0, ii_head = 0, ii_tail = 0;
+  for (int t = 0; t < used - 1; t++) { /* exactly used-1 internal nodes */
+    uint64_t w2 = 0;
+    int kids[2];
+    for (int k = 0; k < 2; k++) {
+      int take_leaf =
+          li < used &&
+          (ii_head >= ii_tail || leaves[li].freq <= iw[ii_head]);
+      if (take_leaf) {
+        kids[k] = li; /* leaf id */
+        li++;
+      } else {
+        kids[k] = used + ii_head; /* internal id */
+        ii_head++;
+      }
+      w2 += kids[k] < used ? (uint64_t)leaves[kids[k]].freq
+                           : iw[kids[k] - used];
+    }
+    iw[ii_tail] = w2;
+    ipar[ii_tail] = -1;
+    for (int k = 0; k < 2; k++) {
+      if (kids[k] < used)
+        lpar[kids[k]] = ii_tail;
+      else
+        ipar[kids[k] - used] = ii_tail;
+    }
+    ii_tail++;
+  }
+  /* Depth of each internal node (root = last created, depth 0). */
+  int idep[640];
+  idep[ii_tail - 1] = 0;
+  for (int k = ii_tail - 2; k >= 0; k--) idep[k] = idep[ipar[k]] + 1;
+  int over = 0;
+  for (int l = 0; l < used; l++) {
+    int d = idep[lpar[l]] + 1;
+    if (d > cap) {
+      d = cap;
+      over = 1;
+    }
+    lens[leaves[l].sym] = (uint8_t)d;
+  }
+  if (!over) return;
+
+  /* Integer-Kraft repair: units of 2^(cap - len); budget 2^cap.  Deepen
+   * the shallowest-cost symbols (smallest freq at len < cap) until the
+   * code fits, then try to shorten from the most frequent down. */
+  int64_t budget = (int64_t)1 << cap;
+  int64_t ksum = 0;
+  for (int l = 0; l < used; l++)
+    ksum += (int64_t)1 << (cap - lens[leaves[l].sym]);
+  /* leaves[] is sorted by ascending freq: lengthen cheap symbols first. */
+  while (ksum > budget) {
+    for (int l = 0; l < used && ksum > budget; l++) {
+      int s = leaves[l].sym;
+      if (lens[s] < cap) {
+        ksum -= (int64_t)1 << (cap - lens[s] - 1);
+        lens[s]++;
+      }
+    }
+  }
+  /* Give back slack to the most frequent symbols (optimality polish). */
+  for (int l = used - 1; l >= 0; l--) {
+    int s = leaves[l].sym;
+    while (lens[s] > 1 &&
+           ksum + ((int64_t)1 << (cap - lens[s])) <= budget) {
+      ksum += (int64_t)1 << (cap - lens[s]);
+      lens[s]--;
+    }
+  }
+}
+
+/* Canonical codes from lengths (RFC 1951 3.2.2), bit-reversed for the
+ * LSB-first writer. */
+static void zh_codes(const uint8_t *lens, int n, uint16_t *codes) {
+  int bl_count[16] = {0};
+  for (int s = 0; s < n; s++) bl_count[lens[s]]++;
+  bl_count[0] = 0;
+  uint32_t next[16] = {0};
+  uint32_t code = 0;
+  for (int b = 1; b <= 15; b++) {
+    code = (code + (uint32_t)bl_count[b - 1]) << 1;
+    next[b] = code;
+  }
+  for (int s = 0; s < n; s++) {
+    int l = lens[s];
+    if (!l) {
+      codes[s] = 0;
+      continue;
+    }
+    uint32_t c = next[l]++;
+    uint32_t r = 0;
+    for (int b = 0; b < l; b++) r = (r << 1) | ((c >> b) & 1u);
+    codes[s] = (uint16_t)r;
+  }
+}
+
+/* ---- dynamic block header: CL-RLE the lens, code the 19-sym CL
+ * alphabet, emit HLIT/HDIST/HCLEN + CL lens in the magic order
+ * (SURVEY.md A.4).  Returns header cost in bits via *bits (codes==NULL
+ * prices without writing). ---- */
+static void zh_cl_rle(const uint8_t *lens, int n, uint8_t *rle_sym,
+                      uint8_t *rle_extra, int *rle_n) {
+  int m = 0, i = 0;
+  while (i < n) {
+    uint8_t v = lens[i];
+    int run = 1;
+    while (i + run < n && lens[i + run] == v) run++;
+    i += run;
+    if (v == 0) {
+      while (run >= 3) {
+        int take = run > 138 ? 138 : run;
+        if (take >= 11) {
+          rle_sym[m] = 18;
+          rle_extra[m++] = (uint8_t)(take - 11);
+        } else {
+          rle_sym[m] = 17;
+          rle_extra[m++] = (uint8_t)(take - 3);
+        }
+        run -= take;
+      }
+      while (run-- > 0) {
+        rle_sym[m] = 0;
+        rle_extra[m++] = 0;
+      }
+    } else {
+      rle_sym[m] = v;
+      rle_extra[m++] = 0;
+      run--;
+      while (run >= 3) {
+        int take = run > 6 ? 6 : run;
+        rle_sym[m] = 16;
+        rle_extra[m++] = (uint8_t)(take - 3);
+        run -= take;
+      }
+      while (run-- > 0) {
+        rle_sym[m] = v;
+        rle_extra[m++] = 0;
+      }
+    }
+  }
+  *rle_n = m;
+}
+
+/* ---- fixed-tree lengths (SURVEY.md A.5) ---- */
+static void zd_fixed_lens(uint8_t *ll, uint8_t *d) {
+  int i;
+  for (i = 0; i < 144; i++) ll[i] = 8;
+  for (; i < 256; i++) ll[i] = 9;
+  for (; i < 280; i++) ll[i] = 7;
+  for (; i < 288; i++) ll[i] = 8;
+  for (i = 0; i < 30; i++) d[i] = 5;
+}
+
+/* length (3..258) -> length code 0..28; dist -> dist code 0..29 */
+static uint8_t g_len2code[259];
+static int g_len2code_ready = 0;
+static void zd_init_len2code(void) {
+  for (int c = 0; c < 29; c++) {
+    int lo = LBASE[c];
+    int hi = (c < 28) ? LBASE[c] + (1 << LEXT[c]) - 1 : 258;
+    if (c == 27 && hi > 257) hi = 257; /* 258 belongs to code 285 */
+    for (int L = lo; L <= hi && L <= 258; L++) g_len2code[L] = (uint8_t)c;
+  }
+  g_len2code[258] = 28;
+  g_len2code_ready = 1;
+}
+
+/* dist -> code via two 256-entry tables: dist 1..256 direct, 257..32768
+ * by (dist-1)>>7 (every 128-wide slot above 256 maps to one code). */
+static uint8_t g_dcode_lo[256], g_dcode_hi[256];
+static int g_dcode_ready = 0;
+static void zd_init_dcode(void) {
+  for (int d = 1; d <= 32768; d++) {
+    int lo = 0, hi = 29;
+    while (lo < hi) {
+      int mid = (lo + hi + 1) >> 1;
+      if (DBASE[mid] <= d) lo = mid;
+      else hi = mid - 1;
+    }
+    if (d <= 256) g_dcode_lo[d - 1] = (uint8_t)lo;
+    else if (((d - 1) & 127) == 0 || d == 32768)
+      g_dcode_hi[(d - 1) >> 7] = (uint8_t)lo;
+  }
+  g_dcode_ready = 1;
+}
+
+static inline int zd_dist_code(int dist) {
+  return dist <= 256 ? g_dcode_lo[dist - 1] : g_dcode_hi[(dist - 1) >> 7];
+}
+
+/* Eagerly build every lazily-initialized global table at library load.
+ * deflate_raw_mt runs zzt_deflate on a thread pool; the plain int
+ * ready-flags above are not a safe publication protocol for concurrent
+ * first use (on weakly-ordered CPUs a worker could observe the flag
+ * before the table stores), so all init happens here, single-threaded,
+ * before any API call. The lazy checks remain as a fallback for static
+ * linking setups that skip constructors. */
+__attribute__((constructor)) static void zzt_init_tables(void) {
+  if (!g_fixed_ready) init_fixed();
+  if (!g_crc_ready) init_crc();
+  if (!g_len2code_ready) zd_init_len2code();
+  if (!g_dcode_ready) zd_init_dcode();
+}
+
+/* One block's tokens. */
+typedef struct {
+  uint16_t *len;  /* 0 => literal */
+  uint16_t *dist;
+  uint8_t *lit;
+  int ntok;
+} zblk_t;
+
+/* Emit one block (choosing stored/fixed/dynamic by exact bit cost). */
+static void zd_emit_block(zw_t *w, const uint8_t *buf, int64_t in_start,
+                          int64_t in_end, const zblk_t *blk, int final,
+                          int force_fixed) {
+  uint32_t fll[288] = {0}, fd[30] = {0};
+  uint64_t extra_bits = 0;
+  if (!g_len2code_ready) zd_init_len2code();
+  if (!g_dcode_ready) zd_init_dcode();
+  for (int t = 0; t < blk->ntok; t++) {
+    if (blk->len[t] == 0) {
+      fll[blk->lit[t]]++;
+    } else {
+      int lc = g_len2code[blk->len[t]];
+      int dc = zd_dist_code(blk->dist[t]);
+      fll[257 + lc]++;
+      fd[dc]++;
+      extra_bits += (uint64_t)LEXT[lc] + DEXT[dc];
+    }
+  }
+  fll[256]++;
+  /* Decodable-tree guarantees (same rules as huffman_host.build_block). */
+  {
+    int used = 0;
+    for (int s = 0; s < 288; s++) used += fll[s] != 0;
+    if (used < 2 && fll[0] == 0) fll[0] = 1;
+    int usedd = 0;
+    for (int s = 0; s < 30; s++) usedd += fd[s] != 0;
+    if (usedd == 0) fd[0] = 1;
+    else if (usedd < 2) fd[fd[0] ? 1 : 0] = fd[fd[0] ? 1 : 0] ? fd[fd[0] ? 1 : 0] : 1;
+  }
+  uint8_t ll_len[288], d_len[30], fx_ll[288], fx_d[30];
+  zh_lengths(fll, 286, 15, ll_len);
+  ll_len[286] = ll_len[287] = 0;
+  zh_lengths(fd, 30, 15, d_len);
+  zd_fixed_lens(fx_ll, fx_d);
+
+  uint64_t body_dyn = extra_bits, body_fix = extra_bits;
+  for (int s = 0; s < 288; s++) {
+    body_dyn += (uint64_t)fll[s] * ll_len[s];
+    body_fix += (uint64_t)fll[s] * fx_ll[s];
+  }
+  for (int s = 0; s < 30; s++) {
+    body_dyn += (uint64_t)fd[s] * d_len[s];
+    body_fix += (uint64_t)fd[s] * 5u;
+  }
+
+  /* Dynamic header: HLIT/HDIST trims, CL-RLE, 7-bit-capped CL code. */
+  int hlit = 286;
+  while (hlit > 257 && ll_len[hlit - 1] == 0) hlit--;
+  int hdist = 30;
+  while (hdist > 1 && d_len[hdist - 1] == 0) hdist--;
+  uint8_t seq[318], rle_sym[318], rle_extra[318];
+  memcpy(seq, ll_len, (size_t)hlit);
+  memcpy(seq + hlit, d_len, (size_t)hdist);
+  int rle_n = 0;
+  zh_cl_rle(seq, hlit + hdist, rle_sym, rle_extra, &rle_n);
+  uint32_t clfreq[19] = {0};
+  for (int t = 0; t < rle_n; t++) clfreq[rle_sym[t]]++;
+  uint8_t cl_len[19];
+  zh_lengths(clfreq, 19, 7, cl_len);
+  {
+    int usedc = 0;
+    for (int s = 0; s < 19; s++) usedc += cl_len[s] != 0;
+    if (usedc == 1) { /* single CL symbol: give it an explicit 1-bit code */
+      for (int s = 0; s < 19; s++)
+        if (cl_len[s]) cl_len[s] = 1;
+    }
+  }
+  int hclen = 19;
+  while (hclen > 4 && cl_len[CLORD[hclen - 1]] == 0) hclen--;
+  uint64_t hdr_dyn = 5 + 5 + 4 + 3u * (uint64_t)hclen;
+  for (int t = 0; t < rle_n; t++) {
+    hdr_dyn += cl_len[rle_sym[t]];
+    if (rle_sym[t] == 16) hdr_dyn += 2;
+    else if (rle_sym[t] == 17) hdr_dyn += 3;
+    else if (rle_sym[t] == 18) hdr_dyn += 7;
+  }
+
+  int64_t blen = in_end - in_start;
+  int64_t npieces = blen ? (blen + 65534) / 65535 : 1;
+  /* stored: 3-bit type, align to byte, then 4 header bytes + data per
+   * piece (alignment depends on current writer position). */
+  uint64_t wpos_bits = w->pos * 8ull + (uint64_t)w->nbits;
+  uint64_t align_pad = (8 - ((wpos_bits + 3) & 7)) & 7;
+  uint64_t cost_stored = 3 + align_pad + (uint64_t)npieces * 32 +
+                         (uint64_t)blen * 8 +
+                         (uint64_t)(npieces - 1) * 8; /* later type bytes */
+  uint64_t cost_fix = 3 + body_fix;
+  uint64_t cost_dyn = 3 + hdr_dyn + body_dyn;
+  if (force_fixed) cost_dyn = ~0ull; /* Z_FIXED: no dynamic codes */
+
+  if (cost_stored <= cost_fix && cost_stored <= cost_dyn) {
+    int64_t off = in_start;
+    for (int64_t p = 0; p < npieces; p++) {
+      int64_t take = blen - (off - in_start);
+      if (take > 65535) take = 65535;
+      int last = (p == npieces - 1);
+      zw_put(w, (final && last) ? 1u : 0u, 1);
+      zw_put(w, 0, 2);
+      zw_align(w);
+      zw_put(w, (uint32_t)take, 16);
+      zw_put(w, (uint32_t)take ^ 0xFFFFu, 16);
+      zw_drain(w); /* byte-aligned here: accumulator is empty */
+      if (w->pos + (uint64_t)take <= w->cap) {
+        memcpy(w->out + w->pos, buf + off, (size_t)take);
+        w->pos += (size_t)take;
+      } else {
+        w->overflow = 1;
+        w->pos += (size_t)take;
+      }
+      off += take;
+    }
+    return;
+  }
+
+  const uint8_t *ull = ll_len, *ud = d_len;
+  uint16_t llc[288], dc_[30];
+  int dynamic = cost_dyn < cost_fix;
+  if (!dynamic) {
+    ull = fx_ll;
+    ud = fx_d;
+  }
+  zh_codes(ull, 288, llc);
+  zh_codes(ud, 30, dc_);
+
+  zw_put(w, final ? 1u : 0u, 1);
+  zw_put(w, dynamic ? 2u : 1u, 2);
+  if (dynamic) {
+    zw_put(w, (uint32_t)(hlit - 257), 5);
+    zw_put(w, (uint32_t)(hdist - 1), 5);
+    zw_put(w, (uint32_t)(hclen - 4), 4);
+    for (int t = 0; t < hclen; t++) zw_put(w, cl_len[CLORD[t]], 3);
+    uint16_t clc[19];
+    zh_codes(cl_len, 19, clc);
+    for (int t = 0; t < rle_n; t++) {
+      int s = rle_sym[t];
+      zw_put(w, clc[s], cl_len[s]);
+      if (s == 16) zw_put(w, rle_extra[t], 2);
+      else if (s == 17) zw_put(w, rle_extra[t], 3);
+      else if (s == 18) zw_put(w, rle_extra[t], 7);
+    }
+  }
+  for (int t = 0; t < blk->ntok; t++) {
+    if (blk->len[t] == 0) {
+      int s = blk->lit[t];
+      zw_put(w, llc[s], ull[s]);
+    } else {
+      /* Merge each code with its extra bits into one put (the extra
+       * field follows the code LSB-first): <= 15+5 and <= 15+13 bits. */
+      int lc = g_len2code[blk->len[t]];
+      int s = 257 + lc;
+      zw_put(w,
+             llc[s] | ((uint32_t)(blk->len[t] - LBASE[lc]) << ull[s]),
+             ull[s] + LEXT[lc]);
+      int dcd = zd_dist_code(blk->dist[t]);
+      zw_put(w,
+             dc_[dcd] | ((uint32_t)(blk->dist[t] - DBASE[dcd]) << ud[dcd]),
+             ud[dcd] + DEXT[dcd]);
+    }
+  }
+  zw_put(w, llc[256], ull[256]);
+}
+
+/* ---- hash-chain matcher + greedy/lazy drive (SURVEY.md C5-C7, App. B) */
+#define ZD_HBITS 15
+#define ZD_HSIZE (1 << ZD_HBITS)
+
+typedef struct {
+  int good, lazy, nice, chain, greedy;
+} zd_cfg_t;
+
+/* Levels 1-9: the classic effort table (SURVEY.md Appendix B). */
+static const zd_cfg_t ZD_CFG[10] = {
+    {0, 0, 0, 0, 1},        /* level 0 unused (stored handled by caller) */
+    {4, 4, 8, 4, 1},        {4, 5, 16, 8, 1},    {4, 6, 32, 32, 1},
+    {4, 4, 16, 16, 0},      {8, 16, 32, 32, 0},  {8, 16, 128, 128, 0},
+    {8, 32, 128, 256, 0},   {32, 128, 258, 1024, 0},
+    {32, 258, 258, 4096, 0},
+};
+
+static inline uint32_t zd_hash(const uint8_t *p) {
+  uint32_t v = ((uint32_t)p[0] << 16) | ((uint32_t)p[1] << 8) | p[2];
+  return (v * 2654435761u) >> (32 - ZD_HBITS);
+}
+
+typedef struct {
+  const uint8_t *buf;
+  int64_t total;
+  int32_t *head; /* ZD_HSIZE, -1 empty */
+  int32_t *prev; /* per position */
+} zd_mt_t;
+
+static inline void zd_insert(zd_mt_t *m, int64_t i) {
+  if (i + 3 > m->total) return;
+  uint32_t h = zd_hash(m->buf + i);
+  m->prev[i] = m->head[h];
+  m->head[h] = (int32_t)i;
+}
+
+static inline uint32_t zd_ld32(const void *p) {
+  uint32_t v;
+  memcpy(&v, p, 4);
+  return v;
+}
+
+static inline uint64_t zd_ld64(const void *p) {
+  uint64_t v;
+  memcpy(&v, p, 8);
+  return v;
+}
+
+static void zd_longest(const zd_mt_t *m, int64_t i, int chain, int nice,
+                       int32_t window, int *out_len, int *out_dist) {
+  int best = 2, bdist = 0;
+  int64_t limit = i - window;
+  if (limit < 0) limit = 0;
+  int64_t maxl = m->total - i;
+  if (maxl > 258) maxl = 258;
+  const uint8_t *p = m->buf + i;
+  int32_t cand = m->head[zd_hash(p)];
+  if (nice > (int)maxl) nice = (int)maxl;
+  uint32_t want = 0; /* p's 4 bytes ending at `best` (valid once best>=3) */
+  while (cand >= limit && cand >= 0 && chain-- > 0) {
+    const uint8_t *q = m->buf + cand;
+    /* Prefilter: an improving candidate (lcp > best) must agree on the
+     * 4 bytes ending at `best`, so one u32 compare rejects most chain
+     * entries without changing which candidates are accepted.  (best
+     * starts at 2, so fall back to the two byte probes until a real
+     * match raises it to >= 3.) */
+    int probe_ok = best >= 3 ? zd_ld32(q + best - 3) == want
+                             : (q[best] == p[best] && q[0] == p[0]);
+    if (cand < i && probe_ok) {
+      /* Exact LCP, 8 bytes per step (buf has an 8-byte zero tail). */
+      int l = 0;
+      while (l + 8 <= (int)maxl) {
+        uint64_t x = zd_ld64(q + l) ^ zd_ld64(p + l);
+        if (x) {
+#if defined(__BYTE_ORDER__) && __BYTE_ORDER__ == __ORDER_LITTLE_ENDIAN__
+          l += __builtin_ctzll(x) >> 3;
+#else
+          while (q[l] == p[l]) l++;
+#endif
+          goto extended;
+        }
+        l += 8;
+      }
+      while (l < (int)maxl && q[l] == p[l]) l++;
+    extended:
+      if (l > best) {
+        best = l;
+        bdist = (int)(i - cand);
+        if (l >= nice) break;
+        if (best >= 3 && best < (int)maxl) want = zd_ld32(p + best - 3);
+      }
+    }
+    cand = m->prev[cand];
+  }
+  if (best >= 3) {
+    *out_len = best;
+    *out_dist = bdist;
+  } else {
+    *out_len = 0;
+    *out_dist = 0;
+  }
+}
+
+/* One-shot raw-deflate encode.  dict seeds the window (positions before
+ * `in`); max_dist clamps match distances (windowBits 8..15 contract,
+ * zlib.h:551-556).  Returns 0 / ZZT_E_OUTFULL. */
+int zzt_deflate(const uint8_t *in, size_t n, int level, int strategy,
+                const uint8_t *dict, size_t dict_len, int32_t max_dist,
+                int final, uint8_t *out, size_t out_cap, size_t *out_len) {
+  if (level < 1) level = 1;
+  if (level > 9) level = 9;
+  const zd_cfg_t cfg = ZD_CFG[level];
+  if (dict_len > 32768) {
+    dict += dict_len - 32768;
+    dict_len = 32768;
+  }
+  int32_t window = max_dist < 32768 ? max_dist : 32768;
+  if (strategy == 3) window = 1;       /* Z_RLE: dist-1 runs only */
+  int force_fixed = strategy == 4;     /* Z_FIXED */
+  int min_len = strategy == 1 ? 5 : 3; /* Z_FILTERED: favor literals */
+
+  int64_t total = (int64_t)dict_len + (int64_t)n;
+  uint8_t *buf = (uint8_t *)malloc((size_t)total + 8);
+  int32_t *head = (int32_t *)malloc(sizeof(int32_t) * ZD_HSIZE);
+  int32_t *prev = (int32_t *)malloc(sizeof(int32_t) * (size_t)(total + 1));
+  /* Block token buffers: a block closes at the first token START past
+   * 64 KiB of input, so it spans at most 64 KiB + 258 input bytes. */
+  int cap_tok = 65536 + 512;
+  uint16_t *tlen = (uint16_t *)malloc(sizeof(uint16_t) * (size_t)cap_tok);
+  uint16_t *tdist = (uint16_t *)malloc(sizeof(uint16_t) * (size_t)cap_tok);
+  uint8_t *tlit = (uint8_t *)malloc((size_t)cap_tok);
+  if (!buf || !head || !prev || !tlen || !tdist || !tlit) {
+    free(buf); free(head); free(prev); free(tlen); free(tdist); free(tlit);
+    return ZZT_E_OUTFULL;
+  }
+  if (dict_len) memcpy(buf, dict, dict_len);
+  if (n) memcpy(buf + dict_len, in, n);
+  memset(buf + total, 0, 8);
+  for (int64_t k = 0; k < ZD_HSIZE; k++) head[k] = -1;
+
+  zd_mt_t m = {buf, total, head, prev};
+  for (int64_t i = 0; i + 3 <= (int64_t)dict_len; i++) zd_insert(&m, i);
+
+  zw_t w;
+  zw_init(&w, out, out_cap);
+  zblk_t blk = {tlen, tdist, tlit, 0};
+  int64_t start = (int64_t)dict_len;
+  int64_t block_start = start;
+  int64_t i = start;
+  int have_prev = 0, prev_len = 0, prev_dist = 0;
+  int emitted_any = 0;
+
+  while (i < total) {
+    if (!have_prev && (i - block_start) >= 65536) {
+      zd_emit_block(&w, buf, block_start, i, &blk, 0, force_fixed);
+      emitted_any = 1;
+      blk.ntok = 0;
+      block_start = i;
+    }
+    int len = 0, dist = 0;
+    if (strategy != 2 && total - i >= 3) { /* Z_HUFFMAN_ONLY: no matches */
+      int ch = cfg.chain;
+      if (have_prev && prev_len >= cfg.good) ch >>= 2;
+      zd_longest(&m, i, ch, cfg.nice, window, &len, &dist);
+      if (len == 3 && dist > 4096) len = 0; /* zlib's TOO_FAR heuristic */
+      if (len && len < min_len) len = 0;
+    }
+    if (have_prev) {
+      if (len > prev_len) {
+        /* Better match one byte later: the deferred byte is a literal. */
+        blk.len[blk.ntok] = 0;
+        blk.lit[blk.ntok++] = buf[i - 1];
+        prev_len = len;
+        prev_dist = dist;
+        zd_insert(&m, i);
+        i++;
+      } else {
+        blk.len[blk.ntok] = (uint16_t)prev_len;
+        blk.dist[blk.ntok++] = (uint16_t)prev_dist;
+        for (int64_t j = i; j < i - 1 + prev_len; j++) zd_insert(&m, j);
+        i += prev_len - 1;
+        have_prev = 0;
+      }
+    } else if (len >= 3) {
+      if (cfg.greedy || len >= cfg.lazy) {
+        blk.len[blk.ntok] = (uint16_t)len;
+        blk.dist[blk.ntok++] = (uint16_t)dist;
+        for (int64_t j = i; j < i + len; j++) zd_insert(&m, j);
+        i += len;
+      } else {
+        have_prev = 1;
+        prev_len = len;
+        prev_dist = dist;
+        zd_insert(&m, i);
+        i++;
+      }
+    } else {
+      blk.len[blk.ntok] = 0;
+      blk.lit[blk.ntok++] = buf[i];
+      zd_insert(&m, i);
+      i++;
+    }
+  }
+  if (have_prev) { /* stream ended while deferring: emit the match */
+    blk.len[blk.ntok] = (uint16_t)prev_len;
+    blk.dist[blk.ntok++] = (uint16_t)prev_dist;
+  }
+  if (blk.ntok || !emitted_any || final)
+    zd_emit_block(&w, buf, block_start, total, &blk, final ? 1 : 0,
+                  force_fixed);
+  if (!final) {
+    /* Sync-flush framing (zlib.h:170-173 Z_SYNC_FLUSH): an empty stored
+     * block byte-aligns the stream so segments concatenate legally. */
+    zw_put(&w, 0, 3);
+    zw_align(&w);
+    zw_put(&w, 0x0000u, 16);
+    zw_put(&w, 0xFFFFu, 16);
+  }
+  zw_align(&w);
+
+  free(buf); free(head); free(prev); free(tlen); free(tdist); free(tlit);
+  if (w.overflow) return ZZT_E_OUTFULL;
+  *out_len = w.pos;
+  return ZZT_OK;
+}

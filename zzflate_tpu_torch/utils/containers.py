@@ -1,8 +1,8 @@
 """zlib / gzip / raw container framing (host-side bytes).
 
-The port's own copy of the writer half of ``zzflate_tpu/utils/containers.py``
-(the header parsers belong to the decode slice). Byte layouts follow
-RFC 1950/1952 as zlib 1.2.13 writes them.
+The port's own copy of ``zzflate_tpu/utils/containers.py``: the writers
+and the header parsers. Byte layouts follow RFC 1950/1952 as zlib 1.2.13
+writes them.
 """
 from __future__ import annotations
 
@@ -90,6 +90,143 @@ def gzip_header_indexed(
         + struct.pack("<H", len(extra))
         + extra
     )
+
+
+def parse_gzip_index(
+    data: bytes,
+) -> (
+    tuple[
+        int, int, int,
+        list[tuple[int, list[tuple[int, int]], list[tuple[int, int]]]],
+    ]
+    | None
+):
+    """Returns (header_len, chunk_bytes, anchor_tokens, chunks) for a ZZ
+    v2/v3 subfield, chunks = [(seg_bytes, blocks, anchors), ...]. v2
+    streams parse with empty anchors and anchor_tokens=0."""
+    if len(data) < 10 or data[:2] != b"\x1f\x8b" or not (data[3] & 0x04):
+        return None
+    xlen = struct.unpack("<H", data[10:12])[0]
+    extra = data[12 : 12 + xlen]
+    header_len = parse_gzip_header(data)
+    pos = 0
+    while pos + 4 <= len(extra):
+        sid = extra[pos : pos + 2]
+        slen = struct.unpack("<H", extra[pos + 2 : pos + 4])[0]
+        body = extra[pos + 4 : pos + 4 + slen]
+        if sid == b"ZZ" and len(body) >= 10:
+            ver, _flags, chunk_bytes, n = struct.unpack("<BBII", body[:10])
+            if ver in (2, 3):
+                p = 10
+                anchor_tokens = 0
+                if ver == 3:
+                    if len(body) < 12:
+                        pos += 4 + slen
+                        continue
+                    (anchor_tokens,) = struct.unpack("<H", body[10:12])
+                    p = 12
+                chunks = []
+                ok = True
+                for _ in range(n):
+                    rec = 6 if ver == 2 else 8
+                    if p + rec > len(body):
+                        ok = False
+                        break
+                    if ver == 2:
+                        seg_bytes, nb = struct.unpack(
+                            "<IH", body[p : p + 6]
+                        )
+                        na = 0
+                        p += 6
+                    else:
+                        seg_bytes, nb, na = struct.unpack(
+                            "<IHH", body[p : p + 8]
+                        )
+                        p += 8
+                    if p + 8 * (nb + na) > len(body):
+                        ok = False
+                        break
+                    blocks = []
+                    for _ in range(nb):
+                        blocks.append(
+                            struct.unpack("<II", body[p : p + 8])
+                        )
+                        p += 8
+                    anchors = []
+                    for _ in range(na):
+                        anchors.append(
+                            struct.unpack("<II", body[p : p + 8])
+                        )
+                        p += 8
+                    chunks.append((seg_bytes, blocks, anchors))
+                if ok:
+                    return header_len, chunk_bytes, anchor_tokens, chunks
+        pos += 4 + slen
+    return None
+
+
+def gzip_index_flags(data: bytes) -> int | None:
+    """The 'ZZ' subfield's flags byte, or None if the stream carries no
+    parseable index (parse_gzip_index returns the rest of the index)."""
+    if len(data) < 12 or data[:2] != b"\x1f\x8b" or not (data[3] & 0x04):
+        return None
+    xlen = struct.unpack("<H", data[10:12])[0]
+    extra = data[12 : 12 + xlen]
+    pos = 0
+    while pos + 4 <= len(extra):
+        sid = extra[pos : pos + 2]
+        slen = struct.unpack("<H", extra[pos + 2 : pos + 4])[0]
+        body = extra[pos + 4 : pos + 4 + slen]
+        if sid == b"ZZ" and len(body) >= 10 and body[0] in (2, 3):
+            return body[1]
+        pos += 4 + slen
+    return None
+
+
+def parse_zlib_header(data: bytes) -> tuple[int, int | None]:
+    """Returns (header_len, dictid or None). Raises on malformed input."""
+    if len(data) < 2:
+        raise ValueError("truncated zlib header")
+    cmf, flg = data[0], data[1]
+    if cmf & 0x0F != 8:
+        raise ValueError(f"unsupported compression method {cmf & 0x0F}")
+    if (cmf * 256 + flg) % 31 != 0:
+        raise ValueError("bad zlib header check")
+    if flg & 0x20:
+        if len(data) < 6:
+            raise ValueError("truncated DICTID")
+        return 6, struct.unpack(">I", data[2:6])[0]
+    return 2, None
+
+
+def parse_gzip_header(data: bytes) -> int:
+    """Returns the header length. Handles optional FEXTRA/FNAME/FCOMMENT/FHCRC."""
+    if len(data) < 10 or data[0] != 0x1F or data[1] != 0x8B:
+        raise ValueError("bad gzip magic")
+    if data[2] != 8:
+        raise ValueError(f"unsupported gzip method {data[2]}")
+    flg = data[3]
+    pos = 10
+    if flg & 0x04:  # FEXTRA
+        if pos + 2 > len(data):
+            raise ValueError("truncated FEXTRA length")
+        xlen = struct.unpack("<H", data[pos : pos + 2])[0]
+        pos += 2 + xlen
+    if flg & 0x08:  # FNAME
+        try:
+            pos = data.index(b"\x00", pos) + 1
+        except ValueError:
+            raise ValueError("unterminated FNAME") from None
+    if flg & 0x10:  # FCOMMENT
+        try:
+            pos = data.index(b"\x00", pos) + 1
+        except ValueError:
+            raise ValueError("unterminated FCOMMENT") from None
+    if flg & 0x02:  # FHCRC
+        pos += 2
+    if pos > len(data):
+        raise ValueError("truncated gzip header")
+    return pos
 
 
 def gzip_trailer(crc: int, isize: int) -> bytes:
