@@ -30,11 +30,26 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    MB/s, size against zlib levels 6 and 9, stage times (a separate run)
    and a torch.profiler trace (another run: device time by kernel, the
    card's idle share) are printed;
-4. reference bytes: a 1 MiB prefix at levels 6 and 9 on the card equals
+4. streaming: the 8 MiB corpus through zlib_compat.compressobj(6,
+   wbits=31) in 64 KiB pieces, then Z_FINISH, on the card: one
+   encode_segments call, one (1, 294912) batch, per 256 KiB chunk. The
+   output must decode with stdlib gzip and with stream.Decompressor fed
+   in 64 KiB pieces, and every kernel must launch in the streamed run
+   (counts reset just before the first timed call, read just after).
+   The median of STREAM_REPS calls in MB/s beside phase 3's one-shot L6
+   gzip, size against zlib-6, stage times, a trace with the card's idle
+   share, the host Decompressor's MB/s, and gzip_compat.GzipFile
+   (engine="device") writing the 8 MiB in 1 MiB writes, decoded by
+   stdlib gzip. Phase 2 also holds and times the kernels' launches of
+   the stream's first full chunk;
+5. reference bytes: a 1 MiB prefix at levels 6 and 9 on the card equals
    the port's CPU path, and a fixed 64 KiB input with 4 KiB chunks
    hashes to REF_SHA256_L6_4K at level 6 and REF_SHA256_L9_4K at level
    9, the digests the JAX reference produces (asserted by
-   tests/test_torch_api.py).
+   tests/test_torch_api.py); stream_script on the 1 MiB prefix gives
+   the CPU path's bytes on every call, and on the 64 KiB input with 4
+   KiB chunks hashes to REF_SHA256_STREAM_4K (asserted against the
+   reference by tests/test_torch_stream.py).
 
 The second-to-last lines are the kernels JSON and nvidia-smi's line; the
 last line is {"ok": true, "device": {...}}.
@@ -44,6 +59,7 @@ from __future__ import annotations
 import contextlib
 import gzip
 import hashlib
+import io
 import json
 import statistics
 import subprocess
@@ -55,6 +71,8 @@ MAIN_BYTES = 8 << 20
 MAIN_CHUNK = 1 << 18
 MAIN_REPS = 5  # timed compress() calls per level
 MAIN_RUNS = ((6, "gzip"), (1, "zlib"), (9, "gzip"))  # (level, format)
+STREAM_PIECE = 1 << 16  # bytes per compress() call of the streamed runs
+STREAM_REPS = 3  # timed streamed runs
 # Phase 2 also takes L7's and L8's launches: their scans run K=20 and 24.
 KERNEL_RUNS = MAIN_RUNS + ((7, "gzip"), (8, "gzip"))
 BATCH = 16  # chunks per device batch on the main path
@@ -62,6 +80,9 @@ REF_INPUT_BYTES = 1 << 16
 REF_INPUT_SEED = 7
 REF_SHA256_L6_4K = "5fb898053468dc47e80f13c50044f253ad40d6dc18c3b0f6b6d19f4149f7f15e"
 REF_SHA256_L9_4K = "b15bf0e7a7b67912b3b05250feb1c0a9463f2aec6fd94745db5b6e324a091233"
+# stream_script at level 6 gzip, 4 KiB chunks, 4 KiB pieces, on the same
+# 64 KiB input.
+REF_SHA256_STREAM_4K = "3306d291b7d8320e09a78c395741ea67fff581e5dd1ded45d60c9ed0f7fb9341"
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 # H100 SXM 32-bit integer rate: the compare, select, min and add work of
@@ -82,6 +103,35 @@ KERNELS = {
 
 def log(*parts) -> None:
     print(*parts, flush=True)
+
+
+def stream_script(comp, data: bytes, piece: int) -> list[bytes]:
+    """Drive a stream.Compressor (the port's or the reference's) through
+    every flush mode: the first quarter of `data` in `piece`-byte pieces
+    and Z_SYNC_FLUSH, the second and Z_FULL_FLUSH, 1001 bytes and a
+    Z_BLOCK that must leave the stream mid-byte, a quarter more arriving
+    mid-byte, set_params(level=9), the rest and Z_FINISH. Returns the
+    output of every call."""
+    n = len(data)
+    outs = []
+
+    def feed(lo, hi):
+        for off in range(lo, hi, piece):
+            outs.append(comp.compress(data[off : min(off + piece, hi)]))
+
+    feed(0, n // 4)
+    outs.append(comp.flush(zlib.Z_SYNC_FLUSH))
+    feed(n // 4, n // 2)
+    outs.append(comp.flush(zlib.Z_FULL_FLUSH))
+    feed(n // 2, n // 2 + 1001)
+    outs.append(comp.flush(zlib.Z_BLOCK))
+    if not comp._tail_n:
+        raise AssertionError("stream script: Z_BLOCK left no sub-byte tail")
+    feed(n // 2 + 1001, 3 * n // 4 + 1001)
+    outs.append(comp.set_params(level=9))
+    feed(3 * n // 4 + 1001, n)
+    outs.append(comp.flush(zlib.Z_FINISH))
+    return outs
 
 
 @contextlib.contextmanager
@@ -263,6 +313,11 @@ def phase_kernels(torch, kernels, zt, timer, data):
             zt.compress(data, level=level, format=fmt, chunk_bytes=MAIN_CHUNK)
         for name, args in calls.items():
             real.setdefault(name, []).extend((level, a) for a in args)
+    # The stream's first full chunk: one encode_segments call on (1, n).
+    calls = {}
+    with capture(kernels, calls):
+        zt.zlib_compat.compressobj(6, wbits=31).compress(data[:MAIN_CHUNK])
+    stream_real = {name: args for name, args in calls.items()}
     plain = {
         "scan_candidates": kernels.scan_candidates_plain,
         "propagate_matches": kernels.propagate_matches_plain,
@@ -277,17 +332,24 @@ def phase_kernels(torch, kernels, zt, timer, data):
         for _, args in real[name]:
             if tuple(args[0].shape) != (BATCH, n):
                 raise AssertionError(f"{name}: shape {tuple(args[0].shape)}")
-        for args in seeded[name] + [a for _, a in real[name]]:
+        for args in stream_real[name]:
+            if tuple(args[0].shape) != (1, n):
+                raise AssertionError(
+                    f"{name}: stream shape {tuple(args[0].shape)}")
+        for args in (seeded[name] + [a for _, a in real[name]]
+                     + stream_real[name]):
             e = max_abs_err(torch, kfn(*args), plain[name](*args))
             torch.cuda.synchronize()
             if e:
                 raise AssertionError(f"{name}: kernel != plain (max err {e})")
             err = max(err, e)
             checked += 1
-        per_launch = None
+        per_launch = []
         if name in ("scan_candidates", "propagate_matches"):
             per_launch = [launch_line(timer, kernels, name, kfn, level, args)
                           for level, args in real[name]]
+        per_launch += [launch_line(timer, kernels, name, kfn, "stream_L6", a)
+                       for a in stream_real[name]]
         # Time on the last real L6 launch (for the scan: order B, K=16).
         level, args = [la for la in real[name] if la[0] == 6][-1]
         if name == "parse_rows":
@@ -320,14 +382,16 @@ def launch_line(timer, kernels, name, kfn, level, args) -> dict:
     """Time, bound and share of one real launch, printed and returned."""
     t = timer.kernel_ms(lambda: kfn(*args))
     b_ms, b_by, _ = bound(kernels, name, args)
-    line = {"level": level}
+    line = {"level": level, "shape": list(args[0].shape)}
+    at = f"L{level}" if isinstance(level, int) else level
     if name == "scan_candidates":
         line.update(k_each=args[3], lcp_cap=args[4],
                     backward_only=bool(args[5]))
-        what = (f"scan L{level} K={args[3]} cap={args[4]} "
+        what = (f"scan {at} K={args[3]} cap={args[4]} "
                 f"{'backward' if args[5] else 'both ways'}")
     else:
-        what = f"propagate L{level}"
+        what = f"{name} {at}"
+    what += f" {tuple(args[0].shape)}"
     line.update(ms=t, bound_ms=b_ms, bound_by=b_by, share=b_ms / t)
     log(f"  {what}: {t:.4f} ms, bound {b_ms * 1e3:.2f} us ({b_by}), share "
         f"{b_ms / t:.3f}")
@@ -405,7 +469,7 @@ def phase_main(torch, kernels, zt, profiling, data):
         zlib_s = time.perf_counter() - t0
         log(f"zlib-{zl} (host, one thread): {ref[zl]} B in {zlib_s:.4f} s "
             f"({len(data) / 1e6 / zlib_s:.2f} MB/s)")
-    counts = {}
+    counts, rates = {}, {}
     for level, fmt in MAIN_RUNS:
         def run():
             return zt.compress(data, level=level, format=fmt,
@@ -442,12 +506,13 @@ def phase_main(torch, kernels, zt, profiling, data):
             run()
         log(f"stages L{level} ms (each stage synchronises the card): "
             + json.dumps({k: round(v, 3) for k, v in st.as_ms().items()}))
-        trace(torch, run, level)
-        counts[level] = launched
-    return counts
+        trace(torch, run, f"L{level}")
+        counts[f"L{level}"] = launched
+        rates[level] = len(data) / 1e6 / dt
+    return counts, ref, rates
 
 
-def trace(torch, run, level: int) -> None:
+def trace(torch, run, what: str) -> None:
     """One profiled call: device time by kernel and the card's idle share
     of the call's wall time (kernels on one stream do not overlap)."""
     from torch.profiler import ProfilerActivity, profile
@@ -463,13 +528,87 @@ def trace(torch, run, level: int) -> None:
             if str(e.device_type).endswith("CUDA")
             and e.self_device_time_total > 0]
     if not rows:
-        log(f"trace L{level}: no device time in the profile: not measured")
+        log(f"trace {what}: no device time in the profile: not measured")
         return
     busy = sum(r[1] for r in rows)
-    log(f"trace L{level}: wall {wall_us / 1e3:.3f} ms, device busy "
+    log(f"trace {what}: wall {wall_us / 1e3:.3f} ms, device busy "
         f"{busy / 1e3:.3f} ms, idle share {1 - busy / wall_us:.4f}")
     for key, us, count in sorted(rows, key=lambda r: -r[1])[:12]:
         log(f"  {us / 1e3:9.3f} ms {count:6d}x {key[:90]}")
+
+
+def phase_stream(torch, kernels, zt, profiling, data, zlib6: int,
+                 oneshot_mbps: float):
+    """The 8 MiB corpus streamed through zlib_compat on the card."""
+    def run():
+        co = zt.zlib_compat.compressobj(6, wbits=31)
+        out = bytearray()
+        for off in range(0, len(data), STREAM_PIECE):
+            out += co.compress(data[off : off + STREAM_PIECE])
+        out += co.flush(zlib.Z_FINISH)
+        return bytes(out)
+
+    run()  # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out = run()
+    secs = [time.perf_counter() - t0]
+    launched = dict(kernels.launches)
+    if gzip.decompress(out) != data:
+        raise AssertionError("stream: output does not decode with gzip")
+    idle = [k for k, v in launched.items() if v == 0]
+    if idle:
+        raise AssertionError(f"stream: kernels never launched: {idle}")
+    for _ in range(STREAM_REPS - 1):
+        t0 = time.perf_counter()
+        if run() != out:
+            raise AssertionError("stream: output differs between runs")
+        secs.append(time.perf_counter() - t0)
+    dt = statistics.median(secs)
+    nchunks = -(-len(data) // MAIN_CHUNK)
+    log(f"stream L6 gzip ({STREAM_PIECE} B pieces, {nchunks} chunks of "
+        f"{MAIN_CHUNK}, one (1, {32768 + MAIN_CHUNK}) batch each): "
+        f"{len(data)} -> {len(out)} B; median {dt:.4f} s of {STREAM_REPS} "
+        f"calls (min {min(secs):.4f}, max {max(secs):.4f}) = "
+        f"{len(data) / 1e6 / dt:.3f} MB/s against the one-shot L6 gzip's "
+        f"{oneshot_mbps:.3f} MB/s; size vs zlib-6 {len(out) / zlib6:.5f}; "
+        f"launches {launched}")
+    with profiling.collect() as st:
+        run()
+    log("stages stream L6 ms (each stage synchronises the card): "
+        + json.dumps({k: round(v, 3) for k, v in st.as_ms().items()}))
+    trace(torch, run, "stream L6")
+
+    secs = []
+    for _ in range(STREAM_REPS):
+        d = zt.stream.Decompressor(format="gzip")
+        back = bytearray()
+        t0 = time.perf_counter()
+        for off in range(0, len(out), STREAM_PIECE):
+            back += d.decompress(out[off : off + STREAM_PIECE])
+        back += d.flush()
+        secs.append(time.perf_counter() - t0)
+        if bytes(back) != data or not d.eof:
+            raise AssertionError("stream: Decompressor does not give the input")
+    dt = statistics.median(secs)
+    log(f"host stream.Decompressor (C inflate on the host, not the card), "
+        f"{STREAM_PIECE} B pieces: median {dt:.4f} s of {STREAM_REPS} = "
+        f"{len(data) / 1e6 / dt:.3f} MB/s of output")
+
+    buf = io.BytesIO()
+    t0 = time.perf_counter()
+    with zt.gzip_compat.GzipFile(fileobj=buf, mode="wb", compresslevel=6,
+                                 mtime=0, engine="device") as f:
+        for off in range(0, len(data), 1 << 20):
+            f.write(data[off : off + (1 << 20)])
+    dt = time.perf_counter() - t0
+    if gzip.decompress(buf.getvalue()) != data:
+        raise AssertionError("GzipFile on the card: output does not decode")
+    log(f"gzip_compat.GzipFile(engine='device', level 6), 1 MiB writes: "
+        f"{len(buf.getvalue())} B in {dt:.4f} s ({len(data) / 1e6 / dt:.3f} "
+        f"MB/s, one call); decodes with stdlib gzip")
+    return launched
 
 
 def phase_reference(torch, zt, data, corpus):
@@ -488,6 +627,25 @@ def phase_reference(torch, zt, data, corpus):
             raise AssertionError(f"REF_SHA256_L{level}_4K mismatch: {digest}")
         log(f"reference L{level}: 1 MiB prefix card == CPU path ({len(gpu)} "
             f"B); 64 KiB L{level}/4K sha256 {digest} == REF_SHA256_L{level}_4K")
+    gpu = stream_script(zt.stream.Compressor(level=6, format="gzip"), prefix,
+                        STREAM_PIECE)
+    cpu = stream_script(zt.stream.Compressor(level=6, format="gzip",
+                                             device="cpu"),
+                        prefix, STREAM_PIECE)
+    if gpu != cpu:
+        bad = [i for i, (a, b) in enumerate(zip(gpu, cpu)) if a != b]
+        raise AssertionError(f"stream script: card != CPU path at calls {bad}")
+    if gzip.decompress(b"".join(gpu)) != prefix:
+        raise AssertionError("stream script: output does not decode")
+    blob = b"".join(stream_script(
+        zt.stream.Compressor(level=6, format="gzip", chunk_bytes=4096),
+        ref_in, 4096))
+    digest = hashlib.sha256(blob).hexdigest()
+    if digest != REF_SHA256_STREAM_4K:
+        raise AssertionError(f"REF_SHA256_STREAM_4K mismatch: {digest}")
+    log(f"reference stream: 1 MiB prefix script card == CPU path on all "
+        f"{len(gpu)} calls ({sum(map(len, gpu))} B); 64 KiB/4K script sha256 "
+        f"{digest} == REF_SHA256_STREAM_4K")
 
 
 def main() -> int:
@@ -505,13 +663,15 @@ def main() -> int:
     data = corpus.mixed_corpus(MAIN_BYTES, seed=0)
     timer = DeviceTimer(torch)
     results = phase_kernels(torch, kernels, zt, timer, data)
-    counts = phase_main(torch, kernels, zt, profiling, data)
+    counts, ref, rates = phase_main(torch, kernels, zt, profiling, data)
+    counts["stream_L6"] = phase_stream(torch, kernels, zt, profiling, data,
+                                       ref[6], rates[6])
     phase_reference(torch, zt, data, corpus)
 
     line = {"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
-         "launches": counts[6][k],
-         "launches_by_level": {f"L{lv}": c[k] for lv, c in counts.items()},
+         "launches": counts["L6"][k],
+         "launches_by_level": {lv: c[k] for lv, c in counts.items()},
          **results[k]}
         for k, (src, rep) in KERNELS.items()
     ]}

@@ -9,6 +9,7 @@ without them (tests/conftest.py does import jax; skip it there):
 
 Tolerance is zero: the codec is integer-only and deterministic.
 """
+import hashlib
 import zlib
 
 import numpy as np
@@ -325,3 +326,47 @@ def test_full_width_emit_on_card_equals_cpu_path():
                       indexed=True, device="cpu")
     assert gpu == cpu
     assert zlib.decompress(gpu, wbits=31) == data
+
+
+def test_stream_on_card_equals_cpu_path():
+    """The scripted stream (every flush mode, a Z_BLOCK that leaves the
+    stream mid-byte, set_params(level=9)) gives the CPU path's bytes on
+    every call and the reference's digest, through all three kernels."""
+    _card()
+    import chip_smoke
+    from zzflate_tpu_torch import stream
+
+    data = mixed_corpus(chip_smoke.REF_INPUT_BYTES, chip_smoke.REF_INPUT_SEED)
+    kw = dict(level=6, format="gzip", chunk_bytes=4096)
+    comp = stream.Compressor(**kw)
+    assert comp._device.type == "cuda"
+    kernels.reset_launches()
+    gpu = chip_smoke.stream_script(comp, data, 4096)
+    assert all(v > 0 for v in kernels.launches.values()), kernels.launches
+    cpu = chip_smoke.stream_script(stream.Compressor(device="cpu", **kw),
+                                   data, 4096)
+    assert gpu == cpu
+    assert hashlib.sha256(b"".join(gpu)).hexdigest() == \
+        chip_smoke.REF_SHA256_STREAM_4K
+
+
+def test_facades_and_resume_on_card_equal_cpu_path(tmp_path):
+    _card()
+    from zzflate_tpu_torch import gzip_compat, zlib_compat
+    from zzflate_tpu_torch.utils import resume
+
+    def co_run(**kw):
+        co = zlib_compat.compressobj(6, wbits=31, **kw)
+        return [co.compress(DATA[:7000]), co.flush(zlib_compat.Z_BLOCK),
+                co.compress(DATA[7000:]), co.flush()]
+
+    assert co_run() == co_run(device="cpu")
+    assert zlib_compat.compress(DATA, 1) == zlib_compat.compress(
+        DATA, 1, device="cpu")
+    assert gzip_compat.compress(DATA, 6, mtime=0, engine="device") == \
+        gzip_compat.compress(DATA, 6, mtime=0, engine="device", device="cpu")
+    for dev in ("cuda", "cpu"):
+        resume.compress_to_dir(DATA, str(tmp_path / dev), shard_bytes=8192,
+                               chunk_bytes=4096, device=dev)
+    assert resume.assemble(str(tmp_path / "cuda")) == \
+        resume.assemble(str(tmp_path / "cpu"))

@@ -114,7 +114,7 @@ def test_window_bits_bound_the_dp_distances():
                                            freqs[j, :, 288:], bfinal=0)
              for j in range(nchunks)]
     ctx = types.SimpleNamespace(nchunks=nchunks, fixed_only=False,
-                                device=torch.device("cpu"))
+                                stream_final=True, device=torch.device("cpu"))
     got, _ = encode_policy.optimal_override(
         ctx, plans, ana, ana["mm_packed"].numpy(), buf, vends, 0)
     dist = ana["mdist"][got["is_match"]]
@@ -235,7 +235,7 @@ def test_optimal_override_equals_reference(fixed_only, nreal):
     exp, exp_ntok = jax_policy.optimal_override(ref_ctx, ref_plans, ref_ana,
                                                 bfinals, 0, nreal)
     ctx = types.SimpleNamespace(nchunks=nreal, fixed_only=fixed_only,
-                                device=torch.device("cpu"))
+                                stream_final=True, device=torch.device("cpu"))
     plans = pass1()
     port_ana = {k: torch.as_tensor(np.array(ana[k]))
                 for k in ("dcode", "mdist")}

@@ -5,13 +5,17 @@ PyTorch, with the matcher's three TPU kernels rewritten as hand-written
 CUDA kernels for Hopper (sm_90a). It covers ``compress`` at levels 0-9
 (levels 7-9 re-parse on the host with the port's C runtime): zlib, gzip
 and raw formats, preset dictionaries, window_bits, mem_level, strategies,
-indexed/seekable gzip and the host C engine; and host ``decompress`` and
-``decompress_range``. Output bytes equal the reference's.
+indexed/seekable gzip and the host C engine; host ``decompress`` and
+``decompress_range``; streaming with zlib's five flush modes
+(``stream``), the stdlib facades ``zlib_compat`` and ``gzip_compat``,
+resumable shards (``utils.resume``) and the CLI (``python -m
+zzflate_tpu_torch``). Output bytes equal the reference's.
 
     import zzflate_tpu_torch as zt
     blob = zt.compress(data, level=6, format="gzip")   # on the GPU
     blob = zt.compress(data, device="cpu")             # plain torch on the CPU
     data = zt.decompress(blob, format="gzip")          # C decoder on the host
+    c = zt.zlib_compat.compressobj(6, wbits=31)        # streaming, on the GPU
 """
 from zzflate_tpu_torch.api import (
     compress,
@@ -19,6 +23,7 @@ from zzflate_tpu_torch.api import (
     decompress,
     decompress_range,
 )
+from zzflate_tpu_torch import gzip_compat, stream, zlib_compat
 from zzflate_tpu_torch.config import (
     STRATEGY_DEFAULT,
     STRATEGY_FILTERED,
@@ -33,6 +38,9 @@ __all__ = [
     "compress_bound",
     "decompress",
     "decompress_range",
+    "stream",
+    "zlib_compat",
+    "gzip_compat",
     "CodecConfig",
     "STRATEGY_DEFAULT",
     "STRATEGY_FILTERED",

@@ -1,0 +1,3 @@
+from zzflate_tpu_torch.cli import main
+
+raise SystemExit(main())

@@ -43,6 +43,8 @@ class _Ctx:
     data: bytes
     config: object
     dictionary: bytes | None
+    stream_final: bool  # the last chunk closes the stream
+    frame: bool  # sync-flush framed segments, else (bytes, nbits)
     with_anchors: bool
     halo: bool
     device: torch.device
@@ -128,8 +130,10 @@ def build_chunk_batch(data: bytes, chunk_bytes: int,
     return buf, valid_ends, window_starts, nchunks
 
 
-def _make_ctx(data, config, dictionary, with_anchors, halo, device) -> _Ctx:
+def _make_ctx(data, config, dictionary, stream_final, frame, with_anchors,
+              halo, device) -> _Ctx:
     ctx = _Ctx(data=data, config=config, dictionary=dictionary,
+               stream_final=stream_final, frame=frame,
                with_anchors=with_anchors, halo=halo, device=device)
     ctx.chunk_bytes = config.chunk_bytes
     ctx.out_words = deflate_encoder.output_words_bound(ctx.chunk_bytes)
@@ -208,7 +212,7 @@ def _plan_and_emit(ctx: _Ctx, sl, ana, freqs_wait, dp_in):
         plans = [
             huffman_host.build_chunk_plan(
                 freq_ll[j], freq_d[j],
-                bfinal=int(b0 + j == ctx.nchunks - 1),
+                bfinal=int(policy.is_final(ctx, b0 + j)),
                 fixed_only=ctx.fixed_only,
             )
             for j in range(ctx.bsz)
@@ -280,9 +284,10 @@ def _finish(ctx: _Ctx, sl, plans, res, kbm, emitted):
             out["segments"].append(
                 policy.assemble_chunk(ctx, i, nbits, words, keep[j])
             )
-            if not keep[j]:
-                # A stored fallback's block entries are meaningless (the
-                # decoder detects BTYPE=0).
+            if not ctx.frame or not keep[j]:
+                # Unframed segments carry no index; a stored fallback's
+                # block entries are meaningless (the decoder detects
+                # BTYPE=0).
                 out["blocks"].append([])
                 out["anchors"].append([])
                 continue
@@ -295,12 +300,21 @@ def _finish(ctx: _Ctx, sl, plans, res, kbm, emitted):
 
 
 def encode_segments(data: bytes, config, dictionary: bytes | None,
-                    device: torch.device, with_anchors: bool = False,
+                    device: torch.device, stream_final: bool = True,
+                    frame: bool = True, with_anchors: bool = False,
                     halo: bool = True) -> dict:
     """Deflate payload as byte-aligned per-chunk segments, each
     sync-flush framed except the final one. Returns {"segments",
-    "blocks", "anchors"}, one entry per chunk."""
-    ctx = _make_ctx(data, config, dictionary, with_anchors, halo, device)
+    "blocks", "anchors"}, one entry per chunk.
+
+    stream_final=False leaves the stream open: the last chunk is framed
+    like the others (BFINAL 0, sync-flush marker, the non-final stored
+    rule). frame=False returns unframed (bytes, nbits) segments with no
+    sync marker, no stored fallback and no index rows, the last byte
+    possibly partial, for callers that join them at bit granularity (the
+    stream layer's Z_BLOCK)."""
+    ctx = _make_ctx(data, config, dictionary, stream_final, frame,
+                    with_anchors, halo, device)
     ctx.results = {"segments": [], "blocks": [], "anchors": []}
 
     a_q: collections.deque = collections.deque()

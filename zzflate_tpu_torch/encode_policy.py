@@ -1,10 +1,12 @@
 """Stitching and parse policy for the batched encode pipeline.
 
-Port of ``zzflate_tpu/encode_policy.py`` for the whole-buffer
-``compress`` path (every segment framed, the last chunk final): when the
-stored fallback beats the Huffman segment, the device-side keep_bits_max
-budget that mirrors it, how a finished chunk becomes a framed segment,
-its block/anchor index rows, and the level 7-9 optimal-parse override.
+Port of ``zzflate_tpu/encode_policy.py``: when the stored fallback
+beats the Huffman segment, the device-side keep_bits_max budget that
+mirrors it, how a finished chunk becomes a framed segment (or, unframed,
+a (bytes, nbits) pair), its block/anchor index rows, and the level 7-9
+optimal-parse override. The last chunk is final only when the run is
+``stream_final`` (the stream layer's and the resumable shards' runs are
+not).
 """
 from __future__ import annotations
 
@@ -26,10 +28,18 @@ def _stored_len(ctx, i: int) -> int:
     return 5 * max(1, -(-clen // 65535)) + clen
 
 
+def is_final(ctx, i: int) -> bool:
+    """Chunk i closes the stream (BFINAL set, no sync-flush framing)."""
+    return i == ctx.nchunks - 1 and ctx.stream_final
+
+
 def host_keep(ctx, i: int, nbits: int) -> bool:
-    """True when chunk i's Huffman segment beats its stored fallback."""
+    """True when chunk i's Huffman segment beats its stored fallback
+    (always, unframed: it has none)."""
+    if not ctx.frame:
+        return True
     stored_len = _stored_len(ctx, i)
-    if i == ctx.nchunks - 1:
+    if is_final(ctx, i):
         return (nbits + 7) // 8 <= stored_len
     return (nbits + 10) // 8 + 4 <= stored_len
 
@@ -38,21 +48,27 @@ def keep_bits_budget(ctx, b0: int, b1: int) -> np.ndarray:
     """Per-chunk bit budget above which the stitcher picks the stored
     fallback, so the device skips those words. Non-final segments cost
     ceil((nbits+3)/8)+4 bytes (sync-flush opener + marker), final ones
-    ceil(nbits/8); stored costs 5*ceil(L/65535)+L."""
+    ceil(nbits/8); stored costs 5*ceil(L/65535)+L. Unframed runs keep
+    every chunk's words (INT32_MAX on every row)."""
     kbm = np.full((ctx.bsz,), np.iinfo(np.int32).max, np.int32)
+    if not ctx.frame:
+        return kbm
     for j in range(b1 - b0):
         i = b0 + j
         stored_len = _stored_len(ctx, i)
-        if i == ctx.nchunks - 1:
+        if is_final(ctx, i):
             kbm[j] = 8 * stored_len
         else:
             kbm[j] = 8 * (stored_len - 4) - 3
     return kbm
 
 
-def assemble_chunk(ctx, i: int, nbits: int, words_np, keep: bool) -> bytes:
-    """One chunk's framed segment bytes."""
-    final = i == ctx.nchunks - 1
+def assemble_chunk(ctx, i: int, nbits: int, words_np, keep: bool):
+    """One chunk's framed segment bytes, or unframed (bytes, nbits): no
+    sync marker, the last byte possibly partial."""
+    final = is_final(ctx, i)
+    if not ctx.frame:
+        return (words_np.tobytes()[: (nbits + 7) // 8], nbits)
     if not keep:
         chunk = ctx.data[i * ctx.chunk_bytes : (i + 1) * ctx.chunk_bytes]
         return containers.stored_segment(chunk, final=final)
@@ -135,7 +151,7 @@ def optimal_override(ctx, plans, ana, mm_packed, buf, valid_ends, b0: int):
             fd[b] = np.bincount(dcode[(tk >= s) & (tk < e)],
                                 minlength=C.NUM_DIST_SYMBOLS)
         plans[j] = huffman_host.build_chunk_plan(
-            fll, fd, bfinal=int(b0 + j == ctx.nchunks - 1),
+            fll, fd, bfinal=int(is_final(ctx, b0 + j)),
             fixed_only=ctx.fixed_only,
         )
 

@@ -1,8 +1,8 @@
 """ctypes binding of the port's C runtime: host inflate, the level 7-9
-shortest-bit-path DP and the host deflate engine.
+shortest-bit-path DP, the host deflate engine and Adler-32/CRC-32.
 
 The port's own copy of the JAX package's ``native/__init__.py``
-(:72-243, :322-439), bound to the port's own copy of the C source,
+(:72-243, :300-439), bound to the port's own copy of the C source,
 ``zzflate_native.c`` beside this file. At first use the host C compiler
 builds it (``-O3 -shared -fPIC``) into ``zzflate_tpu_torch/_build/``
 under a name keyed on a hash of the source and flags, so an edited
@@ -105,8 +105,28 @@ def lib() -> ctypes.CDLL:
             for fn in (L.zzt_inflate, L.zzt_inflate_stream,
                        L.zzt_optimal_parse, L.zzt_deflate):
                 fn.restype = ctypes.c_int
+            # value, buf, len
+            for fn in (L.zzt_adler32, L.zzt_crc32):
+                fn.argtypes = [ctypes.c_uint32, ctypes.c_char_p, sz]
+                fn.restype = ctypes.c_uint32
             _lib = L
     return _lib
+
+
+def adler32(data, value: int = 1) -> int:
+    """Adler-32 of `data` continued from `value` (zlib.adler32's
+    contract; any buffer), computed by the C runtime."""
+    if not isinstance(data, bytes):
+        data = bytes(data)  # c_char_p takes bytes only
+    return int(lib().zzt_adler32(value, data, len(data)))
+
+
+def crc32(data, value: int = 0) -> int:
+    """CRC-32 of `data` continued from `value` (zlib.crc32's contract;
+    any buffer), computed by the C runtime (slice-by-8)."""
+    if not isinstance(data, bytes):
+        data = bytes(data)
+    return int(lib().zzt_crc32(value, data, len(data)))
 
 
 def inflate_raw(

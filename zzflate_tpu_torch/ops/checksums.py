@@ -1,9 +1,10 @@
 """Host combine math for Adler-32 and CRC-32 shard checksums (numpy).
 
 The port's own copy of the host half of ``zzflate_tpu/ops/checksums.py``:
-the combines that stitch per-shard partials in order. The device
-partials serve only the streaming and multi-device paths, which come in
-a later slice; whole-buffer containers use the stdlib ``zlib`` checksums.
+the combines that stitch per-shard partials in order (``utils/resume``).
+The device partials serve only the decode and multi-device paths, which
+come in a later slice; whole-buffer containers use the stdlib ``zlib``
+checksums, the stream layer the C runtime's.
 
 CRC-32's byte update factors as A(state) ^ T[b] with A linear over GF(2),
 so crc(L||R) = A^len(R) crc(L) ^ crc(R), with A^(2^j) precomputed.

@@ -257,6 +257,9 @@ def stored_segment(chunk: bytes, final: bool) -> bytes:
 
 
 SYNC_FLUSH_MARKER = b"\x00\x00\xff\xff"
+# A final empty fixed-Huffman block (BFINAL=1, BTYPE=01, EOB), byte
+# aligned: closes a stream whose segments were all written non-final.
+FINAL_EMPTY_FIXED_BLOCK = b"\x03\x00"
 
 
 def combine_adler(parts: list[tuple[int, int]]) -> int:
