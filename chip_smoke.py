@@ -6,8 +6,9 @@
 Phases (any failure raises and exits nonzero; nothing is caught):
 
 1. card: the device name, nvidia-smi's name and power limit, the nvcc
-   build of the three kernels from zzflate_tpu_torch/csrc and the host
-   C compiler's build of the port's C runtime (zzflate_tpu_torch/native);
+   build of the four kernels from zzflate_tpu_torch/csrc (one nvcc per
+   source, all started together) and the host C compiler's build of the
+   port's C runtime (zzflate_tpu_torch/native);
 2. kernels: at the main-path shape (16, 294912) each kernel is held
    against its plain torch version on the card, on seeded inputs and on
    the arrays the main path's L6, L1 and L9 calls and an L7 and an L8
@@ -51,8 +52,29 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    KiB chunks hashes to REF_SHA256_STREAM_4K (asserted against the
    reference by tests/test_torch_stream.py).
 
-The second-to-last lines are the kernels JSON and nvidia-smi's line; the
-last line is {"ok": true, "device": {...}}.
+6. device decode: the 8 MiB corpus compressed by the port on the card
+   (L6 gzip, indexed, 256 KiB chunks: 3 groups) and by stdlib zlib at
+   level 6 as zlib, gzip and raw, each decoded by
+   decompress(engine="device") to the input, with the anchor walk
+   launched in each run (counts reset just before the first timed call,
+   read just after); the CRC checked on the card (gzip, indexed), the
+   Adler-32 on the host (zlib). The median MB/s of DECODE_REPS calls
+   beside the host C decoder's on the same bytes, stage times, a trace
+   of one indexed call (device time by kernel, idle share), the LZ
+   resolve's doubling rounds, the CRC's kernel launches; a flipped
+   payload byte raises ValueError on the card; a 64 MiB corpus decodes
+   with to_device=True to a CUDA tensor equal to the input, as an
+   indexed stream (whose index drops its anchors at that size, so the
+   per-bit path runs, once) and as a stdlib gzip stream (the walk). The
+   walk kernel equals its plain version exactly on the indexed run's
+   first group and on a seeded input with invalid windows and lanes
+   past the output's end, and its time per launch is printed with its
+   bound and share and beside the time of its first lane alone (the
+   serial chain); a v2 index (per-bit path, no walk) decodes, with
+   its commit sweeps' launches and time.
+
+The second-to-last lines are the kernels JSON (the four kernels) and
+nvidia-smi's line; the last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -83,6 +105,9 @@ REF_SHA256_L9_4K = "b15bf0e7a7b67912b3b05250feb1c0a9463f2aec6fd94745db5b6e324a09
 # stream_script at level 6 gzip, 4 KiB chunks, 4 KiB pieces, on the same
 # 64 KiB input.
 REF_SHA256_STREAM_4K = "3306d291b7d8320e09a78c395741ea67fff581e5dd1ded45d60c9ed0f7fb9341"
+DECODE_REPS = 3  # timed decode calls per stream
+DECODE_BIG = 64 << 20  # the data-loading runs: to_device=True
+V2_BYTES = 1 << 20  # the per-bit path's stream (v2 index)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 # H100 SXM 32-bit integer rate: the compare, select, min and add work of
@@ -99,6 +124,9 @@ KERNELS = {
     "parse_rows": ("zzflate_tpu_torch/csrc/parse.cu",
                    "zzflate_tpu/ops/pallas_kernels.py:267"),
 }
+# Device decode's kernel: no Pallas kernel, the reference's lax.fori_loop.
+WALK = ("anchor_walk", "zzflate_tpu_torch/csrc/walk.cu",
+        "zzflate_tpu/models/inflate_tpu.py:727 (_walk_core, lax.fori_loop)")
 
 
 def log(*parts) -> None:
@@ -487,7 +515,7 @@ def phase_main(torch, kernels, zt, profiling, data):
             raise AssertionError(f"L{level} {fmt}: output does not decode")
         if zt.decompress(out, format=fmt) != data:
             raise AssertionError(f"L{level} {fmt}: zt.decompress differs")
-        idle = [k for k, v in launched.items() if v == 0]
+        idle = [k for k in KERNELS if launched[k] == 0]
         if idle:
             raise AssertionError(f"L{level}: kernels never launched: {idle}")
         for _ in range(MAIN_REPS - 1):
@@ -557,7 +585,7 @@ def phase_stream(torch, kernels, zt, profiling, data, zlib6: int,
     launched = dict(kernels.launches)
     if gzip.decompress(out) != data:
         raise AssertionError("stream: output does not decode with gzip")
-    idle = [k for k, v in launched.items() if v == 0]
+    idle = [k for k in KERNELS if launched[k] == 0]
     if idle:
         raise AssertionError(f"stream: kernels never launched: {idle}")
     for _ in range(STREAM_REPS - 1):
@@ -648,6 +676,374 @@ def phase_reference(torch, zt, data, corpus):
         f"{digest} == REF_SHA256_STREAM_4K")
 
 
+# Integer operations of one token in csrc/walk.cu, counted from its
+# source: the window (8), the bit reversal (2), the canonical symbol (15
+# compares, 15 adds, 6 more) and the tests and emit (12) for a literal;
+# a match adds its length (16), the distance's window, reversal and
+# symbol (40) and its value and the advance (20).
+WALK_OPS_LITERAL = 60
+WALK_OPS_MATCH = 136
+
+
+def to_v2(blob: bytes, containers) -> bytes:
+    """The same body behind a legacy v2 'ZZ' subfield (no anchors): the
+    per-bit path."""
+    import struct
+
+    header_len, cb, _t, chunks = containers.parse_gzip_index(blob)
+    sub = bytearray(struct.pack("<BBII", 2, 0, cb, len(chunks)))
+    for seg_bytes, blocks, _anchors in chunks:
+        sub += struct.pack("<IH", seg_bytes, len(blocks))
+        for bit_off, out_off in blocks:
+            sub += struct.pack("<II", bit_off, out_off)
+    extra = b"ZZ" + struct.pack("<H", len(sub)) + bytes(sub)
+    return (b"\x1f\x8b\x08\x04\x00\x00\x00\x00\x00\xff"
+            + struct.pack("<H", len(extra)) + extra + blob[header_len:])
+
+
+@contextlib.contextmanager
+def walk_capture(kernels, calls: list):
+    """Record every anchor_walk call's arguments (packed as it came in)
+    while the body runs; the wrapper itself runs as it is."""
+    orig = kernels.anchor_walk
+
+    def rec(words, ll, d, lanes, packed, t_steps):
+        calls.append((words, ll, d, lanes, packed.clone(), t_steps))
+        return orig(words, ll, d, lanes, packed, t_steps)
+
+    kernels.anchor_walk = rec
+    try:
+        yield
+    finally:
+        kernels.anchor_walk = orig
+
+
+def walk_bound(args, after):
+    """Least time of one walk launch: max(bytes / HBM rate, ops / integer
+    rate), both from this run's data. Bytes: the group's body up to its
+    last non-zero word (the zero padding past it is never decoded), the
+    unit tables and the lanes read once, and each packed entry the launch
+    changed read and written once (a token's atomicMax touches its own
+    entry only). Ops: the tokens the launch decoded (the start marks it
+    set), by kind."""
+    words, ll, d, lanes, packed0, t_steps = args
+    nz = (words != 0).nonzero()
+    body_words = int(nz[-1].item()) + 1 if nz.numel() else 0
+    changed = int((after != packed0).sum().item())
+    nbytes = (body_words * 4 + changed * 8
+              + sum(t.numel() * 4 for t in ll + d + lanes))
+    new = ((after & 1) == 1) & ((packed0 & 1) == 0)
+    matches = int((new & ((after >> 9) > 0)).sum().item())
+    literals = int(new.sum().item()) - matches
+    ops = literals * WALK_OPS_LITERAL + matches * WALK_OPS_MATCH
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT_OPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes_ms": t_bytes, "ops_ms": t_ops, "body_bytes": body_words * 4,
+            "changed": changed,
+            "lanes": int((lanes[3] != 0).sum().item()), "literals": literals,
+            "matches": matches}
+
+
+def hostile_walk_input(torch, args, seed: int):
+    """A real launch's tables with seeded words (half real code, half
+    random: invalid windows), lanes at random bits, a fifth of them past
+    the output's end, some with a unit id out of range, some invalid."""
+    words, ll, d, lanes, packed0, t_steps = args
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    nw = words.shape[0]
+    n = 4096
+    npad = packed0.shape[0]
+    u = ll[0].shape[0]
+
+    def ri(lo, hi, k=n):
+        return torch.randint(lo, hi, (k,), generator=g, device="cuda",
+                             dtype=torch.int32)
+
+    w = torch.randint(-(1 << 31), 1 << 31, (nw,), generator=g, device="cuda",
+                      dtype=torch.int64).int()
+    w[: nw // 2] = words[: nw // 2]
+    far = torch.rand((n,), generator=g, device="cuda") < 0.2
+    lanes = (ri(0, 32 * nw), torch.where(far, ri(npad - 50, npad + 500),
+                                         ri(0, npad)).int(),
+             ri(-2, u + 3), (torch.rand((n,), generator=g, device="cuda")
+                             < 0.9).int())
+    return (w, ll, d, lanes, packed0, t_steps)
+
+
+def phase_decode(torch, kernels, zt, profiling, timer, data, corpus):
+    """Device decode of the 8 MiB corpus (indexed, zlib, gzip, raw), the
+    64 MiB data-loading run, the walk kernel against its plain version,
+    and the v2 per-bit path."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from zzflate_tpu_torch.models import inflate_device as idv
+    from zzflate_tpu_torch.ops import checksums as cs
+    from zzflate_tpu_torch.utils import containers
+
+    mb = len(data) / 1e6
+    indexed = zt.compress(data, level=6, format="gzip",
+                          chunk_bytes=MAIN_CHUNK, indexed=True)
+    co = zlib.compressobj(6, zlib.DEFLATED, -15)
+    streams = {
+        "indexed": ("gzip", indexed),
+        "zlib": ("zlib", zlib.compress(data, 6)),
+        "gzip": ("gzip", gzip.compress(data, 6, mtime=0)),
+        "raw": ("raw", co.compress(data) + co.flush()),
+    }
+    counts, rates = {}, {}
+    for name, (fmt, blob) in streams.items():
+        def run():
+            return zt.decompress(blob, format=fmt, engine="device")
+
+        run()  # warm-up: first-call allocations and table uploads
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        out = run()
+        secs = [time.perf_counter() - t0]
+        launched = kernels.launches["anchor_walk"]
+        if out != data:
+            raise AssertionError(f"decode {name}: output differs from input")
+        if launched == 0:
+            raise AssertionError(f"decode {name}: anchor_walk never launched")
+        for _ in range(DECODE_REPS - 1):
+            t0 = time.perf_counter()
+            if run() != data:
+                raise AssertionError(f"decode {name}: output differs")
+            secs.append(time.perf_counter() - t0)
+        host = []
+        for _ in range(DECODE_REPS):
+            t0 = time.perf_counter()
+            if zt.decompress(blob, format=fmt) != data:
+                raise AssertionError(f"host decode {name}: output differs")
+            host.append(time.perf_counter() - t0)
+        dt, ht = statistics.median(secs), statistics.median(host)
+        log(f"decode {name} ({fmt}): {len(blob)} -> {len(data)} B; device "
+            f"median {dt:.4f} s of {DECODE_REPS} (min {min(secs):.4f}, max "
+            f"{max(secs):.4f}) = {mb / dt:.3f} MB/s of output; host C decoder "
+            f"median {ht:.4f} s = {mb / ht:.3f} MB/s; anchor_walk launches "
+            f"{launched}")
+        with profiling.collect() as st:
+            run()
+        log(f"stages decode {name} ms (each device stage synchronises the "
+            "card): " + json.dumps({k: round(v, 3)
+                                    for k, v in st.as_ms().items()}))
+        counts[name] = launched
+        rates[name] = (mb / dt, mb / ht)
+    trace(torch, lambda: zt.decompress(indexed, format="gzip",
+                                       engine="device"), "decode indexed")
+
+    rounds = []
+    orig_resolve = idv._resolve_parent
+
+    def rec_resolve(*a):
+        parent, r = orig_resolve(*a)
+        rounds.append(r)
+        return parent, r
+
+    idv._resolve_parent = rec_resolve
+    try:
+        for name in ("indexed", "zlib"):
+            fmt, blob = streams[name]
+            zt.decompress(blob, format=fmt, engine="device")
+    finally:
+        idv._resolve_parent = orig_resolve
+    log(f"LZ resolve doubling rounds per group (indexed, then zlib): {rounds}")
+
+    buf = torch.randint(0, 256, (1 << 22,), dtype=torch.uint8, device="cuda")
+    n_crc = (1 << 22) - 12345
+    cs._crc32_impl(buf, n_crc, idv._W)  # warm-up: the tables' uploads
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        crc = cs._crc32_impl(buf, n_crc, idv._W)
+        torch.cuda.synchronize()
+    want = zlib.crc32(buf[idv._W : n_crc].cpu().numpy().tobytes())
+    if int(crc) != want:
+        raise AssertionError("device crc32 != zlib.crc32")
+    ev = [e for e in prof.key_averages()
+          if str(e.device_type).endswith("CUDA")]
+    crc_ms = timer.wall_ms(lambda: cs._crc32_impl(buf, n_crc, idv._W))
+    log(f"CRC-32 of a 4 MiB group on the card: {sum(e.count for e in ev)} "
+        f"device launches ({len(ev)} kinds), "
+        f"{sum(e.self_device_time_total for e in ev) / 1e3:.3f} ms device "
+        f"time, {crc_ms:.3f} ms a call (events); equals zlib.crc32")
+
+    bad = bytearray(indexed)
+    bad[len(bad) // 2] ^= 0x40  # a payload byte
+    kernels.reset_launches()
+    try:
+        idv.decompress_indexed(bytes(bad))
+    except ValueError as e:
+        msg = str(e)
+    else:
+        raise AssertionError("a flipped payload byte decoded without error")
+    if kernels.launches["anchor_walk"] == 0:
+        raise AssertionError("flipped byte: the walk never ran on the card")
+    log(f"flipped payload byte: ValueError on the card ({msg})")
+
+    t0 = time.perf_counter()
+    big = corpus.mixed_corpus(DECODE_BIG, seed=1)
+    big_idx = zt.compress(big, level=6, format="gzip",
+                          chunk_bytes=MAIN_CHUNK, indexed=True)
+    big_gz = gzip.compress(big, 6, mtime=0)
+    setup_s = time.perf_counter() - t0
+    # At 64 MiB the anchors (~8 B per 1 024 tokens) no longer fit the
+    # 64 KiB FEXTRA, so the encoder writes the index without them (as the
+    # reference's does) and the indexed stream decodes on the per-bit
+    # path; the stdlib gzip of the same bytes takes the walk.
+    if containers.parse_gzip_index(big_idx)[2] != 0:
+        raise AssertionError("64 MiB index carries anchors: expected none")
+    want_t = torch.frombuffer(bytearray(big), dtype=torch.uint8).cuda()
+    big_mb = len(big) / 1e6
+    for name, blob, walk in (("indexed, per-bit path", big_idx, False),
+                             ("stdlib gzip, anchor walk", big_gz, True)):
+        def run_big():
+            if walk:
+                arr, n = idv.decompress_foreign(blob, format="gzip",
+                                                to_device=True)
+            else:
+                arr, n = idv.decompress_indexed(blob, to_device=True)
+            torch.cuda.synchronize()
+            return arr, n
+
+        if walk:
+            run_big()  # warm-up
+        key = f"64 MiB {name}, to_device"
+        kernels.reset_launches()
+        secs = []
+        # The per-bit path runs once, as a check: the 1 MiB v2 run below
+        # times its sweeps.
+        for k in range(DECODE_REPS if walk else 1):
+            t0 = time.perf_counter()
+            arr, n = run_big()
+            secs.append(time.perf_counter() - t0)
+            if k == 0:
+                counts[key] = kernels.launches["anchor_walk"]
+            if (not arr.is_cuda or n != len(big)
+                    or not torch.equal(arr, want_t)):
+                raise AssertionError(f"{key}: tensor differs from input")
+            del arr
+        if (counts[key] > 0) != walk:
+            raise AssertionError(f"{key}: anchor_walk launches {counts[key]}")
+        t0 = time.perf_counter()
+        if zt.decompress(blob, format="gzip") != big:
+            raise AssertionError(f"{key}: host decode differs")
+        host_s = time.perf_counter() - t0
+        dt = statistics.median(secs)
+        log(f"decode {key}=True: {len(blob)} -> {len(big)} B; median "
+            f"{dt:.4f} s of {len(secs)} call(s) (min {min(secs):.4f}, max "
+            f"{max(secs):.4f}) = {big_mb / dt:.3f} MB/s; a CUDA tensor equal "
+            f"to the input; anchor_walk launches {counts[key]}; host C "
+            f"decoder to bytes {host_s:.4f} s = {big_mb / host_s:.3f} MB/s")
+        rates[key] = (big_mb / dt, big_mb / host_s)
+        if walk:
+            with profiling.collect() as st:
+                run_big()
+            log(f"stages decode {key} ms: " + json.dumps(
+                {k: round(v, 3) for k, v in st.as_ms().items()}))
+    log(f"64 MiB corpus, card L6 indexed encode and stdlib gzip: "
+        f"{setup_s:.2f} s")
+    del want_t
+
+    calls: list = []
+    with walk_capture(kernels, calls):
+        zt.decompress(indexed, format="gzip", engine="device")
+    checked, err, plain_ms = 0, 0, None
+    for args in (calls[0], hostile_walk_input(torch, calls[0], seed=3),
+                 hostile_walk_input(torch, calls[-1], seed=4)):
+        words, ll, d, lanes, packed0, t_steps = args
+        got = kernels.anchor_walk(words, ll, d, lanes, packed0.clone(),
+                                  t_steps)
+        # The plain walk runs once per input; its time is taken on the
+        # first group's (events: its host gaps are part of its cost).
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        exp = kernels.anchor_walk_plain(words, ll, d, lanes, packed0.clone(),
+                                        t_steps)
+        ev[1].record()
+        torch.cuda.synchronize()
+        if plain_ms is None:
+            plain_ms = ev[0].elapsed_time(ev[1])
+        err = max(err, max_abs_err(torch, got, exp))
+        checked += 1
+    if err:
+        raise AssertionError(f"anchor_walk: kernel != plain (err {err})")
+    per_launch = []
+    for k, args in enumerate(calls):
+        words, ll, d, lanes, packed0, t_steps = args
+        scratch = packed0.clone()
+        ms = timer.kernel_ms(lambda: kernels.anchor_walk(
+            words, ll, d, lanes, scratch, t_steps))
+        after = kernels.anchor_walk(words, ll, d, lanes, packed0.clone(),
+                                    t_steps)
+        b = walk_bound(args, after)
+        # The serial chain, measured: the launch's first lane alone.
+        one = tuple(t[:1] for t in lanes)
+        solo = packed0.clone()
+        one_ms = timer.kernel_ms(lambda: kernels.anchor_walk(
+            words, ll, d, one, solo, t_steps))
+        b.update(group=k, ms=ms, share=b["bound_ms"] / ms,
+                 one_lane_ms=one_ms,
+                 one_lane_tokens=int((solo != packed0).sum().item()))
+        per_launch.append(b)
+        log(f"  anchor_walk group {k}: {b['lanes']} lanes, "
+            f"{b['literals']} literals + {b['matches']} matches, t_steps "
+            f"{t_steps}: {ms:.4f} ms; bound {b['bound_ms'] * 1e3:.2f} us "
+            f"({b['bound_by']}; bytes {b['bytes_ms'] * 1e3:.2f} us for "
+            f"{b['body_bytes']} B of body and {b['changed']} packed entries, "
+            f"ops {b['ops_ms'] * 1e3:.2f} us), share {b['share']:.4f}; its "
+            f"first lane alone ({b['one_lane_tokens']} tokens) "
+            f"{one_ms:.4f} ms = {one_ms / ms:.3f} of the launch")
+    first = per_launch[0]
+    log(f"kernel anchor_walk: {checked} comparisons, max abs err {err}; "
+        f"first group kernel {first['ms']:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bound {first['bound_ms'] * 1e3:.2f} us ({first['bound_by']}), "
+        f"first lane alone {first['one_lane_ms']:.4f} ms; library: none")
+
+    pre = data[:V2_BYTES]
+    v2 = to_v2(zt.compress(pre, level=6, format="gzip",
+                           chunk_bytes=MAIN_CHUNK, indexed=True), containers)
+    sweep_args = []
+    orig_commit = idv._commit_walk
+
+    def rec_commit(*a):
+        sweep_args.append(a)
+        return orig_commit(*a)
+
+    idv._commit_walk = rec_commit
+    try:
+        idv.decompress_indexed(v2)  # warm-up
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        if idv.decompress_indexed(v2) != pre:
+            raise AssertionError("v2 index: device decode differs")
+        v2_s = time.perf_counter() - t0
+    finally:
+        idv._commit_walk = orig_commit
+    if kernels.launches["anchor_walk"]:
+        raise AssertionError("v2 index: the walk ran (per-bit path expected)")
+    a = sweep_args[-1]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        idv._commit_walk(*a)
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages()
+          if str(e.device_type).endswith("CUDA")]
+    sweep_ms = timer.wall_ms(lambda: idv._commit_walk(*a), reps=1)
+    log(f"v2 index (per-bit path), {len(pre)} B: {v2_s:.4f} s = "
+        f"{len(pre) / 1e6 / v2_s:.3f} MB/s; _commit_walk on {a[0].numel()} "
+        f"bits: {sum(e.count for e in ev)} device launches, "
+        f"{sum(e.self_device_time_total for e in ev) / 1e3:.3f} ms device "
+        f"time, {sweep_ms:.3f} ms a call (events)")
+    return {"launches": counts["indexed"], "launches_by_run": counts,
+            "max_abs_err": err, "ms": first["ms"], "plain_ms": plain_ms,
+            "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+            "library_ms": None,
+            "per_launch": per_launch,
+            "MBps_device_vs_host": rates}
+
+
 def main() -> int:
     import torch
 
@@ -659,14 +1055,30 @@ def main() -> int:
     from zzflate_tpu_torch.ops import kernels
     from zzflate_tpu_torch.utils import corpus, profiling
 
+    t_start = time.perf_counter()
+    t_last = [t_start]
+
+    def took(phase: str) -> None:
+        now = time.perf_counter()
+        log(f"phase {phase}: {now - t_last[0]:.1f} s")
+        t_last[0] = now
+
     name, smi = phase_card(torch, kernels, native)
     data = corpus.mixed_corpus(MAIN_BYTES, seed=0)
     timer = DeviceTimer(torch)
+    took("1 (card, builds, corpus)")
     results = phase_kernels(torch, kernels, zt, timer, data)
+    took("2 (kernels)")
     counts, ref, rates = phase_main(torch, kernels, zt, profiling, data)
+    took("3 (main path)")
     counts["stream_L6"] = phase_stream(torch, kernels, zt, profiling, data,
                                        ref[6], rates[6])
+    took("4 (streaming)")
     phase_reference(torch, zt, data, corpus)
+    took("5 (reference)")
+    walk = phase_decode(torch, kernels, zt, profiling, timer, data, corpus)
+    took("6 (device decode)")
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
 
     line = {"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
@@ -674,7 +1086,8 @@ def main() -> int:
          "launches_by_level": {lv: c[k] for lv, c in counts.items()},
          **results[k]}
         for k, (src, rep) in KERNELS.items()
-    ]}
+    ] + [{"name": WALK[0], "route": "cuda", "source": WALK[1],
+          "replaces": WALK[2], **walk}]}
     log(json.dumps(line))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -25,6 +25,7 @@ import zzflate_tpu as zf
 import zzflate_tpu.gzip_compat as ref_gz
 import zzflate_tpu.zlib_compat as ref_zc
 from zzflate_tpu.utils import resume as ref_resume
+import zzflate_tpu_torch as zt
 from zzflate_tpu_torch import cli, native
 from zzflate_tpu_torch import gzip_compat as gz
 from zzflate_tpu_torch import zlib_compat as zc
@@ -348,6 +349,35 @@ def test_cli_compress_decompress_range(tmp_path, capsys):
     capsys.readouterr()
 
 
+@pytest.mark.parametrize("fmt", ["gzip", "zlib"])
+def test_cli_decompress_engine_device(tmp_path, capsys, fmt):
+    """decompress --engine device on --device cpu gives the reference
+    CLI's bytes: an indexed gzip stream (the port's compress) and a
+    foreign zlib stream (stdlib), beside the reference's own engines."""
+    from zzflate_tpu import cli as ref_cli
+
+    data = DATA[:40000]
+    src = tmp_path / f"in.{fmt}"
+    if fmt == "gzip":
+        src.write_bytes(zt.compress(data, level=6, format="gzip",
+                                    chunk_bytes=4096, indexed=True,
+                                    device="cpu"))
+        ref_engine = "native"  # its engine="tpu" would compile its CRC
+    else:
+        src.write_bytes(zlib.compress(data, 6))
+        ref_engine = "tpu"
+    out = tmp_path / "out.bin"
+    assert cli.main(["--device", "cpu", "decompress", "-f", fmt, "--engine",
+                     "device", str(src), "-o", str(out)]) == 0
+    line = json.loads(capsys.readouterr().err)
+    assert line["op"] == "decompress" and line["bytes_out"] == len(data)
+    exp = tmp_path / "exp.bin"
+    assert ref_cli.main(["decompress", "-f", fmt, "--engine", ref_engine,
+                         str(src), "-o", str(exp)]) == 0
+    capsys.readouterr()
+    assert out.read_bytes() == exp.read_bytes() == data
+
+
 def test_cli_bench_on_files(tmp_path, capsys):
     src = tmp_path / "in.bin"
     src.write_bytes(DATA[:20000])
@@ -370,9 +400,14 @@ def test_cli_defaults_to_the_card_and_stands_alone(tmp_path):
     assert "bench" not in names
     assert not any(n.split(".")[0] in ("jax", "zzflate_tpu") for n in names)
     with pytest.raises(SystemExit):
-        cli.main(["decompress", "x", "--engine", "device"])
+        cli.main(["decompress", "x", "--engine", "tpu"])
     _no_card()
     src = tmp_path / "in.bin"
     src.write_bytes(b"abc")
     with pytest.raises(RuntimeError):
         cli.main(["compress", str(src), "-o", str(tmp_path / "o")])
+    z = tmp_path / "in.z"
+    z.write_bytes(zlib.compress(b"abc" * 100))
+    with pytest.raises(RuntimeError):
+        cli.main(["decompress", str(z), "-f", "zlib", "--engine", "device",
+                  "-o", str(tmp_path / "o")])

@@ -1,5 +1,6 @@
 """The port on a CUDA card: kernels against their plain versions, and
-compress() on the card against the CPU path, byte for byte.
+compress() and device decode on the card against the CPU path, byte for
+byte.
 
 Every test here is marked ``cuda`` and skips without a card. The file
 imports neither jax nor the JAX package, so it also runs on a machine
@@ -9,7 +10,9 @@ without them (tests/conftest.py does import jax; skip it there):
 
 Tolerance is zero: the codec is integer-only and deterministic.
 """
+import gzip
 import hashlib
+import struct
 import zlib
 
 import numpy as np
@@ -17,7 +20,9 @@ import pytest
 import torch
 
 import zzflate_tpu_torch as zt
+from zzflate_tpu_torch.models import inflate_device as idv
 from zzflate_tpu_torch.ops import kernels
+from zzflate_tpu_torch.utils import containers
 from zzflate_tpu_torch.utils.corpus import mixed_corpus
 
 pytestmark = pytest.mark.cuda
@@ -342,7 +347,9 @@ def test_stream_on_card_equals_cpu_path():
     assert comp._device.type == "cuda"
     kernels.reset_launches()
     gpu = chip_smoke.stream_script(comp, data, 4096)
-    assert all(v > 0 for v in kernels.launches.values()), kernels.launches
+    assert all(kernels.launches[k] > 0 for k in (
+        "scan_candidates", "propagate_matches", "parse_rows")), \
+        kernels.launches
     cpu = chip_smoke.stream_script(stream.Compressor(device="cpu", **kw),
                                    data, 4096)
     assert gpu == cpu
@@ -370,3 +377,140 @@ def test_facades_and_resume_on_card_equal_cpu_path(tmp_path):
                                chunk_bytes=4096, device=dev)
     assert resume.assemble(str(tmp_path / "cuda")) == \
         resume.assemble(str(tmp_path / "cpu"))
+
+
+# ---------------------------------------------------------------------------
+# Device decode: the anchor walk and decompress(engine="device").
+# ---------------------------------------------------------------------------
+
+
+def _walk_inputs(blob, dev):
+    """Every group's anchor_walk arguments, as decompress_indexed on `dev`
+    hands them to the kernel wrapper (the wrapper runs as it is)."""
+    seen = []
+    orig = kernels.anchor_walk
+
+    def rec(words, ll, d, lanes, packed, t_steps):
+        seen.append((words, ll, d, lanes, packed.clone(), t_steps))
+        return orig(words, ll, d, lanes, packed, t_steps)
+
+    kernels.anchor_walk = rec
+    try:
+        idv.decompress_indexed(blob, device=dev)
+    finally:
+        kernels.anchor_walk = orig
+    return seen
+
+
+def _walk_exact(words, ll, d, lanes, packed, t_steps):
+    before = kernels.launches["anchor_walk"]
+    got = kernels.anchor_walk(words, ll, d, lanes, packed.clone(), t_steps)
+    torch.cuda.synchronize()
+    assert kernels.launches["anchor_walk"] == before + 1
+    exp = kernels.anchor_walk_plain(words, ll, d, lanes, packed.clone(),
+                                    t_steps)
+    assert torch.equal(got, exp)
+    assert not torch.equal(got, packed)
+
+
+def test_anchor_walk_matches_plain_on_real_inputs():
+    _card()
+    blob = zt.compress(DATA, level=6, format="gzip", chunk_bytes=4096,
+                       indexed=True)
+    calls = _walk_inputs(blob, "cuda")
+    assert calls and calls[0][0].is_cuda
+    for args in calls:
+        _walk_exact(*args)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_anchor_walk_matches_plain_on_seeded_inputs(seed):
+    """Real tables, seeded words (half real code, half random: invalid
+    windows), lanes at random bits, some past the output's end, some with
+    a unit id out of range, some invalid."""
+    _card()
+    blob = zt.compress(DATA, level=6, format="gzip", chunk_bytes=4096,
+                       indexed=True)
+    words, ll, d, lanes, packed, t_steps = _walk_inputs(blob, "cuda")[0]
+    rng = np.random.default_rng(seed)
+    nw = words.shape[0]
+    n = 2000
+    w = rng.integers(0, 1 << 32, nw, dtype=np.uint64).astype(
+        np.uint32).view(np.int32)
+    w[: nw // 2] = words.cpu().numpy()[: nw // 2]
+    npad = packed.shape[0]
+    u = ll[0].shape[0]
+    lanes = (
+        _t(rng.integers(0, 32 * nw, n)),
+        _t(np.where(rng.random(n) < 0.2, rng.integers(npad - 50, npad + 500, n),
+                    rng.integers(0, npad, n))),
+        _t(rng.integers(-2, u + 3, n)),
+        _t(rng.random(n) < 0.9),
+    )
+    _walk_exact(_t(w), ll, d, lanes, packed, t_steps)
+
+
+def _v2(out):
+    """The same body behind a legacy v2 'ZZ' subfield (no anchors)."""
+    header_len, cb, _t, chunks = containers.parse_gzip_index(out)
+    sub = bytearray(struct.pack("<BBII", 2, 0, cb, len(chunks)))
+    for seg_bytes, blocks, _anchors in chunks:
+        sub += struct.pack("<IH", seg_bytes, len(blocks))
+        for bit_off, out_off in blocks:
+            sub += struct.pack("<II", bit_off, out_off)
+    extra = b"ZZ" + struct.pack("<H", len(sub)) + bytes(sub)
+    return (b"\x1f\x8b\x08\x04\x00\x00\x00\x00\x00\xff"
+            + struct.pack("<H", len(extra)) + extra + out[header_len:])
+
+
+def _raw(data):
+    c = zlib.compressobj(6, zlib.DEFLATED, -15)
+    return c.compress(data) + c.flush()
+
+
+DECODE_CASES = {
+    "indexed": ("gzip", lambda: zt.compress(
+        DATA, level=6, format="gzip", chunk_bytes=4096, indexed=True)),
+    "indexed-multi-group": ("gzip", lambda: zt.compress(
+        DATA, level=6, format="gzip", chunk_bytes=4096, indexed=True)),
+    "v2": ("gzip", lambda: _v2(zt.compress(
+        DATA, level=6, format="gzip", chunk_bytes=4096, indexed=True))),
+    "zlib": ("zlib", lambda: zlib.compress(DATA, 6)),
+    "gzip": ("gzip", lambda: gzip.compress(DATA, 6, mtime=0)),
+    "raw": ("raw", lambda: _raw(DATA)),
+}
+
+
+@pytest.mark.parametrize("case", list(DECODE_CASES))
+def test_device_decode_on_card_equals_cpu_path(case, monkeypatch):
+    _card()
+    fmt, make = DECODE_CASES[case]
+    if case == "indexed-multi-group":  # groups of two 4 KiB chunks
+        monkeypatch.setattr(idv, "_WGROUP_OUT", 8192)
+    blob = make()
+    kernels.reset_launches()
+    gpu = zt.decompress(blob, format=fmt, engine="device")
+    walked = kernels.launches["anchor_walk"]
+    cpu = zt.decompress(blob, format=fmt, engine="device", device="cpu")
+    assert gpu == cpu == DATA
+    assert walked == (0 if case == "v2" else
+                      (3 if case == "indexed-multi-group" else 1))
+    if fmt == "raw":
+        return  # no checksum to catch a flipped byte
+    bad = bytearray(blob)
+    bad[len(bad) // 2] ^= 0x40
+    with pytest.raises(ValueError):
+        zt.decompress(bytes(bad), format=fmt, engine="device")
+
+
+def test_device_decode_to_device_returns_a_cuda_tensor():
+    _card()
+    blob = zt.compress(DATA, level=6, format="gzip", chunk_bytes=4096,
+                       indexed=True)
+    arr, n = idv.decompress_indexed(blob, to_device=True)
+    assert arr.is_cuda and arr.dtype == torch.uint8 and n == len(DATA)
+    assert torch.equal(arr, torch.frombuffer(bytearray(DATA),
+                                             dtype=torch.uint8).cuda())
+    arr, n = idv.decompress_foreign(gzip.compress(DATA, 6), format="gzip",
+                                    to_device=True)
+    assert arr.is_cuda and bytes(arr.cpu().numpy()) == DATA

@@ -1,12 +1,14 @@
 """zzflate_tpu_torch: the zzflate codec on PyTorch and CUDA.
 
 A port of the JAX package ``zzflate_tpu`` (which stays the reference) to
-PyTorch, with the matcher's three TPU kernels rewritten as hand-written
-CUDA kernels for Hopper (sm_90a). It covers ``compress`` at levels 0-9
-(levels 7-9 re-parse on the host with the port's C runtime): zlib, gzip
-and raw formats, preset dictionaries, window_bits, mem_level, strategies,
-indexed/seekable gzip and the host C engine; host ``decompress`` and
-``decompress_range``; streaming with zlib's five flush modes
+PyTorch, with the matcher's three TPU kernels and device decode's token
+walk as hand-written CUDA kernels for Hopper (sm_90a). It covers
+``compress`` at levels 0-9 (levels 7-9 re-parse on the host with the
+port's C runtime): zlib, gzip and raw formats, preset dictionaries,
+window_bits, mem_level, strategies, indexed/seekable gzip and the host C
+engine; ``decompress`` on the host (C decoder) or on the card
+(``engine="device"``: indexed and foreign streams, ``models.inflate_device``)
+and ``decompress_range``; streaming with zlib's five flush modes
 (``stream``), the stdlib facades ``zlib_compat`` and ``gzip_compat``,
 resumable shards (``utils.resume``) and the CLI (``python -m
 zzflate_tpu_torch``). Output bytes equal the reference's.
@@ -15,6 +17,7 @@ zzflate_tpu_torch``). Output bytes equal the reference's.
     blob = zt.compress(data, level=6, format="gzip")   # on the GPU
     blob = zt.compress(data, device="cpu")             # plain torch on the CPU
     data = zt.decompress(blob, format="gzip")          # C decoder on the host
+    data = zt.decompress(blob, format="gzip", engine="device")  # on the GPU
     c = zt.zlib_compat.compressobj(6, wbits=31)        # streaming, on the GPU
 """
 from zzflate_tpu_torch.api import (

@@ -6,10 +6,11 @@ reference's level, format, dictionary, window_bits, mem_level, strategy,
 engine and indexed/seekable options. Container checksums use the stdlib
 ``zlib`` functions: they are host framing, not compression.
 
-Device rule: ``compress(device=None)`` means CUDA and raises
-RuntimeError when no GPU is present; only an explicit ``device="cpu"``
-runs the plain torch versions of the kernels on the CPU. Decoding and
-``engine="native"`` run on the host, in the port's C runtime.
+Device rule: ``compress(device=None)`` and ``decompress(engine="device",
+device=None)`` mean CUDA and raise RuntimeError when no GPU is present;
+only an explicit ``device="cpu"`` runs the plain torch versions of the
+kernels on the CPU. ``engine="native"`` (decompress's default) runs on
+the host, in the port's C runtime.
 """
 from __future__ import annotations
 
@@ -148,11 +149,36 @@ def compress(
 
 
 def decompress(data: bytes, format: str = "zlib",
-               dictionary: bytes | None = None) -> bytes:
-    """One-shot decode of a zlib/gzip/raw stream on the host (the C
-    decoder), checksums verified; ValueError on a bad stream."""
-    return inflate.decompress(bytes(data), format=format,
-                              dictionary=dictionary)
+               dictionary: bytes | None = None, engine: str = "native",
+               device: str | torch.device | None = None) -> bytes:
+    """One-shot decode of a zlib/gzip/raw stream, checksums verified;
+    ValueError on a bad stream.
+
+    engine="native" (default) decodes on the host with the C decoder
+    (`device` is unused). engine="device" decodes on `device` through
+    the anchor walk (models/inflate_device): an indexed gzip stream
+    first, then any stream without a preset dictionary after the host
+    pre-scan; the host decoder takes only the streams the device path
+    declines (no index and a dictionary, all-stored, size caps, one
+    block larger than a group). device=None means CUDA and raises
+    RuntimeError without a card."""
+    data = bytes(data)
+    if engine not in ("device", "native"):
+        raise ValueError(f"unknown engine {engine!r}")
+    if engine == "device":
+        from zzflate_tpu_torch.models import inflate_device
+
+        dev = _resolve_device(device)
+        if format == "gzip":
+            out = inflate_device.decompress_indexed(data, device=dev)
+            if out is not None:
+                return out
+        if dictionary is None:
+            out = inflate_device.decompress_foreign(data, format=format,
+                                                    device=dev)
+            if out is not None:
+                return out
+    return inflate.decompress(data, format=format, dictionary=dictionary)
 
 
 def decompress_range(data: bytes, offset: int, length: int) -> bytes:

@@ -7,12 +7,14 @@ commands that write data to stdout, on stdout for bench.
 Usage:
   python -m zzflate_tpu_torch [--device cuda|cpu] compress [-l LEVEL]
       [-f zlib|gzip|raw] [--engine device|native] [-o OUT] IN
-  python -m zzflate_tpu_torch decompress [-f zlib|gzip|raw] [-o OUT] IN
+  python -m zzflate_tpu_torch [--device cuda|cpu] decompress
+      [-f zlib|gzip|raw] [--engine native|device] [-o OUT] IN
   python -m zzflate_tpu_torch range IN OFFSET LENGTH [-o OUT]
   python -m zzflate_tpu_torch [--device cuda|cpu] bench [-l LEVEL] [FILES...]
 
 --device defaults to CUDA and fails without a card; --device cpu runs
-the plain torch path. Decoding runs on the host (the C decoder).
+the plain torch path. Decoding runs on the host (the C decoder) unless
+--engine device asks for the card's anchor walk.
 """
 from __future__ import annotations
 
@@ -76,7 +78,8 @@ def _cmd_decompress(args) -> int:
 
     data = _read(args.input)
     t0 = time.perf_counter()
-    out = zt.decompress(data, format=args.format)
+    out = zt.decompress(data, format=args.format, engine=args.engine,
+                        device=args.device)
     dt = time.perf_counter() - t0
     _write(args.output, out)
     print(
@@ -181,8 +184,8 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="zzflate_tpu_torch")
     p.add_argument(
         "--device", default=None, choices=["cuda", "cpu"],
-        help="where the encode pipeline runs (default: CUDA, which fails "
-        "without a card; cpu runs the plain torch path)",
+        help="where the encode pipeline and device decode run (default: "
+        "CUDA, which fails without a card; cpu runs the plain torch path)",
     )
     sub = p.add_subparsers(dest="cmd", required=True)
 
@@ -211,8 +214,9 @@ def main(argv=None) -> int:
     pd.add_argument("-o", "--output", default=None)
     pd.add_argument("-f", "--format", default="gzip",
                     choices=["zlib", "gzip", "raw"])
-    pd.add_argument("--engine", default="native", choices=["native"],
-                    help="the host C decoder (device decode is not ported)")
+    pd.add_argument("--engine", default="native", choices=["native", "device"],
+                    help="the host C decoder (default) or the device "
+                         "anchor walk on --device")
     pd.set_defaults(fn=_cmd_decompress)
 
     pr = sub.add_parser("range", help="random-access read from an "

@@ -1,9 +1,10 @@
-// Plain C interface of the matcher's CUDA kernels.
+// Plain C interface of the port's CUDA kernels: the matcher's three and
+// device decode's anchor walk.
 //
 // Every entry launches on the given stream without synchronising and
-// returns cudaGetLastError() as an int (0 = cudaSuccess). All arrays are
-// row-major (batch, n) int32 in device memory; the caller allocates every
-// output and scratch buffer. zzflate_tpu_torch/ops/kernels.py binds these
+// returns cudaGetLastError() as an int (0 = cudaSuccess). The matcher's
+// arrays are row-major (batch, n) int32 in device memory; the caller
+// allocates every output and scratch buffer. zzflate_tpu_torch/ops/kernels.py binds these
 // with ctypes and checks shapes, dtypes and devices before the call.
 #pragma once
 
@@ -35,6 +36,19 @@ int zz_parse_exits(const int* step, const int* starts, unsigned short* pre,
 int zz_parse_marks(const int* step, const int* starts,
                    const unsigned short* pre, const int* seg0_ent, int* mark,
                    int batch, int npad, int row, void* stream);
+
+// Device decode's token walk: each of n_lanes lanes walks up to t_steps
+// tokens from (lane_bit, lane_out) and atomicMax-es dist << 9 | lit << 1 | 1
+// into packed[o] for 0 <= o < n_out_pad. words: nw >= 3 u32; per unit
+// (n_units >= 1): *_hi, *_fsh, *_off 16 int each, ll_sym 288, d_sym 32;
+// lane_bit and lane_out >= 0; packed entries >= 0.
+int zz_anchor_walk(const unsigned* words, int nw, const int* ll_hi,
+                   const int* ll_fsh, const int* ll_off, const int* ll_sym,
+                   const int* d_hi, const int* d_fsh, const int* d_off,
+                   const int* d_sym, int n_units, const int* lane_bit,
+                   const int* lane_out, const int* lane_uid,
+                   const int* lane_valid, int n_lanes, int* packed,
+                   int n_out_pad, int t_steps, void* stream);
 
 #ifdef __cplusplus
 }

@@ -18,6 +18,7 @@ import torch
 
 from zzflate_tpu_torch import constants as C
 from zzflate_tpu_torch.ops import bitpack, huffman, matcher
+from zzflate_tpu_torch.ops.canonical import _dist_extra_base, _len_extra_base
 
 U32 = bitpack.U32
 
@@ -42,31 +43,12 @@ def _len_code(mlen):
     ).int()
 
 
-def _len_extra_base(lcode):
-    """(extra_bits, base_length) of a length code 0..28."""
-    lcode = lcode.long()
-    e = torch.clamp((lcode >> 2) - 1, min=0)
-    base = torch.where(lcode < 4, lcode + 3, 3 + ((4 + (lcode & 3)) << e))
-    ext = torch.where((lcode < 4) | (lcode >= 28), 0, e)
-    base = torch.where(lcode >= 28, C.MAX_MATCH, base)
-    return ext, base
-
-
 def _dist_code(mdist):
     """Distance code 0..29 for mdist in [1, 32768]."""
     n = torch.clamp(mdist.long(), min=1) - 1
     bl = _bit_length(torch.clamp(n, min=1))
     hi = 2 * (bl - 1) + ((n >> torch.clamp(bl - 2, min=0)) & 1)
     return torch.where(n < 4, n, hi).int()
-
-
-def _dist_extra_base(dcode):
-    """(extra_bits, base_distance) of a distance code 0..29."""
-    dcode = dcode.long()
-    e = torch.clamp((dcode >> 1) - 1, min=0)
-    base = torch.where(dcode < 4, dcode + 1, 1 + ((2 + (dcode & 1)) << e))
-    ext = torch.where(dcode < 4, 0, e)
-    return ext, base
 
 
 # ---------------------------------------------------------------------------

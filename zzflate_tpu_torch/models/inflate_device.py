@@ -1,0 +1,1105 @@
+"""Device decode of zlib/gzip/raw streams: the anchor walk on the card.
+
+Port of ``zzflate_tpu/models/inflate_tpu.py``. DEFLATE decode is
+bit-serial: a symbol's width is unknown until the previous symbol is
+decoded. Two parallel answers live here, selected by the stream:
+
+**Anchor-walk decode (v3 indexed streams and foreign streams).** The
+encoder records the (bit, output) position of every block start and of
+every ANCHOR_TOKENS-th token in its 'ZZ' FEXTRA index; for a foreign
+stream the host C pre-scan (``native.scan_anchors``) finds the same
+set. Each recorded position is a LANE, and each lane decodes its token
+interval serially: ``ops/kernels.anchor_walk``, one CUDA thread per
+lane, every token max-combined into one packed output-space array. No
+speculation: the index says where tokens start. Lanes stop at EOB or on
+an invalid window and may re-walk the head of the next interval
+(identical values, harmless under max).
+
+**Speculative per-bit decode (v2 indexes: no anchors).** A candidate
+token is decoded at EVERY bit from (U, 2^15) tables built on the
+device, then ~1000 serial row sweeps (``_commit_walk``) find the true
+token starts from each block's indexed start bit. Legacy: the encoder
+writes v3.
+
+Shared machinery, whole-array torch ops on the decode device:
+
+- **Canonical tables** from ~700-byte descriptors per block: code
+  lengths by a boundary sum, symbols by offset arithmetic.
+- **Parallel LZ resolution.** A running max finds each byte's covering
+  token;
+  the closed-form in-token hop s - d + ((i - s) mod d) collapses overlap
+  chains, and pointer doubling with a convergence test (at most 40
+  rounds) finishes nested chains.
+- **Groups.** Streams decode in groups of consecutive chunks of at most
+  ``_WGROUP_OUT`` output bytes, each carrying the previous 32 KiB of
+  output as a resolved prefix across the seam.
+- **Device-resident output.** Bytes stay on the card; CRC-32 runs there
+  (``ops/checksums``) and 4 bytes a group come back to verify.
+  ``to_device=True`` returns the tensor: the data-loading path.
+
+``device=None`` means CUDA and raises RuntimeError without a card; only
+``device="cpu"`` runs the plain torch versions. The entry points return
+None, for the caller's host decoder, only where the reference does: no
+index, a preset dictionary, an all-stored stream, a size cap, or one
+chunk or block larger than a group.
+"""
+from __future__ import annotations
+
+import bisect
+import functools
+import struct
+
+import numpy as np
+import torch
+
+from zzflate_tpu_torch import constants as C
+from zzflate_tpu_torch import native
+from zzflate_tpu_torch.api import _resolve_device
+from zzflate_tpu_torch.models import inflate
+from zzflate_tpu_torch.models.inflate import (
+    BitReader,
+    CanonicalDecoder,
+    _read_dynamic_tables,
+)
+from zzflate_tpu_torch.ops import checksums as cs
+from zzflate_tpu_torch.ops import kernels
+from zzflate_tpu_torch.ops.canonical import (
+    _HUGE,
+    _M32,
+    _MAX_D,
+    _MAX_LL,
+    _canon_unit_tables,
+    _extract,
+    _shl32,
+)
+from zzflate_tpu_torch.utils import containers
+from zzflate_tpu_torch.utils.profiling import maybe_stage
+
+_LUT_BITS = 15
+_R = 256                      # row size in bits for the commit sweeps
+_RR = _R * _R                 # superrow size
+# A step of _HUGE (> _R) means "EOB / invalid: stop" (ops/canonical).
+
+_W = 32768                    # DEFLATE window: max LZ reach across groups
+# Per-bit path groups (v2 indexes): body bits and output per group.
+_GROUP_BITS = 1 << 22
+_GROUP_BODY = (_GROUP_BITS - 16) // 8
+_GROUP_OUT = 2 << 20
+
+
+# Walk-path group caps (compressed body / decoded output per group).
+# Module-level so tests can shrink them to force multi-group streams.
+_WGROUP_BODY = 4 << 20
+_WGROUP_OUT = (4 << 20) - _W
+
+_SCAN_ROW = 2048  # row length of the two-level running max
+
+
+# ---------------------------------------------------------------------------
+# Module constants.
+# ---------------------------------------------------------------------------
+
+
+@functools.cache
+def _brev15() -> np.ndarray:
+    """brev15[w] = 15-bit reversal of w: the MSB-first code value whose
+    LSB-first stream bits are w's low bits."""
+    w = np.arange(1 << _LUT_BITS, dtype=np.uint32)
+    r = np.zeros_like(w)
+    for i in range(_LUT_BITS):
+        r |= ((w >> i) & 1) << (_LUT_BITS - 1 - i)
+    return r.astype(np.int32)
+
+
+@functools.cache
+def _ll_attr() -> np.ndarray:
+    """Per-litlen-symbol attributes: lext(3b) | lbase<<3 (9b) |
+    eob<<12 | islen<<13 | bad<<14 (RFC 1951 3.2.5)."""
+    a = np.zeros(_MAX_LL, np.int32)
+    a[256] = 1 << 12
+    for s in range(257, 286):
+        a[s] = (
+            int(C.LENGTH_EXTRA[s - 257])
+            | (int(C.LENGTH_BASE[s - 257]) << 3)
+            | (1 << 13)
+        )
+    a[286] = a[287] = 1 << 14  # reserved symbols: corrupt if used
+    return a
+
+
+@functools.cache
+def _d_attr() -> np.ndarray:
+    """Per-distance-symbol attributes: dext(4b) | dbase<<4 (15b).
+    Symbols 30/31 keep attr 0 (dbase 0 marks them corrupt if decoded)."""
+    a = np.zeros(_MAX_D, np.int32)
+    for s in range(30):
+        a[s] = int(C.DIST_EXTRA[s]) | (int(C.DIST_BASE[s]) << 4)
+    return a
+
+
+def _cummax(x):
+    """Inclusive running max of a 1-D integer tensor (the values of
+    torch.cummax). torch scans a 1-D tensor as a single row, serially on
+    the card (12 ms at 2^22 on the H100); as rows of _SCAN_ROW scanned
+    in parallel, then a short scan of the row maxima carried into the
+    next rows, the values are the same."""
+    n = x.shape[0]
+    if n <= _SCAN_ROW:
+        return torch.cummax(x, 0).values
+    rows = -(-n // _SCAN_ROW)
+    pad = x.new_full((rows * _SCAN_ROW - n,), torch.iinfo(x.dtype).min)
+    m = torch.cummax(torch.cat([x, pad]).view(rows, _SCAN_ROW), 1).values
+    carry = torch.cummax(m[:, -1], 0).values
+    m[1:] = torch.maximum(m[1:], carry[:-1, None])
+    return m.view(-1)[:n]
+
+
+# ---------------------------------------------------------------------------
+# Host: per-block canonical descriptors.
+# ---------------------------------------------------------------------------
+
+
+def _canon_desc(dec, nsym: int):
+    """(first16, cnt16, off16, symtab) int32 arrays from a CanonicalDecoder."""
+    first = np.zeros(16, np.int32)
+    cnt = np.zeros(16, np.int32)
+    off = np.zeros(16, np.int32)
+    for ln in range(1, min(dec.max_len, 15) + 1):
+        cnt[ln] = dec.counts[ln]
+        first[ln] = dec.first_code[ln]
+        off[ln] = dec.offsets[ln]
+    symtab = np.zeros(nsym, np.int32)
+    symtab[: len(dec.syms)] = dec.syms
+    return first, cnt, off, symtab
+
+
+class _FixedDecs:
+    """Cached CanonicalDecoder pair for BTYPE=1 blocks."""
+
+    _pair = None
+
+    @classmethod
+    def get(cls):
+        if cls._pair is None:
+            cls._pair = (
+                CanonicalDecoder(list(C.fixed_litlen_lengths())),
+                CanonicalDecoder(list(C.fixed_dist_lengths())),
+            )
+        return cls._pair
+
+
+class _Unit:
+    __slots__ = ("bit", "out_base", "ll", "d")
+
+    def __init__(self, bit, out_base, ll, d):
+        self.bit = bit          # absolute bit offset into the body
+        self.out_base = out_base
+        self.ll = ll            # (first, cnt, off, symtab) litlen
+        self.d = d              # (first, cnt, off, symtab) dist
+
+
+def _plan_units(body: bytes, chunks, out_starts, out_sizes):
+    """Host walk: per indexed block, parse its header into canonical
+    descriptors; stored segments become run descriptors
+    (out_pos, body_byte_off, len), whose payload bytes the device reads
+    out of the uploaded words. Offsets (bit and output) are relative to
+    the given body/out space. unit_ranges[i] is the [lo, hi) slice of
+    `units` from chunk i (empty for stored-fallback chunks)."""
+    units = []
+    stored_runs: list[tuple[int, int, int]] = []
+    unit_ranges: list[tuple[int, int]] = []
+    pos = 0
+    for i, (sz, blocks, _anchors) in enumerate(chunks):
+        seg = body[pos : pos + sz]
+        seg_bit0 = pos * 8
+        seg_byte0 = pos
+        pos += sz
+        ulo = len(units)
+        br = BitReader(seg, 0)
+        br.bits(1)
+        if br.bits(2) == 0:
+            stored_runs.extend(
+                _stored_runs(seg, out_starts[i], out_sizes[i], seg_byte0)
+            )
+            unit_ranges.append((ulo, ulo))
+            continue
+        for bit_off, out_off in blocks:
+            b = BitReader(seg, bit_off)
+            b.bits(1)
+            btype = b.bits(2)
+            if btype == 1:
+                lld, dd = _FixedDecs.get()
+            elif btype == 2:
+                lld, dd = _read_dynamic_tables(b)
+            else:
+                raise ValueError("corrupt indexed segment: bad BTYPE")
+            units.append(
+                _Unit(
+                    seg_bit0 + b.bitpos,
+                    out_starts[i] + out_off,
+                    _canon_desc(lld, _MAX_LL),
+                    _canon_desc(dd, _MAX_D),
+                )
+            )
+        unit_ranges.append((ulo, len(units)))
+    return units, stored_runs, unit_ranges
+
+
+def _stored_runs(seg: bytes, out_base: int, out_bytes: int,
+                 seg_byte0: int) -> list[tuple[int, int, int]]:
+    """Walk the byte-aligned stored blocks of a fallback segment (host),
+    yielding (out_pos, body_byte_off, len) run descriptors."""
+    br = BitReader(seg, 0)
+    runs: list[tuple[int, int, int]] = []
+    done = 0
+    while done < out_bytes:
+        br.bits(3)
+        br.align()
+        p = br.bitpos >> 3
+        (ln,) = struct.unpack("<H", seg[p : p + 2])
+        if ln:
+            runs.append((out_base + done, seg_byte0 + p + 4, ln))
+        done += ln
+        br.bitpos = (p + 4 + ln) << 3
+    return runs
+
+
+def _pow2(n: int) -> int:
+    return 1 << max(0, (n - 1)).bit_length()
+
+
+def _lane_bucket(n: int) -> int:
+    """Walk-lane padding bucket: two buckets per octave (p and 3p/4)."""
+    p = _pow2(n)
+    if p >= 8 and n <= 3 * p // 4:
+        return 3 * p // 4
+    return p
+
+
+# ---------------------------------------------------------------------------
+# Per-bit path (v2 indexes): LUTs, windows, candidate tokens, commit.
+# ---------------------------------------------------------------------------
+
+
+def _build_luts(first, cnt, off, symtab, attr, nsym, sym_bits):
+    """(U,16)x3 + (U,nsym) descriptors -> (U, 2^15) packed LUT.
+
+    Entry: sym(sym_bits) | nb<<sym_bits (4b) | attr<<(sym_bits+4);
+    0 = invalid window. Canonical closed form: a window's code length is
+    1 + #{L : v >= hi_mono[L]} and its symbol index
+    off[ln] + ((v - first[ln]<<(15-ln)) >> (15-ln))."""
+    dev = first.device
+    c = torch.from_numpy(_brev15()).to(dev).long()[None, :]
+    first, cnt, off = first.long(), cnt.long(), off.long()
+    ln_r = torch.arange(16, device=dev)
+    hi_mono = torch.cummax((first + cnt) << (15 - ln_r), dim=1).values
+    ln_sel = 1 + sum(
+        (c >= hi_mono[:, L][:, None]).long() for L in range(1, 16)
+    )
+    valid = ln_sel <= 15
+    lnc = ln_sel.clamp(1, 15)
+    idx_sel = torch.zeros_like(lnc)
+    for L in range(1, 16):
+        rel = (c - (first[:, L] << (15 - L))[:, None]) >> (15 - L)
+        idx_sel = torch.where(lnc == L, off[:, L][:, None] + rel, idx_sel)
+    sym = symtab.long().gather(1, idx_sel.clamp(0, nsym - 1))
+    a = torch.from_numpy(attr).to(dev).long()[sym]
+    ent = sym | (lnc << sym_bits) | (a << (sym_bits + 4))
+    return torch.where(valid, ent, 0)
+
+
+def _bit_windows(words):
+    """48+-bit windows for every bit position: for bit p = 32w + s,
+    win_lo = bits p..p+31, win_hi = bits p+32..p+63 (int64 u32)."""
+    w = words.long() & _M32
+    s = torch.arange(32, device=w.device)[None, :]
+    w0, w1, w2 = w[:-2, None], w[1:-1, None], w[2:, None]
+    inv = 31 - s
+    lo = (w0 >> s) | _shl32(_shl32(w1, inv), 1)
+    hi = (w1 >> s) | _shl32(_shl32(w2, inv), 1)
+    return lo.reshape(-1), hi.reshape(-1)
+
+
+def _decode_bits(win_lo, win_hi, uid, ll_lut, d_lut):
+    """Candidate token at every bit: (step, outlen, lit, mdist, islit,
+    islen, iseob)."""
+    lut_mask = (1 << _LUT_BITS) - 1
+    flat_ll = ll_lut.reshape(-1)
+    flat_d = d_lut.reshape(-1)
+    base = uid << _LUT_BITS
+
+    e = flat_ll[base + (win_lo & lut_mask)]
+    sym = e & 0x3FF
+    nb = (e >> 10) & 15
+    a = e >> 14
+    lext = a & 7
+    lbase = (a >> 3) & 511
+    valid = (nb > 0) & ((a & (1 << 14)) == 0)
+    iseob = (a & (1 << 12)) != 0
+    islen = (a & (1 << 13)) != 0
+    mlen = lbase + _extract(win_lo, win_hi, nb, lext)
+
+    off2 = nb + lext
+    w2 = _extract(win_lo, win_hi, off2, _LUT_BITS)
+    de = flat_d[base + w2]
+    dnb = (de >> 5) & 15
+    da = de >> 9
+    dext = da & 15
+    dbase = (da >> 4) & 32767
+    dvalid = (dnb > 0) & (dbase > 0)  # dbase 0 = reserved symbol 30/31
+    mdist = dbase + _extract(win_lo, win_hi, off2 + dnb, dext)
+
+    invalid = ~valid | (islen & ~dvalid)
+    width = torch.where(islen, off2 + dnb + dext, nb)
+    step = torch.where(invalid | iseob, _HUGE, width)
+    islit = valid & ~iseob & ~islen
+    outlen = torch.where(islit, 1, torch.where(islen & ~invalid, mlen, 0))
+    return step, outlen, sym, mdist, islit, islen & ~invalid, iseob & valid
+
+
+def _commit_walk(step, start_bits, unit_valid, max_sup_span):
+    """Exact token-boundary commit via hierarchical serial sweeps.
+
+    step: (nbits,) per-bit token width (_HUGE stops the walk);
+    start_bits: (U,) absolute first-token bit per block. Returns the
+    (nbits,) bool committed mask. nbits must be a multiple of _R*_R.
+    About 4 * _R + max_sup_span short torch steps: the launch-bound part
+    of the legacy path."""
+    dev = step.device
+    step = step.long()
+    nbits = step.shape[0]
+    nrows = nbits // _R
+    nsup = nbits // _RR
+    sink = nbits
+
+    # P1: exit-of-row for every bit (reverse sweep, _R steps).
+    st_t = step.reshape(nrows, _R).T
+    row_base = torch.arange(nrows, device=dev) * _R
+    ex = torch.zeros((_R, nrows), dtype=torch.long, device=dev)
+    for j in range(_R - 1, -1, -1):
+        s = st_t[j]
+        land = j + s
+        hop = ex.gather(0, land.clamp(0, _R - 1)[None, :])[0]
+        val = torch.where(
+            s > _R, sink, torch.where(land >= _R, row_base + land, hop)
+        )
+        ex[j] = val.clamp(max=sink)
+    exit1 = ex.T.reshape(-1)
+
+    # P2a: exit-of-superrow for every bit (reverse sweep over rows).
+    e1s = exit1.reshape(nsup, _R, _R)
+    sup_end = (torch.arange(nsup, device=dev)[:, None] + 1) * _RR
+    e2 = torch.zeros((nsup, _R, _R), dtype=torch.long, device=dev)
+    e2f = e2.view(-1)
+    for j in range(_R - 1, -1, -1):
+        x1 = e1s[:, j, :]
+        hop = e2f[x1.clamp(0, nbits - 1)]
+        e2[:, j, :] = torch.where(x1 >= sup_end, x1, hop)
+    exit2 = e2.reshape(-1)
+
+    # P2b: per-block superrow chain (few steps, U lanes).
+    e = torch.where(unit_valid, start_bits.long(), sink)
+    ents = torch.full((max_sup_span, e.shape[0]), sink, dtype=torch.long,
+                      device=dev)
+    for k in range(max_sup_span):
+        ents[k] = e
+        e = torch.where(e >= sink, sink, exit2[e.clamp(0, nbits - 1)])
+
+    # P2c: expand superrow entries to row entries (walk exit1 in-sup).
+    pos = ents.reshape(-1)
+    rent = torch.full((nrows + 1,), sink, dtype=torch.long, device=dev)
+    for _ in range(_R):
+        r = torch.where(pos < sink, pos // _R, nrows)
+        rent.scatter_reduce_(0, r, pos, "amin")
+        nxt = exit1[pos.clamp(0, nbits - 1)]
+        same_sup = (nxt // _RR) == (pos // _RR)
+        pos = torch.where((pos < sink) & same_sup, nxt, sink)
+
+    # P3: mark committed token starts (every entered row, _R steps).
+    pos = rent[:nrows]
+    mark = torch.zeros((nbits + 1,), dtype=torch.long, device=dev)
+    for _ in range(_R):
+        active = pos < sink
+        mark.scatter_reduce_(0, pos.clamp(0, nbits), active.long(), "amax")
+        pc = pos.clamp(0, nbits - 1)
+        nxt = pos + step[pc]
+        row_end = (pc // _R + 1) * _R
+        pos = torch.where(active & (nxt < row_end), nxt, sink)
+    return mark[:nbits] == 1
+
+
+def _decode_all(
+    words, ll_first, ll_cnt, ll_off, ll_sym, d_first, d_cnt, d_off, d_sym,
+    start_bits, out_bases, unit_valid, prefix, stored_runs,
+    nbits, n_out_pad, max_sup_span, n_stored,
+):
+    """Per-bit decode of one group: LUT build -> per-bit decode -> commit
+    -> token scatter -> LZ resolve -> bytes.
+
+    `prefix` is the previous 32 KiB of decoded output (zeros for the
+    first group); it occupies output positions [0, _W) as self-resolved
+    literals, so LZ distances reaching before this group's first byte
+    land on real history."""
+    dev = words.device
+    ll_lut = _build_luts(ll_first, ll_cnt, ll_off, ll_sym, _ll_attr(),
+                         _MAX_LL, 10)
+    d_lut = _build_luts(d_first, d_cnt, d_off, d_sym, _d_attr(), _MAX_D, 5)
+
+    win_lo, win_hi = _bit_windows(words)
+
+    # Per-bit owning block: scatter block ids at their start bits, cummax.
+    u = start_bits.shape[0]
+    tgt = torch.where(unit_valid, start_bits.long(), nbits)
+    uid0 = torch.zeros((nbits + 1,), dtype=torch.long, device=dev)
+    uid0.scatter_reduce_(0, tgt.clamp(0, nbits),
+                         torch.arange(u, device=dev), "amax")
+    uid = _cummax(uid0[:nbits])
+
+    step, outlen, sym, mdist, islit, islen, _eob = _decode_bits(
+        win_lo, win_hi, uid, ll_lut, d_lut
+    )
+    committed = _commit_walk(step, start_bits, unit_valid, max_sup_span)
+
+    # Per-block output offsets: global cumsum minus the block's prefix.
+    lens = torch.where(committed, outlen, 0)
+    g = torch.cumsum(lens, 0)
+    sb = start_bits.long().clamp(0, nbits - 1)
+    cum0 = g[sb] - lens[sb]
+    off = out_bases.long()[uid] + (g - lens) - cum0[uid]
+
+    com_tok = committed & (islit | islen)
+    tgt = torch.where(com_tok & (off >= 0) & (off < n_out_pad), off,
+                      n_out_pad)
+    litval, start_mark, dist_at = _stage_out(
+        prefix, stored_runs, words, n_out_pad, n_stored
+    )
+
+    def scatter_max(base, vals):
+        buf = torch.cat([base.long(), base.new_zeros(1).long()])
+        buf.scatter_reduce_(0, tgt, vals, "amax")
+        return buf[:n_out_pad]
+
+    litval = scatter_max(litval, torch.where(islit, sym, 0))
+    start_mark = scatter_max(start_mark, torch.where(com_tok, off, -1))
+    dist_at = scatter_max(dist_at, torch.where(islen, mdist, 0))
+    return _resolve_lz(litval, start_mark, dist_at, n_out_pad)
+
+
+# ---------------------------------------------------------------------------
+# Output staging, LZ resolve and the anchor walk.
+# ---------------------------------------------------------------------------
+
+
+def _stage_out(prefix, stored_runs, words, n_out_pad, n_stored):
+    """Initial output-space arrays (int32): the 32 KiB resolved prefix
+    occupies [0, _W) as self-resolved literals; stored-run bytes are read
+    on the device out of the words buffer (their payload is part of the
+    compressed body) via a run-id segment scan.
+
+    stored_runs: (n_stored, 3) int32 [out_pos, body_byte_off, len]
+    sorted by out_pos; padding rows have out_pos = n_out_pad, len 0."""
+    dev = words.device
+    litval = torch.cat([
+        prefix.int(),
+        torch.zeros((n_out_pad - _W,), dtype=torch.int32, device=dev),
+    ])
+    start_mark = torch.cat([
+        torch.arange(_W, dtype=torch.int32, device=dev),
+        torch.full((n_out_pad - _W,), -1, dtype=torch.int32, device=dev),
+    ])
+    dist_at = torch.zeros((n_out_pad,), dtype=torch.int32, device=dev)
+    if n_stored:
+        run_out = stored_runs[:, 0].long()
+        run_src = stored_runs[:, 1].long()
+        run_len = stored_runs[:, 2].long()
+        idx = torch.arange(n_out_pad, device=dev)
+        # .at[run_out].max(rid, mode="drop"): out-of-range rows land in a
+        # trash slot past the end.
+        slot = torch.where((run_out >= 0) & (run_out < n_out_pad), run_out,
+                           n_out_pad)
+        a = torch.full((n_out_pad + 1,), -1, dtype=torch.long, device=dev)
+        a.scatter_reduce_(0, slot, torch.arange(n_stored, device=dev), "amax")
+        seg = _cummax(a[:n_out_pad])
+        sc = seg.clamp(0, n_stored - 1)
+        within = idx - run_out[sc]
+        valid = (seg >= 0) & (within < run_len[sc])
+        sb = run_src[sc] + within
+        nw = words.shape[0]
+        byte = (words.long()[(sb >> 2).clamp(0, nw - 1)]
+                >> (8 * (sb & 3))) & 0xFF
+        litval = torch.where(valid, byte.int(), litval)
+        start_mark = torch.where(valid, idx.int(), start_mark)
+    return litval, start_mark, dist_at
+
+
+def _resolve_parent(start_mark, dist_at, n_out_pad):
+    """LZ source chase: covering token via cummax, then pointer doubling
+    with a convergence test. Returns (parent, rounds): every position's
+    ultimate literal source index, and the doubling rounds taken (at most
+    40, the reference's cap, so a hostile stream stops where it stops).
+
+    The first hop is the closed-form in-token source: a match starting
+    at s with distance d repeats its source with period d, so position
+    i's ultimate within-token source is s - d + ((i - s) mod d), one hop
+    that lands strictly before the token start. Overlapped copies
+    therefore collapse to depth 1; remaining chains are nested tokens."""
+    dev = start_mark.device
+    idx = torch.arange(n_out_pad, device=dev)
+    seg = _cummax(start_mark.long())
+    dist = dist_at.long()[seg.clamp(0, n_out_pad - 1)]
+    d1 = dist.clamp(min=1)
+    src = seg - d1 + (idx - seg) % d1
+    parent = torch.where((dist > 0) & (seg >= 0), src, idx)
+    parent = parent.clamp(0, n_out_pad - 1)
+    rounds = 0
+    changed = True
+    while changed and rounds < 40:
+        p2 = parent[parent]
+        changed = bool((p2 != parent).any())
+        parent = p2
+        rounds += 1
+    return parent, rounds
+
+
+def _resolve_lz(litval, start_mark, dist_at, n_out_pad):
+    parent, _rounds = _resolve_parent(start_mark, dist_at, n_out_pad)
+    return litval[parent].to(torch.uint8)
+
+
+def _walk_core(
+    words, ll_first, ll_cnt, ll_off, ll_sym, d_first, d_cnt, d_off, d_sym,
+    lane_bit, lane_out, lane_uid, lane_valid, prefix, stored_runs,
+    n_out_pad, n_stored, t_steps,
+):
+    """Anchor-walk decode of one group: every lane decodes up to t_steps
+    tokens serially from a known token-aligned bit position (a block
+    start or an anchor). The three output-space arrays travel packed as
+    dist << 9 | lit << 1 | started (dist <= 32768, lit <= 255), and the
+    walk max-combines every token into them: ops/kernels.anchor_walk
+    (the CUDA kernel on a card, the reference's deferred loop on the
+    CPU). Returns (litval, start_mark, dist_at), int32."""
+    ll = (*_canon_unit_tables(ll_first, ll_cnt, ll_off), ll_sym)
+    d = (*_canon_unit_tables(d_first, d_cnt, d_off), d_sym)
+    litval, start_mark, dist_at = _stage_out(
+        prefix, stored_runs, words, n_out_pad, n_stored
+    )
+    packed = torch.where(
+        start_mark >= 0, (dist_at << 9) | (litval << 1) | 1, 0
+    ).int()
+    kernels.anchor_walk(words, ll, d,
+                        (lane_bit, lane_out, lane_uid, lane_valid),
+                        packed, t_steps)
+    posn = torch.arange(n_out_pad, dtype=torch.int32, device=words.device)
+    litval = (packed >> 1) & 0xFF
+    dist_at = packed >> 9
+    start_mark = torch.where((packed & 1) == 1, posn, -1)
+    return litval, start_mark, dist_at
+
+
+def _walk_all(arrs: dict, prefix, crc_len: int, n_out_pad: int,
+              n_stored: int, t_steps: int, with_crc: bool):
+    """One group: walk, then LZ resolve, then CRC-32 of [_W, crc_len).
+    Returns (out, crc or None)."""
+    dev = prefix.device
+    with maybe_stage("decode_walk", dev):
+        litval, start_mark, dist_at = _walk_core(
+            arrs["words"], arrs["ll_first"], arrs["ll_cnt"], arrs["ll_off"],
+            arrs["ll_sym"], arrs["d_first"], arrs["d_cnt"], arrs["d_off"],
+            arrs["d_sym"], arrs["lane_bit"], arrs["lane_out"],
+            arrs["lane_uid"], arrs["lane_valid"], prefix, arrs["sr"],
+            n_out_pad, n_stored, t_steps,
+        )
+    with maybe_stage("decode_resolve", dev):
+        out = _resolve_lz(litval, start_mark, dist_at, n_out_pad)
+    if not with_crc:
+        return out, None
+    with maybe_stage("decode_crc", dev):
+        crc = cs._crc32_impl(out, crc_len, _W)
+    return out, crc
+
+
+# ---------------------------------------------------------------------------
+# Host staging shared by the indexed and foreign entries.
+# ---------------------------------------------------------------------------
+
+
+def _stage_arrays(gbody: bytes, nw: int, u_pad: int, units, n_stored: int,
+                  n_out_pad: int, sruns, l_pad: int | None, lanes):
+    """Numpy inputs of one group, padded to the shared shapes: the body
+    as nw u32 words (carried as int32 bits), the units' canonical
+    descriptors, block starts, stored runs and (walk path) lanes."""
+    wbytes = gbody + b"\x00" * (nw * 4 - len(gbody))
+    a = {"words": np.frombuffer(wbytes[: nw * 4], "<u4").view(np.int32).copy()}
+    for name, width in (("ll_first", 16), ("ll_cnt", 16), ("ll_off", 16),
+                        ("ll_sym", _MAX_LL), ("d_first", 16), ("d_cnt", 16),
+                        ("d_off", 16), ("d_sym", _MAX_D)):
+        a[name] = np.zeros((u_pad, width), np.int32)
+    a["start_bits"] = np.zeros(u_pad, np.int32)
+    a["out_bases"] = np.zeros(u_pad, np.int32)
+    a["unit_valid"] = np.zeros(u_pad, bool)
+    for j, un in enumerate(units):
+        a["ll_first"][j], a["ll_cnt"][j], a["ll_off"][j], a["ll_sym"][j] = un.ll
+        a["d_first"][j], a["d_cnt"][j], a["d_off"][j], a["d_sym"][j] = un.d
+        a["start_bits"][j] = un.bit
+        a["out_bases"][j] = un.out_base
+        a["unit_valid"][j] = True
+    if n_stored:
+        sr = np.zeros((n_stored, 3), np.int32)
+        sr[:, 0] = n_out_pad  # padding rows: out of range, len 0
+        for j, run in enumerate(sruns):
+            sr[j] = run
+    else:
+        sr = np.zeros((1, 3), np.int32)
+    a["sr"] = sr
+    if l_pad is not None:
+        for name in ("lane_bit", "lane_out", "lane_uid", "lane_valid"):
+            a[name] = np.zeros(l_pad, np.int32)
+        for j, (lb, lo_, lu) in enumerate(lanes):
+            a["lane_bit"][j] = lb
+            a["lane_out"][j] = lo_
+            a["lane_uid"][j] = lu
+            a["lane_valid"][j] = 1
+    return a
+
+
+def _upload(arrs: dict, dev: torch.device) -> dict:
+    with maybe_stage("decode_upload", dev):
+        return {k: torch.from_numpy(v).to(dev) for k, v in arrs.items()}
+
+
+def _check_crc(group_crc, group_out, crc_expect: int) -> None:
+    crc = 0
+    vals = torch.stack(group_crc).cpu().tolist() if group_crc else []
+    for v, (_buf, go) in zip(vals, group_out):
+        crc = cs.crc32_combine(crc, int(v), go)
+    if crc != crc_expect:
+        raise ValueError("crc32 mismatch (device inflate)")
+
+
+def _device_result(group_out, total_out: int, tail: bytes, dev):
+    """to_device=True: (uint8 tensor on the decode device, length)."""
+    if tail:
+        raise ValueError("to_device unsupported for multi-member gzip")
+    if not group_out:
+        return torch.zeros((0,), dtype=torch.uint8, device=dev), 0
+    if len(group_out) == 1:
+        buf, _go = group_out[0]
+        return buf[_W : _W + total_out], total_out
+    return torch.cat([buf[_W : _W + go] for buf, go in group_out]), total_out
+
+
+# ---------------------------------------------------------------------------
+# Public entry: indexed gzip.
+# ---------------------------------------------------------------------------
+
+
+def decompress_indexed(data: bytes, verify: bool = True,
+                       to_device: bool = False, device=None):
+    """Chunk-parallel decode of an indexed gzip stream on the device.
+
+    Returns None if the stream carries no usable 'ZZ' index (the caller
+    falls back). With to_device=True, returns (uint8 tensor on the
+    decode device, length); the CRC is still verified on the device when
+    verify=True. device=None means CUDA (RuntimeError without a card)."""
+    dev = _resolve_device(device)
+    with maybe_stage("decode_plan"):
+        parsed = containers.parse_gzip_index(data)
+        if parsed is None:
+            return None
+        header_len, chunk_bytes, anchor_tokens, chunks = parsed
+        # The indexed member's extent comes from the index itself: a valid
+        # stream may append further gzip members after it (RFC 1952).
+        member_len = header_len + sum(sz for sz, _b, _a in chunks) + 8
+        if member_len > len(data):
+            return None  # index inconsistent with buffer; fall back
+        (crc_expect, isize) = struct.unpack(
+            "<II", data[member_len - 8 : member_len]
+        )
+        tail = data[member_len:]
+        if tail[:2] != b"\x1f\x8b":
+            tail = b""  # trailing garbage is tolerated (gzip(1) behavior)
+        nchunks = len(chunks)
+        total_out = isize
+        # Validate the (untrusted) index before any of it sizes a buffer:
+        # a lying 'ZZ' subfield must raise ValueError.
+        if not 1024 <= chunk_bytes <= (1 << 27):
+            raise ValueError("ZZ index: implausible chunk_bytes")
+        if isize > nchunks * chunk_bytes:
+            raise ValueError("ZZ index: isize exceeds indexed chunk capacity")
+        for sz, blocks, anchors in chunks:
+            if sz > len(data) or len(blocks) > max(1, chunk_bytes // 1024):
+                raise ValueError("ZZ index: implausible segment record")
+            if len(anchors) > max(1, chunk_bytes // 64):
+                raise ValueError("ZZ index: implausible anchor count")
+            for bit_off, out_off in blocks + anchors:
+                if bit_off >= 8 * max(sz, 1) or out_off > chunk_bytes:
+                    raise ValueError("ZZ index: block offsets out of range")
+        # Anchor-walk decode requires the writer's spacing guarantee; an
+        # absurd T from a hostile index must not size a walk.
+        use_walk = 0 < anchor_tokens <= 4096
+
+        if total_out > (1 << 30) or member_len - header_len - 8 > (1 << 30):
+            return None  # host-memory sanity cap; native fallback
+
+        out_sizes = [
+            min(chunk_bytes, max(0, total_out - i * chunk_bytes))
+            for i in range(nchunks)
+        ]
+        out_starts = [i * chunk_bytes for i in range(nchunks)]
+        body = data[header_len : member_len - 8]
+
+        # Partition chunks into groups bounded by body and output.
+        if use_walk:
+            body_cap = _WGROUP_BODY
+            out_cap = max(_WGROUP_OUT, chunk_bytes)
+        else:
+            body_cap = _GROUP_BODY
+            out_cap = max(_GROUP_OUT, chunk_bytes)
+        if any(sz > body_cap for sz, _b, _a in chunks):
+            return None  # one chunk exceeds a group; native fallback
+        cpos = [0]
+        for sz, _b, _a in chunks:
+            cpos.append(cpos[-1] + sz)
+        groups: list[tuple[int, int]] = []
+        lo = 0
+        for i in range(nchunks):
+            if (
+                cpos[i + 1] - cpos[lo] > body_cap
+                or (i + 1 - lo) * chunk_bytes > out_cap
+            ) and i > lo:
+                groups.append((lo, i))
+                lo = i
+        if lo < nchunks:
+            groups.append((lo, nchunks))
+
+        # Host walk of every group's block headers (tiny descriptors).
+        plans = []
+        max_units = 1
+        max_stored = 0
+        max_lanes = 1
+        try:
+            for glo, ghi in groups:
+                g_out_lo = out_starts[glo]
+                units, sruns, uranges = _plan_units(
+                    body[cpos[glo] : cpos[ghi]],
+                    chunks[glo:ghi],
+                    [_W + out_starts[i] - g_out_lo for i in range(glo, ghi)],
+                    out_sizes[glo:ghi],
+                )
+                # Walk lanes: every block's first token + every index
+                # anchor (rebased into the group's bit/output spaces),
+                # each tagged with the unit whose tree decodes it.
+                lanes: list[tuple[int, int, int]] = []
+                if use_walk:
+                    for ci in range(glo, ghi):
+                        ulo, uhi = uranges[ci - glo]
+                        if ulo == uhi:
+                            continue  # stored fallback: no token lanes
+                        for u in range(ulo, uhi):
+                            lanes.append((units[u].bit, units[u].out_base, u))
+                        seg_bit0 = (cpos[ci] - cpos[glo]) * 8
+                        outbase = _W + out_starts[ci] - g_out_lo
+                        ustarts = [units[u].bit for u in range(ulo, uhi)]
+                        for ab, ao in chunks[ci][2]:
+                            bit = seg_bit0 + ab
+                            k = bisect.bisect_right(ustarts, bit) - 1
+                            if k < 0:
+                                continue  # anchor before any token: bogus
+                            lanes.append((bit, outbase + ao, ulo + k))
+                if lanes:
+                    # A crafted index can place an anchor exactly on a
+                    # block-first token: drop duplicate (bit, out) lanes
+                    # (first occurrence wins; duplicates walk the same).
+                    seen: set[tuple[int, int]] = set()
+                    lanes = [
+                        ln for ln in lanes
+                        if (ln[0], ln[1]) not in seen
+                        and not seen.add((ln[0], ln[1]))
+                    ]
+                plans.append((glo, ghi, units, sruns, lanes))
+                max_units = max(max_units, len(units))
+                max_stored = max(max_stored, len(sruns))
+                max_lanes = max(max_lanes, len(lanes))
+        except (IndexError, struct.error) as e:
+            # Host header parsing ran off the segment: the index lied.
+            raise ValueError(f"corrupt indexed segment: {e}") from e
+
+        # Shared shapes for every group.
+        multi = len(groups) > 1
+        max_body = max((cpos[hi] - cpos[lo] for lo, hi in groups), default=0)
+        nbits = (
+            _GROUP_BITS if multi else max(_RR, _pow2(max_body * 8 + 16))
+        )
+        max_go = max(
+            (
+                out_starts[hi - 1] + out_sizes[hi - 1] - out_starts[lo]
+                for lo, hi in groups
+            ),
+            default=0,
+        )
+        n_out_pad = _pow2(_W + max(1, max_go))
+        u_pad = _pow2(max_units)
+        max_seg_bits = max((sz * 8 for sz, _b, _a in chunks), default=1)
+        max_sup_span = min(nbits // _RR, max_seg_bits // _RR + 2)
+        n_stored = _pow2(max_stored) if max_stored else 0
+        if use_walk:
+            nw = (body_cap if multi else _pow2(max(64, max_body))) // 4 + 2
+        else:
+            nw = nbits // 32 + 2
+        l_pad = _lane_bucket(max_lanes) if use_walk else None
+        t_steps = anchor_tokens + 2  # spacing + EOB + slack
+
+    prefix = torch.zeros((_W,), dtype=torch.uint8, device=dev)
+    group_out: list[tuple[torch.Tensor, int]] = []  # (device buf, out bytes)
+    group_crc: list[torch.Tensor] = []
+    for glo, ghi, units, sruns, lanes in plans:
+        go = out_starts[ghi - 1] + out_sizes[ghi - 1] - out_starts[glo]
+        with maybe_stage("decode_plan"):
+            staged = _stage_arrays(
+                body[cpos[glo] : cpos[ghi]], nw, u_pad, units, n_stored,
+                n_out_pad, sruns, l_pad, lanes,
+            )
+        arrs = _upload(staged, dev)
+        if use_walk:
+            out_dev, crc_dev = _walk_all(
+                arrs, prefix, _W + go, n_out_pad, n_stored, t_steps,
+                with_crc=verify,
+            )
+        else:
+            with maybe_stage("decode_walk", dev):
+                out_dev = _decode_all(
+                    arrs["words"], arrs["ll_first"], arrs["ll_cnt"],
+                    arrs["ll_off"], arrs["ll_sym"], arrs["d_first"],
+                    arrs["d_cnt"], arrs["d_off"], arrs["d_sym"],
+                    arrs["start_bits"], arrs["out_bases"],
+                    arrs["unit_valid"], prefix, arrs["sr"],
+                    nbits, n_out_pad, max_sup_span, n_stored,
+                )
+            crc_dev = None
+            if verify:
+                with maybe_stage("decode_crc", dev):
+                    crc_dev = cs._crc32_impl(out_dev, _W + go, _W)
+        if verify:
+            group_crc.append(crc_dev)
+        group_out.append((out_dev, go))
+        if (glo, ghi) != groups[-1]:
+            # Last 32 KiB of output so far: positions [go, go+_W) of this
+            # buffer (its own [0,_W) prefix covers the short-output case).
+            prefix = out_dev[go : go + _W]
+
+    if verify:
+        _check_crc(group_crc, group_out, crc_expect)
+
+    if to_device:
+        return _device_result(group_out, total_out, tail, dev)
+
+    with maybe_stage("decode_fetch"):
+        out = b"".join(_fetch_bytes(buf, go, base=_W) for buf, go in group_out)
+    if verify and (len(out) & _M32) != (isize & _M32):
+        raise ValueError("isize mismatch (device inflate)")
+    if tail:
+        out += inflate.decompress(tail, format="gzip")
+    return out
+
+
+def _fetch_bytes(out_dev: torch.Tensor, total_out: int, base: int = 0) -> bytes:
+    """Device->host: one copy of [base, base + total_out)."""
+    if total_out == 0:
+        return b""
+    return out_dev[base : base + total_out].cpu().numpy().tobytes()
+
+
+# ---------------------------------------------------------------------------
+# Foreign (unindexed) streams: host anchor pre-scan -> device anchor walk.
+#
+# Arbitrary zlib/gzip/raw streams carry no index, so the C scanner
+# (native.scan_anchors) walks the bitstream once without materializing
+# output and records exactly the lane set the walk needs: every block's
+# first token plus every ANCHOR_TOKENS-th token's (bit, out) position.
+# ---------------------------------------------------------------------------
+
+
+def decompress_foreign(data: bytes, format: str = "gzip", verify: bool = True,
+                       to_device: bool = False, device=None):
+    """Device decode of a foreign (unindexed) zlib/gzip/raw stream.
+
+    Returns None when the stream is unsuitable (a preset dictionary,
+    nothing but stored blocks, a size cap, or one block larger than a
+    group): the caller falls back to the host C decoder. The gzip CRC
+    verifies on the device; the zlib Adler-32 on the host bytes (fetch
+    path only). device=None means CUDA (RuntimeError without a card)."""
+    dev = _resolve_device(device)
+    data = bytes(data)
+    tail = b""
+    crc_expect = isize = adler_expect = None
+    if format == "gzip":
+        header_len = containers.parse_gzip_header(data)
+        body = data[header_len:]
+    elif format == "zlib":
+        header_len, dictid = containers.parse_zlib_header(data)
+        if dictid is not None:
+            return None  # the device path has no preset-dictionary lanes
+        body = data[header_len:]  # trailer located after the scan
+    elif format == "raw":
+        body = data
+    else:
+        raise ValueError(f"unknown format {format!r}")
+    if len(body) > (1 << 30):
+        return None
+
+    T = C.ANCHOR_TOKENS
+    with maybe_stage("decode_scan"):
+        try:
+            blocks, anchors, total_out, end_bit = native.scan_anchors(body, T)
+        except ValueError:
+            return None  # corrupt per the scanner: let the host raise
+    with maybe_stage("decode_plan"):
+        if format == "zlib":
+            # Adler-32 sits right after the final block (trailing bytes
+            # beyond it are ignored, matching zlib.decompress).
+            tr = header_len + (end_bit + 7) // 8
+            if tr + 4 > len(data):
+                raise ValueError("truncated zlib trailer")
+            (adler_expect,) = struct.unpack(">I", data[tr : tr + 4])
+        if format == "gzip":
+            member_end = header_len + (end_bit + 7) // 8 + 8
+            if member_end > len(data):
+                raise ValueError("truncated gzip member")
+            (crc_expect, isize) = struct.unpack(
+                "<II", data[member_end - 8 : member_end]
+            )
+            tail = data[member_end:]
+            if tail[:2] != b"\x1f\x8b":
+                tail = b""  # trailing garbage tolerated (gzip(1) behavior)
+            if isize != (total_out & _M32):
+                raise ValueError("isize mismatch (device inflate)")
+        if total_out > (1 << 30):
+            return None
+        nb = len(blocks)
+        if nb == 0 or not (blocks[:, 1] != 0).any():
+            return None  # all-stored stream: the host memcpy path wins
+
+        # Partition blocks into groups bounded like the indexed walk path.
+        out_cap = _WGROUP_OUT
+        body_cap = _WGROUP_BODY
+        out_ends = np.empty(nb, np.int64)
+        out_ends[:-1] = blocks[1:, 2]
+        out_ends[-1] = total_out
+        bit_ends = np.empty(nb, np.int64)
+        bit_ends[:-1] = blocks[1:, 0]
+        bit_ends[-1] = end_bit
+        if ((out_ends - blocks[:, 2]) > out_cap).any() or (
+            (bit_ends - blocks[:, 0]) // 8 > body_cap
+        ).any():
+            return None  # one block exceeds a group
+        groups: list[tuple[int, int]] = []  # [lo, hi) block ranges
+        lo = 0
+        for i in range(nb):
+            if i > lo and (
+                (bit_ends[i] // 8 - blocks[lo, 0] // 8) > body_cap
+                or (out_ends[i] - blocks[lo, 2]) > out_cap
+            ):
+                groups.append((lo, i))
+                lo = i
+        if lo < nb:
+            groups.append((lo, nb))
+
+        # Per group: units from block headers, stored runs, lanes.
+        plans = []
+        max_units = 1
+        max_stored = 0
+        max_lanes = 1
+        max_body = 0
+        max_go = 1
+        abit = anchors[:, 0]
+        for glo, ghi in groups:
+            byte_lo = int(blocks[glo, 0] // 8)
+            byte_hi = int((bit_ends[ghi - 1] + 7) // 8)
+            out_lo = int(blocks[glo, 2])
+            go = int(out_ends[ghi - 1]) - out_lo
+            units = []
+            sruns: list[tuple[int, int, int]] = []
+            ustarts: list[int] = []
+            for bi in range(glo, ghi):
+                bit0, btype, ostart, aux0, aux1 = (int(v) for v in blocks[bi])
+                if btype == 0:
+                    if aux1:
+                        sruns.append(
+                            (_W + ostart - out_lo, aux0 - byte_lo, aux1)
+                        )
+                    continue
+                # Parse the header at the absolute bit, then rebase.
+                b = BitReader(body, bit0)
+                b.bits(1)
+                bt = b.bits(2)
+                if bt == 1:
+                    lld, dd = _FixedDecs.get()
+                else:
+                    lld, dd = _read_dynamic_tables(b)
+                units.append(
+                    _Unit(
+                        b.bitpos - 8 * byte_lo,
+                        _W + ostart - out_lo,
+                        _canon_desc(lld, _MAX_LL),
+                        _canon_desc(dd, _MAX_D),
+                    )
+                )
+                ustarts.append(bit0)
+            lanes = [(u.bit, u.out_base, j) for j, u in enumerate(units)]
+            a_lo = np.searchsorted(abit, blocks[glo, 0], side="left")
+            a_hi = np.searchsorted(abit, bit_ends[ghi - 1], side="left")
+            for ai in range(int(a_lo), int(a_hi)):
+                bit, aout = int(anchors[ai, 0]), int(anchors[ai, 1])
+                k = bisect.bisect_right(ustarts, bit) - 1
+                if k < 0:
+                    continue
+                lanes.append((bit - 8 * byte_lo, _W + aout - out_lo, k))
+            plans.append((byte_lo, byte_hi, go, units, sruns, lanes))
+            max_units = max(max_units, len(units))
+            max_stored = max(max_stored, len(sruns))
+            max_lanes = max(max_lanes, len(lanes))
+            max_body = max(max_body, byte_hi - byte_lo)
+            max_go = max(max_go, go)
+
+        multi = len(plans) > 1
+        n_out_pad = _pow2(_W + max_go)
+        u_pad = _pow2(max_units)
+        n_stored = _pow2(max_stored) if max_stored else 0
+        nw = (body_cap if multi else _pow2(max(64, max_body))) // 4 + 2
+        l_pad = _lane_bucket(max_lanes)
+        t_steps = T + 2
+
+    with_crc = verify and format == "gzip"
+    prefix = torch.zeros((_W,), dtype=torch.uint8, device=dev)
+    group_out: list[tuple[torch.Tensor, int]] = []
+    group_crc: list[torch.Tensor] = []
+    for byte_lo, byte_hi, go, units, sruns, lanes in plans:
+        with maybe_stage("decode_plan"):
+            staged = _stage_arrays(
+                body[byte_lo:byte_hi], nw, u_pad, units, n_stored,
+                n_out_pad, sruns, l_pad, lanes,
+            )
+        arrs = _upload(staged, dev)
+        out_dev, crc_dev = _walk_all(
+            arrs, prefix, _W + go, n_out_pad, n_stored, t_steps,
+            with_crc=with_crc,
+        )
+        if with_crc:
+            group_crc.append(crc_dev)
+        group_out.append((out_dev, go))
+        prefix = out_dev[go : go + _W]
+
+    if with_crc:
+        _check_crc(group_crc, group_out, crc_expect)
+
+    if to_device:
+        return _device_result(group_out, total_out, tail, dev)
+
+    with maybe_stage("decode_fetch"):
+        out = b"".join(_fetch_bytes(buf, go, base=_W) for buf, go in group_out)
+    if verify and format == "zlib":
+        if native.adler32(out) != adler_expect:
+            raise ValueError("adler32 mismatch (device inflate)")
+    if tail:
+        out += inflate.decompress(tail, format="gzip")
+    return out

@@ -1,8 +1,9 @@
-"""ctypes binding of the port's C runtime: host inflate, the level 7-9
-shortest-bit-path DP, the host deflate engine and Adler-32/CRC-32.
+"""ctypes binding of the port's C runtime: host inflate, the anchor
+pre-scan of foreign streams, the level 7-9 shortest-bit-path DP, the
+host deflate engine and Adler-32/CRC-32.
 
 The port's own copy of the JAX package's ``native/__init__.py``
-(:72-243, :300-439), bound to the port's own copy of the C source,
+(:72-439), bound to the port's own copy of the C source,
 ``zzflate_native.c`` beside this file. At first use the host C compiler
 builds it (``-O3 -shared -fPIC``) into ``zzflate_tpu_torch/_build/``
 under a name keyed on a hash of the source and flags, so an edited
@@ -102,8 +103,14 @@ def lib() -> ctypes.CDLL:
             L.zzt_deflate.argtypes = [
                 ctypes.c_char_p, sz, i, i, ctypes.c_char_p, sz,
                 ctypes.c_int32, i, p, sz, psz]
+            # in, in_len, start_bit, T, dict_len, blocks, blocks_cap,
+            # anchors, anchors_cap, nblocks, nanchors, total_out, end_bit
+            L.zzt_scan_anchors.argtypes = [
+                ctypes.c_char_p, sz, sz, ctypes.c_uint32, sz, p, sz, p, sz,
+                psz, psz, psz, psz]
             for fn in (L.zzt_inflate, L.zzt_inflate_stream,
-                       L.zzt_optimal_parse, L.zzt_deflate):
+                       L.zzt_optimal_parse, L.zzt_deflate,
+                       L.zzt_scan_anchors):
                 fn.restype = ctypes.c_int
             # value, buf, len
             for fn in (L.zzt_adler32, L.zzt_crc32):
@@ -199,6 +206,48 @@ def inflate_stream(
         if rc in (OK, E_AGAIN):
             out = ctypes.string_at(ctypes.addressof(buf) + dlen, out_len.value)
             return out, end_bit.value, bool(bfinal.value), rc == E_AGAIN
+        raise ValueError(ERRORS.get(rc, f"inflate error {rc}"))
+
+
+def scan_anchors(data: bytes, anchor_tokens: int, bitpos: int = 0,
+                 dict_len: int = 0):
+    """Anchor pre-scan of a raw deflate stream (no output materialized).
+
+    Returns (blocks, anchors, total_out, end_bit):
+      blocks  -- int64 (nb, 5): [start_bit, btype, out_start,
+                 stored_payload_byte_off, stored_len]
+      anchors -- int64 (na, 2): [bit, out] of every anchor_tokens-th
+                 token within its block (bit BEFORE the token's code)
+    These are the lane records the device anchor walk consumes
+    (models/inflate_device.py), so a foreign (unindexed) stream decodes
+    on the card after this host scan. Raises ValueError on corruption."""
+    L = lib()
+    data = bytes(data)
+    n = len(data)
+    # Generous first guesses; the scan reports the required counts when a
+    # cap is too small, so there is at most one retry.
+    bcap = max(64, n // 8192)
+    acap = max(64, (8 * n) // max(1, anchor_tokens))
+    while True:
+        blocks = np.zeros((bcap, 5), np.int64)
+        anchors = np.zeros((acap, 2), np.int64)
+        nb = ctypes.c_size_t(0)
+        na = ctypes.c_size_t(0)
+        total_out = ctypes.c_size_t(0)
+        end_bit = ctypes.c_size_t(0)
+        rc = L.zzt_scan_anchors(
+            data, n, bitpos, anchor_tokens, dict_len,
+            blocks.ctypes.data, bcap, anchors.ctypes.data, acap,
+            ctypes.byref(nb), ctypes.byref(na),
+            ctypes.byref(total_out), ctypes.byref(end_bit),
+        )
+        if rc == E_OUTFULL:  # a cap was too small; counts hold the sizes
+            bcap = max(bcap, nb.value + 1)
+            acap = max(acap, na.value + 1)
+            continue
+        if rc == OK:
+            return (blocks[: nb.value], anchors[: na.value],
+                    total_out.value, end_bit.value)
         raise ValueError(ERRORS.get(rc, f"inflate error {rc}"))
 
 

@@ -1,17 +1,30 @@
-"""Host combine math for Adler-32 and CRC-32 shard checksums (numpy).
+"""Adler-32 and CRC-32 as data-parallel torch ops, and the host combine
+math that stitches partials.
 
-The port's own copy of the host half of ``zzflate_tpu/ops/checksums.py``:
-the combines that stitch per-shard partials in order (``utils/resume``).
-The device partials serve only the decode and multi-device paths, which
-come in a later slice; whole-buffer containers use the stdlib ``zlib``
-checksums, the stream layer the C runtime's.
+The port's own copy of ``zzflate_tpu/ops/checksums.py``. The host
+combines stitch per-shard or per-group partials in order
+(``utils/resume``, ``models/inflate_device``). ``crc32`` and ``adler32``
+run on the tensor's own device: device decode verifies every group's
+CRC-32 on the card, and only 4 bytes of it come back. Whole-buffer
+containers use the stdlib ``zlib`` checksums, the stream layer the C
+runtime's.
 
-CRC-32's byte update factors as A(state) ^ T[b] with A linear over GF(2),
-so crc(L||R) = A^len(R) crc(L) ^ crc(R), with A^(2^j) precomputed.
+- CRC-32's byte update factors as A(state) ^ T[b] with A linear over
+  GF(2), so the zero-init contribution of a buffer tree-combines as
+  c(L||R) = A^len(R) c(L) ^ c(R), with A^(2^j) precomputed.
+- Adler-32: for a segment x of length m, S(x) = sum(x) and
+  W(x) = sum(x[i] * (m - i)) (mod 65521) combine as S(L||R) = S(L)+S(R),
+  W(L||R) = W(L) + len(R) S(L) + W(R).
+
+u32 values are carried as int64 masked to 32 bits: torch's uint32 lacks
+shifts and comparisons on the CPU.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
+import torch
 
 ADLER_MOD = 65521
 CRC_POLY = 0xEDB88320
@@ -55,19 +68,44 @@ def _mat_mul(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     return out
 
 
+def _mat_inv(a: np.ndarray) -> np.ndarray:
+    """Invert a GF(2) 32x32 matrix given as uint32 columns (Gauss-Jordan)."""
+    m = [[(int(a[c]) >> r) & 1 for c in range(32)] for r in range(32)]
+    inv = [[1 if r == c else 0 for c in range(32)] for r in range(32)]
+    for col in range(32):
+        piv = next(r for r in range(col, 32) if m[r][col])
+        m[col], m[piv] = m[piv], m[col]
+        inv[col], inv[piv] = inv[piv], inv[col]
+        for r in range(32):
+            if r != col and m[r][col]:
+                m[r] = [x ^ y for x, y in zip(m[r], m[col])]
+                inv[r] = [x ^ y for x, y in zip(inv[r], inv[col])]
+    cols = np.zeros(32, dtype=np.uint32)
+    for c in range(32):
+        v = 0
+        for r in range(32):
+            v |= inv[r][c] << r
+        cols[c] = v
+    return cols
+
+
 _MAX_LOG = 40  # supports lengths up to 2^40 bytes
 
 
-def _pow_matrices() -> np.ndarray:
-    """A^(2^j) for j in [0, _MAX_LOG), as (J, 32) uint32."""
+def _pow_matrices() -> tuple[np.ndarray, np.ndarray]:
+    """A^(2^j) and A^(-2^j) for j in [0, _MAX_LOG), as (J, 32) uint32."""
     fwd = np.zeros((_MAX_LOG, 32), dtype=np.uint32)
     fwd[0] = _crc_shift_matrix()
     for j in range(1, _MAX_LOG):
         fwd[j] = _mat_mul(fwd[j - 1], fwd[j - 1])
-    return fwd
+    bwd = np.zeros((_MAX_LOG, 32), dtype=np.uint32)
+    bwd[0] = _mat_inv(fwd[0])
+    for j in range(1, _MAX_LOG):
+        bwd[j] = _mat_mul(bwd[j - 1], bwd[j - 1])
+    return fwd, bwd
 
 
-CRC_POW = _pow_matrices()
+CRC_POW, CRC_POW_INV = _pow_matrices()
 
 
 def crc32_shift(crc: int, nbytes: int) -> int:
@@ -99,3 +137,151 @@ def adler32_combine(adler1: int, adler2: int, len2: int) -> int:
     s1 = (s1a + s1b - 1) % m
     s2 = (s2a + s2b + rem * (s1a - 1)) % m
     return (s2 << 16) | s1
+
+
+# ---------------------------------------------------------------------------
+# Device checksums (torch, on the data's device).
+# ---------------------------------------------------------------------------
+
+_BLOCK = 1024  # level-0 block of the Adler tree; keeps the partials small
+_M32 = 0xFFFFFFFF
+
+
+def _ceil_pow2(n: int) -> int:
+    p = 1
+    while p < n:
+        p *= 2
+    return p
+
+
+@functools.cache
+def _byte_tables(which: str, j: int) -> np.ndarray:
+    """(4, 256) int64: entry [k, b] = M(b << 8k) for M = A^(2^j) ('fwd')
+    or A^(-2^j) ('inv'), so M(v) is the XOR of four lookups."""
+    cols = (CRC_POW if which == "fwd" else CRC_POW_INV)[j]
+    out = np.zeros((4, 256), np.int64)
+    for k in range(4):
+        for b in range(256):
+            out[k, b] = _mat_apply(cols, b << (8 * k))
+    return out
+
+
+def _gf_matvec_batch(tables: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Apply a GF(2) 32x32 matrix to a batch of u32 (int64) values.
+
+    The reference XORs the 32 columns selected by v's bits (128
+    elementwise steps); the map is linear, so it equals the XOR of its
+    images of v's four bytes, looked up in the matrix's (4, 256) byte
+    tables (``_byte_tables``): 4 gathers."""
+    out = tables[0][v & 0xFF]
+    for k in range(1, 4):
+        out = out ^ tables[k][(v >> (8 * k)) & 0xFF]
+    return out
+
+
+@functools.cache
+def _tables_on(which: str, j: int, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(_byte_tables(which, j)).to(device)
+
+
+@functools.cache
+def _crc_table_on(device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(CRC_TABLE.astype(np.int64)).to(device)
+
+
+def _crc32_impl(data: torch.Tensor, length: int, start: int = 0):
+    """CRC-32 of data[start:length]; data is uint8 of a power-of-two size.
+
+    Leading zeros are transparent to the zero-init contribution (T[0]==0
+    and A(0)==0); only the init fold needs the true length. The length
+    and start are host integers, so the right-padding correction applies
+    A^(-2^j) only for the set bits of the pad, and the init fold
+    A^len(0xFFFFFFFF) is a host constant: the values are the reference's,
+    which selects with a where() on every bit."""
+    dev = data.device
+    n_pad = data.shape[0]
+    idx = torch.arange(n_pad, device=dev)
+    x = torch.where((idx >= start) & (idx < length), data.long(), 0)
+    c = _crc_table_on(dev)[x]
+    level = 0
+    eff_total = n_pad
+    while c.shape[0] > 1:
+        if c.shape[0] % 2:
+            c = torch.cat([c, c.new_zeros(1)])
+            eff_total += 1 << level
+        c = _gf_matvec_batch(_tables_on("fwd", level, dev), c[0::2]) ^ c[1::2]
+        level += 1
+    c_true = c[0]
+    pad = (eff_total - length) & _M32
+    for j in range(_MAX_LOG):
+        if (pad >> j) & 1:
+            c_true = _gf_matvec_batch(_tables_on("inv", j, dev), c_true)
+    init = crc32_shift(_M32, (length - start) & _M32)
+    return c_true ^ (init ^ _M32)
+
+
+def crc32(data: torch.Tensor, length: int | None = None, start: int = 0):
+    """CRC-32 (zlib/gzip polynomial) of data[start:length] (a uint8
+    tensor), on the data's device. Returns a 0-d int64 tensor there."""
+    data = torch.as_tensor(data, dtype=torch.uint8)
+    n = data.shape[0]
+    if length is None:
+        length = n
+    n_pad = max(1, _ceil_pow2(n))
+    if n_pad != n:
+        data = torch.cat([data, data.new_zeros(n_pad - n)])
+    return _crc32_impl(data, int(length), int(start))
+
+
+def _adler32_impl(data: torch.Tensor, length: int, start: int = 0,
+                  block: int = _BLOCK):
+    """Adler-32 of data[start:length]; data is uint8, a multiple of block.
+
+    Leading zeros are transparent to the S/W partials (x=0 contributes
+    nothing, and W's weight (length - i) equals the in-chunk weight), so
+    only the final n term needs the true chunk length."""
+    dev = data.device
+    n_pad = data.shape[0]
+    assert n_pad % block == 0
+    m = ADLER_MOD
+    idx = torch.arange(n_pad, device=dev)
+    x = torch.where((idx >= start) & (idx < length), data.long(), 0)
+    x = x.reshape(-1, block)
+    weights = (block - torch.arange(block, device=dev)).reshape(1, block)
+    s = x.sum(1) % m
+    w = (x * weights).sum(1) % m
+    seg = block
+    # Tree combine: at each level pairs of equal-length segments merge.
+    # Odd levels append an implicit all-zero segment, growing the
+    # effective padded length; track it so the final correction is exact.
+    while s.shape[0] > 1:
+        if s.shape[0] % 2:
+            s = torch.cat([s, s.new_zeros(1)])
+            w = torch.cat([w, w.new_zeros(1)])
+        sl, sr = s[0::2], s[1::2]
+        wl, wr = w[0::2], w[1::2]
+        w = (wl + (((seg % m) * sl) % m) + wr) % m
+        s = (sl + sr) % m
+        seg *= 2
+    s_total, w_pad = s[0], w[0]
+    # Right-padding correction: padded zero bytes inflate every weight by
+    # (seg - length); W_true = W_pad - pad*S (mod m).
+    pad = ((seg - length) & _M32) % m
+    w_true = (w_pad + ((m - pad) % m) * s_total % m) % m
+    n_mod = ((length - start) & _M32) % m
+    s1 = (1 + s_total) % m
+    s2 = (n_mod + w_true) % m
+    return (s2 << 16) | s1
+
+
+def adler32(data: torch.Tensor, length: int | None = None, start: int = 0):
+    """Adler-32 of data[start:length] (a uint8 tensor), on the data's
+    device. Returns a 0-d int64 tensor there."""
+    data = torch.as_tensor(data, dtype=torch.uint8)
+    n = data.shape[0]
+    if length is None:
+        length = n
+    n_pad = max(_BLOCK, -(-n // _BLOCK) * _BLOCK)
+    if n_pad != n:
+        data = torch.cat([data, data.new_zeros(n_pad - n)])
+    return _adler32_impl(data, int(length), int(start))

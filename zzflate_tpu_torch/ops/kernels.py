@@ -1,8 +1,10 @@
-"""The matcher's three hand-written CUDA kernels, their plain torch versions,
-the nvcc/ctypes loader and the launch counters.
+"""The port's hand-written CUDA kernels, their plain torch versions, the
+nvcc/ctypes loader and the launch counters: the matcher's three
+(scan_candidates, propagate_matches, parse_rows) and device decode's
+anchor walk.
 
-Each wrapper takes the JAX package's layout with a batch dimension:
-(B, n) int32 tensors, one row per chunk. A CPU tensor goes to the plain
+The matcher's wrappers take the JAX package's layout with a batch
+dimension: (B, n) int32 tensors, one row per chunk. A CPU tensor goes to the plain
 torch version in this module (the CPU path and the test oracle); a CUDA
 tensor goes to the kernel, or the wrapper raises. There is no fallback
 from one to the other.
@@ -26,10 +28,17 @@ from pathlib import Path
 import torch
 
 from zzflate_tpu_torch.constants import MAX_MATCH, WINDOW_SIZE
+from zzflate_tpu_torch.ops.canonical import (
+    _M32,
+    _MAX_D,
+    _MAX_LL,
+    _canon_lane_tables,
+    _decode_bits_canon,
+)
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD = Path(__file__).resolve().parent.parent / "_build"
-_SOURCES = ("scan.cu", "propagate.cu", "parse.cu")
+_SOURCES = ("scan.cu", "propagate.cu", "parse.cu", "walk.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -37,7 +46,8 @@ NVCC_FLAGS = (
 
 # Kernel launches per wrapper, counted where the kernel is launched and
 # nowhere else (plain-version calls do not count).
-launches = {"scan_candidates": 0, "propagate_matches": 0, "parse_rows": 0}
+launches = {"scan_candidates": 0, "propagate_matches": 0, "parse_rows": 0,
+            "anchor_walk": 0}
 
 
 def reset_launches() -> None:
@@ -123,8 +133,11 @@ def _load():
             lib.zz_propagate_matches.argtypes = [p, p, i, i, p]
             lib.zz_parse_exits.argtypes = [p, p, p, p, i, i, i, p]
             lib.zz_parse_marks.argtypes = [p, p, p, p, p, i, i, i, p]
+            lib.zz_anchor_walk.argtypes = [p, i, p, p, p, p, p, p, p, p, i,
+                                           p, p, p, p, i, p, i, i, p]
             for fn in (lib.zz_scan_candidates, lib.zz_propagate_matches,
-                       lib.zz_parse_exits, lib.zz_parse_marks):
+                       lib.zz_parse_exits, lib.zz_parse_marks,
+                       lib.zz_anchor_walk):
                 fn.restype = ctypes.c_int
             _lib = lib
     return _lib
@@ -393,3 +406,117 @@ def parse_rows_plain(step, starts, row: int):
         j = torch.where(active, j + s, j)
         active = active & (j < row)
     return mark.reshape(b, npad)
+
+
+# ---------------------------------------------------------------------------
+# 4. anchor_walk (device decode)
+# ---------------------------------------------------------------------------
+
+def anchor_walk(words, ll, d, lanes, packed, t_steps: int):
+    """Token walk of device decode: every lane decodes up to t_steps
+    tokens serially and max-combines each token's
+    dist << 9 | lit << 1 | 1 into packed[o] (o >= len(packed) is
+    dropped). packed is updated in place and returned.
+
+    words: (nw,) int32, the group's body as u32 bits, nw >= 3;
+    ll, d: (hi_mono, fsh, off, sym) per unit: (U, 16) int32 x 3 and
+    (U, 288) or (U, 32) int32 (ops/canonical._canon_unit_tables);
+    lanes: (bit, out, uid, valid), (L,) int32 each, bit and out >= 0;
+    packed: (n_out_pad,) int32, every entry >= 0."""
+    lane_bit, lane_out, lane_uid, lane_valid = lanes
+    ts = [("words", words, 1), ("packed", packed, 1)]
+    ts += [(f"ll[{k}]", t, 2) for k, t in enumerate(ll)]
+    ts += [(f"d[{k}]", t, 2) for k, t in enumerate(d)]
+    ts += [(f"lanes[{k}]", t, 1) for k, t in enumerate(lanes)]
+    for nm, t, nd in ts:
+        _check(nm, t, nd)
+    u = ll[0].shape[0]
+    if (words.shape[0] < 3 or u < 1
+            or any(t.shape != (u, 16) for t in ll[:3] + d[:3])
+            or ll[3].shape != (u, _MAX_LL) or d[3].shape != (u, _MAX_D)
+            or any(t.shape != lane_bit.shape for t in lanes)):
+        raise ValueError("anchor_walk: shape mismatch")
+    if not _route(words, packed, *ll, *d, *lanes):
+        return anchor_walk_plain(words, ll, d, lanes, packed, t_steps)
+    n_lanes = lane_bit.shape[0]
+    if n_lanes and t_steps > 0:
+        with torch.cuda.device(words.device):
+            rc = _load().zz_anchor_walk(
+                words.data_ptr(), words.shape[0],
+                *(t.data_ptr() for t in ll), *(t.data_ptr() for t in d), u,
+                *(t.data_ptr() for t in lanes), n_lanes,
+                packed.data_ptr(), packed.shape[0], t_steps,
+                _stream(words),
+            )
+        _raise_rc("anchor_walk", rc)
+        launches["anchor_walk"] += 1
+    return packed
+
+
+def anchor_walk_plain(words, ll, d, lanes, packed, t_steps: int):
+    """Plain torch version: the reference's deferred walk loop
+    (inflate_tpu.py:777-845): t_steps lane-wide steps that keep the
+    three-word cache and record (target, packed value) rows, then one
+    scatter-max over all records. u32 arithmetic in int64, masked."""
+    lane_bit, lane_out, lane_uid, lane_valid = lanes
+    dev = words.device
+    n_out_pad = packed.shape[0]
+    nw = words.shape[0]
+    n_lanes = lane_bit.shape[0]
+    uid = lane_uid.long().clamp(0, ll[0].shape[0] - 1)
+    llt = _canon_lane_tables(ll[:3], uid)
+    dt = _canon_lane_tables(d[:3], uid)
+    ll_sym_flat = ll[3].long().reshape(-1)
+    d_sym_flat = d[3].long().reshape(-1)
+    w = words.long() & _M32
+    valid = lane_valid != 0
+    p = torch.where(valid, lane_bit.long(), 0)
+    o = torch.where(valid, lane_out.long(), n_out_pad)
+    active = valid
+    wi_prev = (p >> 5).clamp(0, nw - 3)
+    c0, c1, c2 = w[wi_prev], w[wi_prev + 1], w[wi_prev + 2]
+    rec_tgt = torch.full((t_steps, n_lanes), n_out_pad, dtype=torch.long,
+                         device=dev)
+    rec_pack = torch.zeros((t_steps, n_lanes), dtype=torch.long, device=dev)
+    for t in range(t_steps):
+        # A token is <= 48 bits, so the window's base word advances by at
+        # most 2 a step: the first word comes from the carried cache.
+        wi = (p >> 5).clamp(0, nw - 3)
+        s = p & 31
+        delta = wi - wi_prev
+        w0 = torch.where(delta == 0, c0, torch.where(delta == 1, c1, c2))
+        w1 = w[wi + 1]
+        w2 = w[wi + 2]
+        inv = 31 - s
+        lo = (w0 >> s) | ((((w1 << inv) & _M32) << 1) & _M32)
+        hi = (w1 >> s) | ((((w2 << inv) & _M32) << 1) & _M32)
+        stepw, outlen, sym, mdist, islit, islen, _eob = (
+            _decode_bits_canon(lo, hi, uid, llt, dt, ll_sym_flat,
+                                   d_sym_flat)
+        )
+        emit = active & (islit | islen)
+        tgt = torch.where(emit, o, n_out_pad)
+        lit = torch.where(islit, sym, 0)
+        dst = torch.where(islen, mdist, 0)
+        o = o + torch.where(emit, outlen, 0)
+        ok = stepw <= 48  # EOB/invalid decode as _HUGE: the lane is done
+        p = p + torch.where(active & ok, stepw, 0)
+        active = active & ok
+        c0, c1, c2, wi_prev = w0, w1, w2, wi
+        rec_tgt[t] = tgt
+        rec_pack[t] = torch.where(tgt < n_out_pad,
+                                  (dst << 9) | (lit << 1) | 1, 0)
+        # On the CPU, end the loop once every lane has stopped: the rows
+        # left would hold only dropped targets. On a card the check would
+        # sync the host, so the loop there runs all t_steps as the
+        # reference's does.
+        if dev.type == "cpu" and t % 32 == 31 and not bool(active.any()):
+            break
+    # .at[rec_tgt].max(rec_pack, mode="drop"): out-of-range targets land
+    # in a trash slot past the end.
+    idx = rec_tgt.reshape(-1)
+    idx = torch.where((idx >= 0) & (idx < n_out_pad), idx, n_out_pad)
+    buf = torch.cat([packed.long(), packed.new_zeros(1).long()])
+    buf.scatter_reduce_(0, idx, rec_pack.reshape(-1), "amax")
+    packed.copy_(buf[:n_out_pad])
+    return packed
