@@ -73,8 +73,35 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    serial chain); a v2 index (per-bit path, no walk) decodes, with
    its commit sweeps' launches and time.
 
-The second-to-last lines are the kernels JSON (the four kernels) and
-nvidia-smi's line; the last line is {"ok": true, "device": {...}}.
+7. parallel: a seeded 64 MiB corpus at L6 gzip, 256 KiB chunks (256
+   chunks), through parallel.compress_sharded on make_mesh() (every
+   visible card) and on the first card named twice (the row split, each
+   device's partials and their merge run even on one card). The bytes
+   must equal compress() on one card and decode with stdlib gzip, the
+   trailer's CRC (combined from the card's per-chunk partials) must
+   equal zlib.crc32, and all three kernels must launch in each layout's
+   run (counts reset just before, read just after). Median MB/s of
+   PAR_REPS calls beside the one-card one-shot's, stage times (analyze
+   includes the partials), make_mesh's trace and idle share, and the
+   partials' own device time and launches on one batch. The cases of
+   __graft_entry__.dryrun_multichip on the card named 8 times (256 KiB
+   chunks, mem_level=1, an uneven tail, an incompressible chunk taking
+   the stored fallback; indexed + seekable with a decompress_range
+   read). Then parallel.compress_multihost in 2 and in 3 spawned
+   processes over gloo (this script with --multihost-worker), each on
+   its own card (cuda:rank % count: here all share one) with a
+   chunk-aligned range of the 64 MiB: root's bytes must equal the
+   single-process bytes and decode with stdlib gzip, and every process
+   must report all three kernels launched. The wall time from a barrier
+   to root's return, median of PAR_REPS calls in the same processes, as
+   aggregate MB/s beside one process's.
+
+Every trace goes through utils.profiling.trace, which also writes it
+gzipped to chiprun_out/traces/. The second-to-last lines are the
+kernels JSON (the four kernels, each with its launches by run under
+"launches_by_level", the phase 7 paths among them, and phase 7's MB/s
+and partials under "parallel") and nvidia-smi's line; the last line is
+{"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -83,6 +110,7 @@ import gzip
 import hashlib
 import io
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -90,6 +118,9 @@ import time
 import zlib
 
 MAIN_BYTES = 8 << 20
+# Chrome traces of the profiled calls (gzipped; gitignored).
+TRACE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "chiprun_out", "traces")
 MAIN_CHUNK = 1 << 18
 MAIN_REPS = 5  # timed compress() calls per level
 MAIN_RUNS = ((6, "gzip"), (1, "zlib"), (9, "gzip"))  # (level, format)
@@ -108,6 +139,12 @@ REF_SHA256_STREAM_4K = "3306d291b7d8320e09a78c395741ea67fff581e5dd1ded45d60c9ed0
 DECODE_REPS = 3  # timed decode calls per stream
 DECODE_BIG = 64 << 20  # the data-loading runs: to_device=True
 V2_BYTES = 1 << 20  # the per-bit path's stream (v2 index)
+
+PAR_BYTES = 64 << 20  # phase 7: the sharded and multi-process runs
+PAR_REPS = 3  # timed calls per layout / process count
+MH_PROCS = (2, 3)  # processes of the multi-process runs, one card each
+# (cuda:rank % count: on a one-card machine they share it)
+MH_TIMEOUT = 300  # seconds a multi-process run may take in all
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 # H100 SXM 32-bit integer rate: the compare, select, min and add work of
@@ -534,19 +571,17 @@ def phase_main(torch, kernels, zt, profiling, data):
             run()
         log(f"stages L{level} ms (each stage synchronises the card): "
             + json.dumps({k: round(v, 3) for k, v in st.as_ms().items()}))
-        trace(torch, run, f"L{level}")
+        trace(profiling, run, f"L{level}")
         counts[f"L{level}"] = launched
         rates[level] = len(data) / 1e6 / dt
     return counts, ref, rates
 
 
-def trace(torch, run, what: str) -> None:
-    """One profiled call: device time by kernel and the card's idle share
+def trace(profiling, run, what: str) -> None:
+    """One call under profiling.trace (its Chrome trace goes to
+    chiprun_out/traces/): device time by kernel and the card's idle share
     of the call's wall time (kernels on one stream do not overlap)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profiling.trace(TRACE_DIR) as prof:
         t0 = time.perf_counter()
         run()
         wall_us = (time.perf_counter() - t0) * 1e6
@@ -563,6 +598,20 @@ def trace(torch, run, what: str) -> None:
         f"{busy / 1e3:.3f} ms, idle share {1 - busy / wall_us:.4f}")
     for key, us, count in sorted(rows, key=lambda r: -r[1])[:12]:
         log(f"  {us / 1e3:9.3f} ms {count:6d}x {key[:90]}")
+
+
+def device_events(profiling, fn):
+    """One call of fn under profiling.trace: its result, its device
+    launches and their device time in ms."""
+    import torch
+
+    with profiling.trace(TRACE_DIR) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages()
+          if str(e.device_type).endswith("CUDA")]
+    return (out, sum(e.count for e in ev),
+            sum(e.self_device_time_total for e in ev) / 1e3)
 
 
 def phase_stream(torch, kernels, zt, profiling, data, zlib6: int,
@@ -606,7 +655,7 @@ def phase_stream(torch, kernels, zt, profiling, data, zlib6: int,
         run()
     log("stages stream L6 ms (each stage synchronises the card): "
         + json.dumps({k: round(v, 3) for k, v in st.as_ms().items()}))
-    trace(torch, run, "stream L6")
+    trace(profiling, run, "stream L6")
 
     secs = []
     for _ in range(STREAM_REPS):
@@ -776,7 +825,6 @@ def phase_decode(torch, kernels, zt, profiling, timer, data, corpus):
     """Device decode of the 8 MiB corpus (indexed, zlib, gzip, raw), the
     64 MiB data-loading run, the walk kernel against its plain version,
     and the v2 per-bit path."""
-    from torch.profiler import ProfilerActivity, profile
 
     from zzflate_tpu_torch.models import inflate_device as idv
     from zzflate_tpu_torch.ops import checksums as cs
@@ -832,8 +880,8 @@ def phase_decode(torch, kernels, zt, profiling, timer, data, corpus):
                                     for k, v in st.as_ms().items()}))
         counts[name] = launched
         rates[name] = (mb / dt, mb / ht)
-    trace(torch, lambda: zt.decompress(indexed, format="gzip",
-                                       engine="device"), "decode indexed")
+    trace(profiling, lambda: zt.decompress(indexed, format="gzip",
+                                           engine="device"), "decode indexed")
 
     rounds = []
     orig_resolve = idv._resolve_parent
@@ -856,19 +904,15 @@ def phase_decode(torch, kernels, zt, profiling, timer, data, corpus):
     n_crc = (1 << 22) - 12345
     cs._crc32_impl(buf, n_crc, idv._W)  # warm-up: the tables' uploads
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        crc = cs._crc32_impl(buf, n_crc, idv._W)
-        torch.cuda.synchronize()
+    crc, n_ev, ev_ms = device_events(
+        profiling, lambda: cs._crc32_impl(buf, n_crc, idv._W))
     want = zlib.crc32(buf[idv._W : n_crc].cpu().numpy().tobytes())
     if int(crc) != want:
         raise AssertionError("device crc32 != zlib.crc32")
-    ev = [e for e in prof.key_averages()
-          if str(e.device_type).endswith("CUDA")]
     crc_ms = timer.wall_ms(lambda: cs._crc32_impl(buf, n_crc, idv._W))
-    log(f"CRC-32 of a 4 MiB group on the card: {sum(e.count for e in ev)} "
-        f"device launches ({len(ev)} kinds), "
-        f"{sum(e.self_device_time_total for e in ev) / 1e3:.3f} ms device "
-        f"time, {crc_ms:.3f} ms a call (events); equals zlib.crc32")
+    log(f"CRC-32 of a 4 MiB group on the card: {n_ev} device launches, "
+        f"{ev_ms:.3f} ms device time, {crc_ms:.3f} ms a call (events); "
+        "equals zlib.crc32")
 
     bad = bytearray(indexed)
     bad[len(bad) // 2] ^= 0x40  # a payload byte
@@ -1025,23 +1069,277 @@ def phase_decode(torch, kernels, zt, profiling, timer, data, corpus):
     if kernels.launches["anchor_walk"]:
         raise AssertionError("v2 index: the walk ran (per-bit path expected)")
     a = sweep_args[-1]
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        idv._commit_walk(*a)
-        torch.cuda.synchronize()
-    ev = [e for e in prof.key_averages()
-          if str(e.device_type).endswith("CUDA")]
+    _, n_ev, ev_ms = device_events(profiling, lambda: idv._commit_walk(*a))
     sweep_ms = timer.wall_ms(lambda: idv._commit_walk(*a), reps=1)
     log(f"v2 index (per-bit path), {len(pre)} B: {v2_s:.4f} s = "
         f"{len(pre) / 1e6 / v2_s:.3f} MB/s; _commit_walk on {a[0].numel()} "
-        f"bits: {sum(e.count for e in ev)} device launches, "
-        f"{sum(e.self_device_time_total for e in ev) / 1e3:.3f} ms device "
-        f"time, {sweep_ms:.3f} ms a call (events)")
+        f"bits: {n_ev} device launches, {ev_ms:.3f} ms device time, "
+        f"{sweep_ms:.3f} ms a call (events)")
     return {"launches": counts["indexed"], "launches_by_run": counts,
             "max_abs_err": err, "ms": first["ms"], "plain_ms": plain_ms,
             "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
             "library_ms": None,
             "per_launch": per_launch,
             "MBps_device_vs_host": rates}
+
+
+def trailer_crc(blob: bytes) -> int:
+    return int.from_bytes(blob[-8:-4], "little")
+
+
+def phase_parallel(torch, kernels, zt, profiling, timer, corpus):
+    """compress_sharded on two layouts, the dryrun_multichip cases, the
+    partials' device cost, and compress_multihost in 2 and 3 processes."""
+    import numpy as np
+
+    from zzflate_tpu_torch.config import CodecConfig
+    from zzflate_tpu_torch.encode_pipeline import (
+        build_chunk_batch,
+        encode_segments,
+    )
+    from zzflate_tpu_torch.ops import checksums as cs
+    from zzflate_tpu_torch.parallel import compress_sharded, make_mesh
+
+    t0 = time.perf_counter()
+    data = corpus.mixed_corpus(PAR_BYTES, seed=2)
+    mb = len(data) / 1e6
+    want_crc = zlib.crc32(data)
+    log(f"parallel corpus: {len(data)} B in {time.perf_counter() - t0:.2f} s")
+
+    def one_card():
+        return zt.compress(data, level=6, format="gzip",
+                           chunk_bytes=MAIN_CHUNK)
+
+    single = one_card()  # warm-up, and the bytes every layout must give
+    secs = []
+    for _ in range(PAR_REPS):
+        t0 = time.perf_counter()
+        if one_card() != single:
+            raise AssertionError("one card: output differs between runs")
+        secs.append(time.perf_counter() - t0)
+    one_mbps = mb / statistics.median(secs)
+    if gzip.decompress(single) != data:
+        raise AssertionError("one card 64 MiB: output does not decode")
+    log(f"parallel one card, compress(): {len(data)} -> {len(single)} B; "
+        f"median {statistics.median(secs):.4f} s of {PAR_REPS} = "
+        f"{one_mbps:.3f} MB/s")
+
+    counts, rates = {}, {"one card": one_mbps}
+    cuda0 = torch.device("cuda", 0)
+    layouts = {"make_mesh": make_mesh(), "cuda:0 twice": [cuda0, cuda0]}
+    for name, mesh in layouts.items():
+        def run():
+            return compress_sharded(data, level=6, format="gzip", mesh=mesh,
+                                    chunk_bytes=MAIN_CHUNK)
+
+        run()  # warm-up
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        out = run()
+        secs = [time.perf_counter() - t0]
+        launched = dict(kernels.launches)
+        if out != single:
+            raise AssertionError(f"sharded {name}: bytes != one card's")
+        if gzip.decompress(out) != data:
+            raise AssertionError(f"sharded {name}: output does not decode")
+        if trailer_crc(out) != want_crc:
+            raise AssertionError(f"sharded {name}: trailer CRC != zlib.crc32")
+        idle = [k for k in KERNELS if launched[k] == 0]
+        if idle:
+            raise AssertionError(f"sharded {name}: never launched: {idle}")
+        for _ in range(PAR_REPS - 1):
+            t0 = time.perf_counter()
+            if run() != single:
+                raise AssertionError(f"sharded {name}: output differs")
+            secs.append(time.perf_counter() - t0)
+        dt = statistics.median(secs)
+        log(f"sharded {name} ({[str(d) for d in mesh]}): {len(data)} -> "
+            f"{len(out)} B == one card's; trailer CRC {trailer_crc(out):#010x}"
+            f" (card partials) == zlib.crc32; median {dt:.4f} s of "
+            f"{PAR_REPS} (min {min(secs):.4f}, max {max(secs):.4f}) = "
+            f"{mb / dt:.3f} MB/s against one card's {one_mbps:.3f}; launches "
+            f"{launched}")
+        with profiling.collect() as st:
+            run()
+        log(f"stages sharded {name} ms (each stage synchronises every card "
+            "of the mesh; analyze includes the partials): "
+            + json.dumps({k: round(v, 3) for k, v in st.as_ms().items()}))
+        if name == "make_mesh":
+            trace(profiling, run, f"sharded {name}")
+        counts[f"sharded {name}"] = launched
+        rates[f"sharded {name}"] = mb / dt
+
+    # The partials alone on one batch: (16, 294912) rows of the corpus.
+    buf, vends, _, nch = build_chunk_batch(data[: BATCH * MAIN_CHUNK],
+                                           MAIN_CHUNK, None)
+    rows = torch.as_tensor(buf).cuda()
+    ends = torch.as_tensor(vends).cuda()
+    starts = torch.full((nch,), 32768, dtype=torch.int32, device="cuda")
+
+    def partials():
+        return cs.adler32_rows(rows, ends, starts), cs.crc32_rows(
+            rows, ends, starts)
+
+    partials()  # warm-up: the tables' uploads
+    (adler, crc), n_ev, ev_ms = device_events(profiling, partials)
+    for j in range(nch):
+        chunk = data[j * MAIN_CHUNK : (j + 1) * MAIN_CHUNK]
+        if (int(adler[j]), int(crc[j])) != (zlib.adler32(chunk),
+                                            zlib.crc32(chunk)):
+            raise AssertionError(f"partials of chunk {j} != zlib's")
+    part_ms = timer.wall_ms(partials)
+    part = {"launches": n_ev, "device_ms": ev_ms, "call_ms": part_ms}
+    log(f"partials of one batch {tuple(rows.shape)} (adler32_rows + "
+        f"crc32_rows): {part['launches']} device launches, "
+        f"{part['device_ms']:.3f} ms device time, {part_ms:.3f} ms a call "
+        f"(events); equal zlib's on every chunk")
+
+    # __graft_entry__.dryrun_multichip(8)'s cases, the card named 8 times.
+    rng = np.random.default_rng(7)
+    unit = b"a tiny but repetitive dry-run corpus "
+    text = (unit * (MAIN_CHUNK * 6 // len(unit) + 1))[: MAIN_CHUNK * 6]
+    tail = (b"uneven tail " * 5000)[: MAIN_CHUNK // 3]
+    dry = (text + rng.integers(0, 256, MAIN_CHUNK, dtype=np.uint8).tobytes()
+           + tail)
+    mesh8 = [cuda0] * 8
+    out = compress_sharded(dry, level=6, format="zlib", mesh=mesh8,
+                           chunk_bytes=MAIN_CHUNK, mem_level=1)
+    if zlib.decompress(out) != dry:
+        raise AssertionError("dryrun cases: round trip failed")
+    if out != zt.compress(dry, level=6, format="zlib", chunk_bytes=MAIN_CHUNK,
+                          mem_level=1):
+        raise AssertionError("dryrun cases: bytes != one card's")
+    segs = encode_segments(dry, CodecConfig(level=6, chunk_bytes=MAIN_CHUNK,
+                                            mem_level=1),
+                           None, devices=mesh8)["segments"]
+    # A stored block's header has BTYPE 00: bits 1-2 of its first byte.
+    stored = [i for i, seg in enumerate(segs) if seg[0] & 6 == 0]
+    if stored != [6]:
+        raise AssertionError(f"dryrun cases: stored chunks {stored}, not [6]")
+    oi = compress_sharded(dry, level=6, format="gzip", mesh=mesh8,
+                          chunk_bytes=MAIN_CHUNK, indexed=True, seekable=True,
+                          mem_level=1)
+    if gzip.decompress(oi) != dry:
+        raise AssertionError("dryrun cases: indexed round trip failed")
+    off = MAIN_CHUNK * 6 - 100
+    if zt.decompress_range(oi, off, 300) != dry[off : off + 300]:
+        raise AssertionError("dryrun cases: decompress_range differs")
+    log(f"dryrun_multichip cases on the card x8: {len(dry)} -> {len(out)} B "
+        f"(uneven tail; chunk 6, the incompressible one, stored) == one card's; indexed + "
+        f"seekable {len(oi)} B, decompress_range read verified")
+
+    for nproc in MH_PROCS:
+        ranks, blob = multihost_run(nproc)
+        if blob != single:
+            raise AssertionError(f"multihost {nproc}: bytes != one process's")
+        if gzip.decompress(blob) != data:
+            raise AssertionError(f"multihost {nproc}: output does not decode")
+        for r in ranks:
+            idle = [k for k in KERNELS if r["launches"][k] == 0]
+            if idle:
+                raise AssertionError(
+                    f"multihost {nproc} rank {r['rank']}: never launched "
+                    f"{idle}")
+        wall = ranks[0]["secs"]
+        dt = statistics.median(wall)
+        log(f"multihost {nproc} processes on {ranks[0]['device']} (gloo): "
+            f"root's {len(blob)} B == one process's and decode; wall from a "
+            f"barrier to root's return, median {dt:.4f} s of {len(wall)} "
+            f"(min {min(wall):.4f}, max {max(wall):.4f}) = {mb / dt:.3f} MB/s "
+            f"aggregate against one process's {one_mbps:.3f}; per rank: "
+            + "; ".join(f"rank {r['rank']} {r['nbytes']} B, launches "
+                        f"{r['launches']}" for r in ranks))
+        counts[f"multihost {nproc}"] = [r["launches"] for r in ranks]
+        rates[f"multihost {nproc}"] = mb / dt
+    return counts, rates, part
+
+
+def multihost_run(nproc: int, nbytes: int = PAR_BYTES,
+                  reps: int = PAR_REPS) -> tuple[list[dict], bytes]:
+    """Spawn nproc workers of this script on mixed_corpus(nbytes, 2), wait
+    for all; return each rank's report and the stream rank 0 wrote."""
+    import shutil
+    import socket
+    import tempfile
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    tmp = tempfile.mkdtemp(prefix="zz_mh_")
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen(
+        [sys.executable, __file__, "--multihost-worker", str(port),
+         str(nproc), str(r), tmp, str(nbytes), str(reps)],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+    ) for r in range(nproc)]
+    reports, errs = [], []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=MH_TIMEOUT)
+            if p.returncode != 0:
+                errs.append(f"rc {p.returncode}: {err[-3000:]}")
+                continue
+            reports.append(json.loads(out.strip().splitlines()[-1]))
+        if errs:
+            raise AssertionError(f"multihost {nproc}: worker failed: {errs}")
+        with open(os.path.join(tmp, "stream.gz"), "rb") as f:
+            blob = f.read()
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return sorted(reports, key=lambda r: r["rank"]), blob
+
+
+def multihost_worker(port: str, nproc: str, rank: str, tmp: str,
+                     nbytes: str, reps: str) -> int:
+    """One process of a multi-process run: its chunk-aligned range of
+    mixed_corpus(nbytes, 2) through compress_multihost on its own card, a
+    warm-up call, then `reps` calls each timed from a barrier to root's
+    return; prints a JSON report as its last line."""
+    import torch
+    import torch.distributed as dist
+
+    from zzflate_tpu_torch.api import _rank_device
+    from zzflate_tpu_torch.ops import kernels
+    from zzflate_tpu_torch.parallel import multihost
+    from zzflate_tpu_torch.utils import corpus
+
+    torch.set_num_threads(1)
+    nproc, rank, reps = int(nproc), int(rank), int(reps)
+    data = corpus.mixed_corpus(int(nbytes), seed=2)
+    nch = -(-len(data) // MAIN_CHUNK)
+    lo = min(nch * rank // nproc * MAIN_CHUNK, len(data))
+    hi = min(nch * (rank + 1) // nproc * MAIN_CHUNK, len(data))
+    local = data[lo:hi]
+    multihost.initialize(f"tcp://127.0.0.1:{port}", nproc, rank)
+
+    def call():
+        return multihost.compress_multihost(local, level=6, format="gzip",
+                                            chunk_bytes=MAIN_CHUNK)
+
+    call()  # warm-up: allocations, kernel loads, the gloo connections
+    kernels.reset_launches()
+    secs, blob = [], None
+    for _ in range(reps):
+        dist.barrier()
+        t0 = time.perf_counter()
+        blob = call()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        dist.barrier()  # root's return is the end of the timed call
+    rep = {"rank": rank, "nbytes": len(local), "secs": secs,
+           "device": torch.cuda.get_device_name(_rank_device(None, rank)),
+           "launches": {k: v // reps for k, v in kernels.launches.items()}}
+    if rank == 0:
+        with open(os.path.join(tmp, "stream.gz"), "wb") as f:
+            f.write(blob)
+    dist.destroy_process_group()
+    print(json.dumps(rep), flush=True)
+    return 0
 
 
 def main() -> int:
@@ -1078,16 +1376,23 @@ def main() -> int:
     took("5 (reference)")
     walk = phase_decode(torch, kernels, zt, profiling, timer, data, corpus)
     took("6 (device decode)")
+    par_counts, par_rates, partials = phase_parallel(
+        torch, kernels, zt, profiling, timer, corpus)
+    took("7 (parallel)")
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
 
     line = {"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "launches": counts["L6"][k],
-         "launches_by_level": {lv: c[k] for lv, c in counts.items()},
+         "launches_by_level": {
+             **{lv: c[k] for lv, c in counts.items()},
+             **{p: ([r[k] for r in c] if isinstance(c, list) else c[k])
+                for p, c in par_counts.items()}},
          **results[k]}
         for k, (src, rep) in KERNELS.items()
     ] + [{"name": WALK[0], "route": "cuda", "source": WALK[1],
-          "replaces": WALK[2], **walk}]}
+          "replaces": WALK[2], **walk}],
+        "parallel": {"MBps": par_rates, "partials_one_batch": partials}}
     log(json.dumps(line))
     log(smi)
     log(json.dumps({"ok": True, "device": {
@@ -1097,4 +1402,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--multihost-worker"]:
+        sys.exit(multihost_worker(*sys.argv[2:8]))
     sys.exit(main())

@@ -12,7 +12,12 @@ Tolerance is zero: the codec is integer-only and deterministic.
 """
 import gzip
 import hashlib
+import json
+import os
+import socket
 import struct
+import subprocess
+import sys
 import zlib
 
 import numpy as np
@@ -514,3 +519,138 @@ def test_device_decode_to_device_returns_a_cuda_tensor():
     arr, n = idv.decompress_foreign(gzip.compress(DATA, 6), format="gzip",
                                     to_device=True)
     assert arr.is_cuda and bytes(arr.cpu().numpy()) == DATA
+
+
+# ---------------------------------------------------------------------------
+# parallel: compress_sharded over a device list, the per-chunk partials
+# and compress_multihost across processes.
+# ---------------------------------------------------------------------------
+
+MAIN = ("scan_candidates", "propagate_matches", "parse_rows")
+
+
+def _all_launched(fn):
+    kernels.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    assert all(kernels.launches[k] > 0 for k in MAIN), kernels.launches
+    return out
+
+
+@pytest.mark.parametrize("layout", ["make_mesh", "cuda0-twice"])
+@pytest.mark.parametrize("level, fmt, extra", [
+    (6, "gzip", {}), (1, "zlib", {"mem_level": 1}), (9, "raw", {}),
+    (6, "gzip", {"indexed": True, "seekable": True}),
+], ids=["L6-gzip", "L1-zlib-batches", "L9-raw", "L6-indexed-seekable"])
+def test_sharded_on_card_equals_one_card(layout, level, fmt, extra):
+    """32 KiB chunks (mem_level=1: one row per device and batch, several
+    batches): the mesh's bytes are the one card's."""
+    _card()
+    from zzflate_tpu_torch.parallel import compress_sharded, make_mesh
+
+    mesh = make_mesh() if layout == "make_mesh" else ["cuda:0", "cuda:0"]
+    data = mixed_corpus(6 * 32768 + 77, 21)
+    got = _all_launched(lambda: compress_sharded(
+        data, level=level, format=fmt, mesh=mesh, chunk_bytes=32768,
+        **extra))
+    assert got == zt.compress(data, level=level, format=fmt,
+                              chunk_bytes=32768, **extra)
+    if fmt == "gzip":
+        assert gzip.decompress(got) == data
+        assert int.from_bytes(got[-8:-4], "little") == zlib.crc32(data)
+
+
+def test_row_partials_on_card_equal_cpu():
+    _card()
+    from zzflate_tpu_torch.config import LEVELS
+    from zzflate_tpu_torch.encode_pipeline import build_chunk_batch
+    from zzflate_tpu_torch.models import deflate_encoder
+    from zzflate_tpu_torch.ops import checksums as cs
+
+    rng = np.random.default_rng(3)
+    for width in (32768 + (1 << 18), 37197):
+        rows = rng.integers(0, 256, (5, width), np.uint8)
+        starts = np.array([32768, 32768, 0, 100, 7], np.int64)
+        ends = np.array([width, 33000, width, 100, width - 5], np.int64)
+        args = (torch.from_numpy(rows), torch.from_numpy(ends),
+                torch.from_numpy(starts))
+        for fn in (cs.adler32_rows, cs.crc32_rows):
+            cpu = fn(*args)
+            gpu = fn(*(a.cuda() for a in args))
+            assert gpu.is_cuda and torch.equal(gpu.cpu(), cpu)
+    data = mixed_corpus(3 * 4096 + 99, 22)
+    buf, vends, wstarts, n = build_chunk_batch(data, 4096, b"dict" * 900)
+    batch = [torch.as_tensor(a) for a in
+             (buf, np.full(n, 32768, np.int32), vends, wstarts)]
+    cpu = deflate_encoder.analyze_chunks_batch(*batch, LEVELS[6],
+                                               with_checksums=True)
+    gpu = deflate_encoder.analyze_chunks_batch(
+        *(t.cuda() for t in batch), LEVELS[6], with_checksums=True)
+    assert torch.equal(gpu["cks"].cpu(), cpu["cks"])
+    assert cpu["cks"][:, 1].tolist() == [
+        zlib.crc32(data[i * 4096 : (i + 1) * 4096]) for i in range(n)]
+
+
+# One process of a 2-process run on the card(s): its chunk-aligned range
+# of mixed_corpus(nbytes, 2) through compress_multihost on its own card
+# (device=None), counts reset just before; prints its launches.
+MH_WORKER = r"""
+import json, sys
+import torch
+torch.set_num_threads(1)
+from zzflate_tpu_torch.ops import kernels
+from zzflate_tpu_torch.parallel import multihost
+from zzflate_tpu_torch.utils.corpus import mixed_corpus
+port, n, rank, nbytes, out = sys.argv[1:]
+n, rank, chunk = int(n), int(rank), 1 << 18
+data = mixed_corpus(int(nbytes), 2)
+per = -(-len(data) // chunk)
+lo, hi = (min(per * r // n * chunk, len(data)) for r in (rank, rank + 1))
+multihost.initialize(f"tcp://127.0.0.1:{port}", n, rank)
+kernels.reset_launches()
+blob = multihost.compress_multihost(data[lo:hi], level=6, format="gzip",
+                                    chunk_bytes=chunk)
+torch.cuda.synchronize()
+if rank == 0:
+    with open(out, "wb") as f:
+        f.write(blob)
+torch.distributed.destroy_process_group()
+print(json.dumps(dict(kernels.launches)))
+"""
+
+
+def test_multihost_two_processes_on_card_equal_one_process(tmp_path):
+    """Two processes on this box's card(s) over gloo: root's bytes are
+    one process's, and every process launched all three kernels."""
+    _card()
+    kernels.build()  # once here, not in each worker
+    nbytes, out = 4 << 20, tmp_path / "out.gz"
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", MH_WORKER, str(port), "2", str(r),
+         str(nbytes), str(out)],
+        env=env, cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for r in range(2)]
+    runs = []
+    try:
+        for p in procs:
+            o, e = p.communicate(timeout=300)
+            runs.append((p.returncode, o, e[-3000:]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert all(rc == 0 for rc, _, _ in runs), runs
+    data = mixed_corpus(nbytes, 2)
+    blob = out.read_bytes()
+    assert blob == zt.compress(data, level=6, format="gzip")
+    assert gzip.decompress(blob) == data
+    for _, o, _ in runs:
+        launched = json.loads(o.strip().splitlines()[-1])
+        assert all(launched[k] > 0 for k in MAIN), launched

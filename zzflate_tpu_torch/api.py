@@ -14,6 +14,7 @@ the host, in the port's C runtime.
 """
 from __future__ import annotations
 
+import os
 import struct
 import zlib as _zlib
 
@@ -34,18 +35,118 @@ def compress_bound(n: int, format: str = "zlib") -> int:
 
 
 def _resolve_device(device) -> torch.device:
-    """None -> CUDA (RuntimeError without a GPU); otherwise as given."""
+    """None -> the current CUDA card (RuntimeError without a GPU);
+    otherwise as given. A CUDA device always carries its index, so a
+    tensor made there compares equal to it."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "no CUDA device: pass device='cpu' to run the plain torch "
                 "path on the CPU"
             )
-        return torch.device("cuda")
+        device = "cuda"
     dev = torch.device(device)
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def _rank_device(device, rank: int) -> torch.device:
+    """The device of one process of a distributed job: as given, or for
+    None the process's own card, cuda:(LOCAL_RANK or rank) % the visible
+    card count (processes of one host share its cards round-robin);
+    RuntimeError without a GPU."""
+    dev = _resolve_device(device)
+    if device is None:
+        local = os.environ.get("LOCAL_RANK", "")
+        idx = int(local) if local else rank
+        dev = torch.device("cuda", idx % torch.cuda.device_count())
+    return dev
+
+
+def _check_options(config: CodecConfig, dictionary, indexed: bool,
+                   seekable: bool) -> None:
+    """The option checks of every one-shot device encode."""
+    if dictionary is not None and config.format == "gzip":
+        raise ValueError("gzip streams cannot carry a preset dictionary")
+    if indexed and config.format != "gzip":
+        raise ValueError("indexed output requires format='gzip'")
+    if seekable and not indexed:
+        raise ValueError("seekable output requires indexed=True")
+    if indexed and config.level == 0:
+        raise ValueError("indexed output requires level >= 1")
+
+
+def _stream_checksums(enc: dict, n: int, chunk_bytes: int) -> tuple[int, int]:
+    """The Adler-32 and CRC-32 of n bytes, combined in chunk order from
+    encode_segments(with_checksums=True)'s per-chunk partials."""
+    nchunks = max(1, -(-n // chunk_bytes))
+    lens = [min(chunk_bytes, n - i * chunk_bytes) for i in range(nchunks)]
+    return (containers.combine_adler(list(zip(enc["adler"], lens))),
+            containers.combine_crc(list(zip(enc["crc"], lens))))
+
+
+def _frame(data: bytes, config: CodecConfig, dictionary, payload: bytes,
+           index: dict | None = None, seekable: bool = False,
+           cks: tuple[int, int] | None = None) -> bytes:
+    """Wrap a raw deflate payload of `data` in config.format's container.
+    index: encode_segments' result, for an indexed gzip header. cks: the
+    stream's (Adler-32, CRC-32) from the devices' partials; None reads
+    them from `data` here."""
+    if config.format == "raw":
+        return payload
+    if config.format == "zlib":
+        dictid = _zlib.adler32(dictionary) if dictionary is not None else None
+        adler = cks[0] if cks is not None else _zlib.adler32(data)
+        return (
+            containers.zlib_header(config.level, dictid, config.window_bits)
+            + payload
+            + containers.zlib_trailer(adler)
+        )
+    if index is not None:
+        hdr = containers.gzip_header_indexed(
+            config.chunk_bytes,
+            list(zip((len(s) for s in index["segments"]), index["blocks"],
+                     index["anchors"])),
+            flags=containers.ZZ_FLAG_SEEKABLE if seekable else 0,
+        )
+    else:
+        hdr = containers.gzip_header()
+    crc = cks[1] if cks is not None else _zlib.crc32(data)
+    return hdr + payload + containers.gzip_trailer(crc, len(data))
+
+
+def _compress_on(data: bytes, config: CodecConfig, dictionary,
+                 devices: list, indexed: bool = False, seekable: bool = False,
+                 card_checksums: bool = False) -> bytes:
+    """The device engine of a one-shot compress over `devices` (one
+    device, or a mesh: encode_segments), framed. card_checksums takes the
+    trailer from the devices' per-chunk partials instead of a host pass
+    over `data`."""
+    index = cks = None
+    if config.level == 0:
+        payload = containers.stored_segment(data, final=True)
+    else:
+        enc = encode_segments(
+            data, config, dictionary, devices, with_anchors=indexed,
+            halo=not seekable, with_checksums=card_checksums,
+        )
+        payload = b"".join(enc["segments"])
+        if card_checksums:
+            cks = _stream_checksums(enc, len(data), config.chunk_bytes)
+        if indexed:
+            index = enc
+        else:
+            # Whole-stream stored fallback: per-chunk sync-flush framing
+            # adds ~5 bytes/chunk, so incompressible inputs could
+            # otherwise exceed compress_bound. Indexed streams keep their
+            # per-chunk layout.
+            stored_whole = containers.stored_segment(data, final=True)
+            if len(stored_whole) < len(payload):
+                payload = stored_whole
+    return _frame(data, config, dictionary, payload, index, seekable, cks)
 
 
 def compress(
@@ -81,25 +182,17 @@ def compress(
         level=level, format=format, chunk_bytes=chunk_bytes,
         strategy=strategy, window_bits=window_bits, mem_level=mem_level,
     )
-    if dictionary is not None and format == "gzip":
-        raise ValueError("gzip streams cannot carry a preset dictionary")
-    if indexed and format != "gzip":
-        raise ValueError("indexed output requires format='gzip'")
+    _check_options(config, dictionary, indexed, seekable)
     if engine not in ("device", "native"):
         raise ValueError(f"unknown engine {engine!r}")
-    if engine == "native" and indexed:
-        raise ValueError("indexed output requires engine='device'")
-    if seekable and not indexed:
-        raise ValueError("seekable output requires indexed=True")
-    if indexed and level == 0:
-        raise ValueError("indexed output requires level >= 1")
     if engine == "device":
-        dev = _resolve_device(device)
-
-    segments: list[bytes] | None = None
+        return _compress_on(data, config, dictionary,
+                            [_resolve_device(device)], indexed, seekable)
+    if indexed:
+        raise ValueError("indexed output requires engine='device'")
     if level == 0:
         payload = containers.stored_segment(data, final=True)
-    elif engine == "native":
+    else:
         # Output bytes depend only on (data, parameters), never on the
         # machine's core count (deflate_raw_mt's contract).
         payload = native.deflate_raw_mt(
@@ -111,41 +204,7 @@ def compress(
         stored_whole = containers.stored_segment(data, final=True)
         if len(stored_whole) < len(payload):
             payload = stored_whole
-    else:
-        enc = encode_segments(
-            data, config, dictionary, dev, with_anchors=indexed,
-            halo=not seekable,
-        )
-        segments = enc["segments"]
-        payload = b"".join(segments)
-        # Whole-stream stored fallback: per-chunk sync-flush framing adds
-        # ~5 bytes/chunk, so incompressible inputs could otherwise exceed
-        # compress_bound. Indexed streams keep their per-chunk layout.
-        if not indexed:
-            stored_whole = containers.stored_segment(data, final=True)
-            if len(stored_whole) < len(payload):
-                payload = stored_whole
-                segments = None
-
-    if format == "raw":
-        return payload
-    if format == "zlib":
-        dictid = _zlib.adler32(dictionary) if dictionary is not None else None
-        return (
-            containers.zlib_header(level, dictid, config.window_bits)
-            + payload
-            + containers.zlib_trailer(_zlib.adler32(data))
-        )
-    if indexed and segments is not None:
-        hdr = containers.gzip_header_indexed(
-            chunk_bytes,
-            list(zip((len(s) for s in segments), enc["blocks"],
-                     enc["anchors"])),
-            flags=containers.ZZ_FLAG_SEEKABLE if seekable else 0,
-        )
-    else:
-        hdr = containers.gzip_header()
-    return hdr + payload + containers.gzip_trailer(_zlib.crc32(data), len(data))
+    return _frame(data, config, dictionary, payload)
 
 
 def decompress(data: bytes, format: str = "zlib",

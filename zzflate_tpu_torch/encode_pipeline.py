@@ -14,7 +14,10 @@ i, and one worker thread fetches and stitches finished batches in order
 while the main thread plans and queues the next ones. Device-to-host
 copies run on a side stream behind an event of the work they wait for,
 so a fetch never waits for the batches queued after it. Device memory
-stays a constant number of batches whatever the input size.
+stays a constant number of batches whatever the input size. Over a
+device list (a mesh) each batch splits into equal row groups, one per
+device, each with its own upload, analyze, emit and copy stream; the
+host plans all rows at once.
 """
 from __future__ import annotations
 
@@ -47,7 +50,8 @@ class _Ctx:
     frame: bool  # sync-flush framed segments, else (bytes, nbits)
     with_anchors: bool
     halo: bool
-    device: torch.device
+    devices: list  # the mesh: row group j of every batch runs on devices[j]
+    with_checksums: bool  # per-chunk Adler-32/CRC-32 partials, on the card
     # derived
     chunk_bytes: int = 0
     out_words: int = 0
@@ -57,25 +61,26 @@ class _Ctx:
     optimal: bool = False  # levels 7-9: the C DP replaces the lazy parse
     n: int = 0
     nchunks: int = 0
-    bsz: int = 0
+    bsz: int = 0  # rows of one batch over the whole mesh
+    per_dev: int = 0  # rows of one batch on each device
     max_dist: int = 32768
-    copy_stream: object = None  # side stream of the device-to-host copies
+    copy_streams: dict = field(default_factory=dict)  # device -> side stream
     results: dict = field(default_factory=dict)
 
 
 def _fetch(ctx: _Ctx, t: torch.Tensor, after=None):
-    """Start copying `t` to the host once the current stream's queued
-    work (or the event `after`) is done; returns a callable that waits
-    for the copy and gives the numpy array."""
+    """Start copying `t` to the host once its device's current stream has
+    done its queued work (or the event `after`); returns a callable that
+    waits for the copy and gives the numpy array."""
     if t.device.type != "cuda":
         return t.numpy
     host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-    s = ctx.copy_stream
+    s = ctx.copy_streams[t.device]
     if after is None:
         s.wait_stream(torch.cuda.current_stream(t.device))
     else:
         s.wait_event(after)
-    with torch.cuda.stream(s):
+    with torch.cuda.device(t.device), torch.cuda.stream(s):
         host.copy_(t, non_blocking=True)
         done = torch.cuda.Event()
         done.record(s)
@@ -131,10 +136,11 @@ def build_chunk_batch(data: bytes, chunk_bytes: int,
 
 
 def _make_ctx(data, config, dictionary, stream_final, frame, with_anchors,
-              halo, device) -> _Ctx:
+              halo, devices, with_checksums) -> _Ctx:
     ctx = _Ctx(data=data, config=config, dictionary=dictionary,
                stream_final=stream_final, frame=frame,
-               with_anchors=with_anchors, halo=halo, device=device)
+               with_anchors=with_anchors, halo=halo, devices=devices,
+               with_checksums=with_checksums)
     ctx.chunk_bytes = config.chunk_bytes
     ctx.out_words = deflate_encoder.output_words_bound(ctx.chunk_bytes)
     ctx.params = config.params
@@ -143,20 +149,34 @@ def _make_ctx(data, config, dictionary, stream_final, frame, with_anchors,
     ctx.optimal = ctx.params.optimal and not ctx.huffman_only
     ctx.n = len(data)
     ctx.nchunks = max(1, -(-ctx.n // ctx.chunk_bytes))
-    # Never batch far beyond the real chunk count (padded rows run the
-    # full analyze/emit for nothing); pow2 bucketing bounds the waste.
-    cap = 1 << max(0, ctx.nchunks - 1).bit_length()
-    ctx.bsz = max(1, min(_device_batch(ctx.chunk_bytes, config.mem_level), cap))
+    # One batch is ndev x per_dev rows. Never batch far beyond the real
+    # chunk count (padded rows run the full analyze/emit for nothing):
+    # the per-device row count is capped at the pow2 above its share.
+    ndev = len(devices)
+    share = -(-ctx.nchunks // ndev)
+    cap = 1 << max(0, share - 1).bit_length()
+    ctx.per_dev = max(1, min(_device_batch(ctx.chunk_bytes, config.mem_level),
+                             cap))
+    ctx.bsz = ndev * ctx.per_dev
     ctx.max_dist = min(32768, 1 << config.window_bits)
-    if device.type == "cuda":
-        ctx.copy_stream = torch.cuda.Stream(device)
+    for dev in devices:
+        if dev.type == "cuda" and dev not in ctx.copy_streams:
+            ctx.copy_streams[dev] = torch.cuda.Stream(dev)
     return ctx
 
 
-def _dispatch_analyze(ctx: _Ctx, b0: int):
-    """Stage host rows for chunks [b0, b0+bsz) and queue analysis.
+def _parts(ctx: _Ctx):
+    """(device, first row, end row) of each device's rows of a batch."""
+    pd = ctx.per_dev
+    return [(dev, j * pd, (j + 1) * pd) for j, dev in enumerate(ctx.devices)]
 
-    Returns the slice, the analysis, the wait for its freqs and, at
+
+def _dispatch_analyze(ctx: _Ctx, b0: int):
+    """Stage host rows for chunks [b0, b0+bsz) and queue analysis, each
+    device on its own rows.
+
+    Returns the slice and, per device, its row range, analysis, the wait
+    for its freqs, the wait for its checksum partials (or None) and, at
     levels 7-9, what the DP reads on the host: the rows, their ends and
     the wait for the packed candidates (copied beside the freqs)."""
     b1 = min(b0 + ctx.bsz, ctx.nchunks)
@@ -181,31 +201,44 @@ def _dispatch_analyze(ctx: _Ctx, b0: int):
                 [window_starts, np.full((pad,), _WINDOW, np.int32)]
             )
         starts = np.full((ctx.bsz,), _WINDOW, dtype=np.int32)
-        dev = ctx.device
         host = [torch.as_tensor(a) for a in (buf, starts, valid_ends,
                                               window_starts)]
-        if dev.type == "cuda":
-            # Pinned staging: the upload does not wait for queued work.
-            host = [t.pin_memory() for t in host]
-        db = tuple(t.to(dev, non_blocking=True) for t in host)
-    with maybe_stage("analyze_dispatch", dev):
-        ana = deflate_encoder.analyze_chunks_batch(
-            *db, ctx.params, huffman_only=ctx.huffman_only,
-            strategy=ctx.config.strategy, max_dist=ctx.max_dist,
-        )
-    dp_in = None
-    if ctx.optimal:
-        dp_in = (buf, valid_ends, _fetch(ctx, ana["mm_packed"]))
-    return (b0, b1), ana, _fetch(ctx, ana["freqs"]), dp_in
+        uploads = []
+        for dev, r0, r1 in _parts(ctx):
+            rows = [t[r0:r1] for t in host]
+            if dev.type == "cuda":
+                # Pinned staging: the upload does not wait for queued work.
+                rows = [t.pin_memory() for t in rows]
+                with torch.cuda.device(dev):
+                    rows = [t.to(dev, non_blocking=True) for t in rows]
+            uploads.append(rows)
+    parts = []
+    with maybe_stage("analyze_dispatch", ctx.devices):
+        for (dev, r0, r1), db in zip(_parts(ctx), uploads):
+            ana = deflate_encoder.analyze_chunks_batch(
+                *db, ctx.params, huffman_only=ctx.huffman_only,
+                strategy=ctx.config.strategy, max_dist=ctx.max_dist,
+                with_checksums=ctx.with_checksums,
+            )
+            dp_in = None
+            if ctx.optimal:
+                dp_in = (buf[r0:r1], valid_ends[r0:r1],
+                         _fetch(ctx, ana["mm_packed"]))
+            cks = _fetch(ctx, ana["cks"]) if ctx.with_checksums else None
+            parts.append((dev, r0, r1, ana, _fetch(ctx, ana["freqs"]), cks,
+                          dp_in))
+    return (b0, b1), parts
 
 
-def _plan_and_emit(ctx: _Ctx, sl, ana, freqs_wait, dp_in):
-    """Take the small freqs, build tables on the host (at levels 7-9
-    re-parse with the C DP and rebuild them), queue the emit. The
-    per-position analysis arrays are dropped afterwards."""
+def _plan_and_emit(ctx: _Ctx, sl, parts):
+    """Take the small freqs of every device, build tables on the host (at
+    levels 7-9 re-parse with the C DP and rebuild them), queue each
+    device's emit of its own rows. The per-position analysis arrays are
+    dropped afterwards."""
     b0, b1 = sl
     with maybe_stage("analyze_fetch_freqs"):
-        freqs = freqs_wait()  # (bsz, SB, 288 + 30)
+        # (bsz, SB, 288 + 30), rows in device order.
+        freqs = np.concatenate([p[4]() for p in parts])
         freq_ll = freqs[..., :288]
         freq_d = freqs[..., 288:]
     with maybe_stage("host_plan"):
@@ -217,49 +250,76 @@ def _plan_and_emit(ctx: _Ctx, sl, ana, freqs_wait, dp_in):
             )
             for j in range(ctx.bsz)
         ]
-    ntok = int(freq_ll.sum(axis=(1, 2)).max())
-    if dp_in is not None:
-        buf, valid_ends, mm_wait = dp_in
-        with maybe_stage("optimal_parse", ctx.device):
-            override, ntok = policy.optimal_override(
-                ctx, plans, ana, mm_wait(), buf, valid_ends, b0,
-            )
-            ana = dict(ana, **override)
-    tables = interop.plan_stack(plans, ctx.device)
+    ntok_rows = freq_ll.sum(axis=(1, 2))
     kbm = policy.keep_bits_budget(ctx, b0, b1)
-
-    # Token-compacted emit when every chunk's committed token count (the
-    # lazy parse's, or the DP's own) fits the static budget;
-    # barely-compressible batches take full width.
+    # Token-compacted emit when every committed token count of a device's
+    # rows (the lazy parse's, or the DP's own) fits the static budget;
+    # barely-compressible rows take full width. Each device compacts its
+    # own rows only, so no word crosses devices.
     budget = deflate_encoder.token_budget(ctx.chunk_bytes)
-    tok_slots = budget if ntok <= budget else 0
-    with maybe_stage("emit_dispatch", ctx.device):
-        res = deflate_encoder.emit_chunks_batch(
-            ana, ctx.out_words,
-            tables["ll_len"], tables["ll_code"], tables["d_len"],
-            tables["d_code"], tables["hdr_vals"], tables["hdr_nbits"],
-            tables["eob_v"], tables["eob_nb"],
-            keep_bits_max=torch.as_tensor(kbm).to(ctx.device),
-            with_anchors=ctx.with_anchors,
-            token_slots=tok_slots,
-        )
-    emitted = None
-    if ctx.device.type == "cuda":
-        emitted = torch.cuda.Event()
-        emitted.record()
-    return sl, plans, res, kbm, emitted
+    emits = []
+    for dev, r0, r1, ana, _, cks, dp_in in parts:
+        ntok = int(ntok_rows[r0:r1].max())
+        if dp_in is not None:
+            buf, valid_ends, mm_wait = dp_in
+            with maybe_stage("optimal_parse", dev):
+                sub = plans[r0:r1]
+                override, ntok = policy.optimal_override(
+                    ctx, sub, ana, mm_wait(), buf, valid_ends, b0 + r0,
+                )
+                plans[r0:r1] = sub
+                ana = dict(ana, **override)
+        tables = interop.plan_stack(plans[r0:r1], dev)
+        tok_slots = budget if ntok <= budget else 0
+        with maybe_stage("emit_dispatch", dev):
+            res = deflate_encoder.emit_chunks_batch(
+                ana, ctx.out_words,
+                tables["ll_len"], tables["ll_code"], tables["d_len"],
+                tables["d_code"], tables["hdr_vals"], tables["hdr_nbits"],
+                tables["eob_v"], tables["eob_nb"],
+                keep_bits_max=torch.as_tensor(kbm[r0:r1]).to(dev),
+                with_anchors=ctx.with_anchors,
+                token_slots=tok_slots,
+            )
+        emitted = None
+        if dev.type == "cuda":
+            # On this device's stream, not the calling thread's device.
+            emitted = torch.cuda.Event()
+            emitted.record(torch.cuda.current_stream(dev))
+        emits.append((res, kbm[r0:r1], emitted, cks))
+    return sl, plans, emits
 
 
-def _finish(ctx: _Ctx, sl, plans, res, kbm, emitted):
-    """Fetch the finished batch and assemble its segments in order."""
+def _fetch_words(ctx: _Ctx, res, kbm, emitted):
+    """One device's finished rows: its packed metadata first (one copy:
+    bit counts, sub-block offsets, anchors), then exactly the used words
+    of its rows. Returns (meta, per-row word arrays)."""
+    meta = _fetch(ctx, res["meta"], emitted)()
+    nbits_np = meta[:, 0]
+    # Per-chunk word counts by the rule the device used.
+    cnt_np = ((nbits_np.astype(np.int64) + 3 + 31) // 32)
+    cnt_np = np.where(nbits_np <= kbm, cnt_np, 0)
+    w_off = np.concatenate([[0], np.cumsum(cnt_np)])
+    flat_np = _fetch(
+        ctx, res["flat_words"][: int(w_off[-1])], emitted
+    )().view("<u4")
+    return meta, [flat_np[w_off[j] : w_off[j + 1]] for j in range(len(meta))]
+
+
+def _finish(ctx: _Ctx, sl, plans, emits):
+    """Fetch the finished batch, device by device, and assemble its
+    segments (and checksum partials) in chunk order."""
     out = ctx.results
     b0, b1 = sl
-    # The packed metadata first (one copy: bit counts, sub-block offsets,
-    # anchors), then exactly the used words of the whole batch.
     with maybe_stage("emit_fetch"):
-        sbw = res["sb_bits"].shape[1]
-        aw = res["anc_bit"].shape[1]
-        meta = _fetch(ctx, res["meta"], emitted)()
+        metas, words = [], []
+        for res, kbm, emitted, _ in emits:
+            meta, w = _fetch_words(ctx, res, kbm, emitted)
+            metas.append(meta)
+            words += w
+        meta = np.concatenate(metas)
+        sbw = emits[0][0]["sb_bits"].shape[1]
+        aw = emits[0][0]["anc_bit"].shape[1]
         nbits_np = meta[:, 0]
         sb_bits_np = meta[:, 1 : 1 + sbw]
         sb_out_np = meta[:, 1 + sbw : 1 + 2 * sbw]
@@ -269,20 +329,17 @@ def _finish(ctx: _Ctx, sl, plans, res, kbm, emitted):
             policy.host_keep(ctx, b0 + j, int(nbits_np[j]))
             for j in range(b1 - b0)
         ]
-        # Per-chunk word counts by the rule the device used.
-        cnt_np = ((nbits_np.astype(np.int64) + 3 + 31) // 32)
-        cnt_np = np.where(nbits_np <= kbm, cnt_np, 0)
-        w_off = np.concatenate([[0], np.cumsum(cnt_np)])
-        flat_np = _fetch(
-            ctx, res["flat_words"][: int(w_off[-1])], emitted
-        )().view("<u4")
+        if ctx.with_checksums:
+            # (bsz, 2) int64: one copy per device; padded rows dropped.
+            cks = np.concatenate([e[3]() for e in emits])[: b1 - b0]
+            out["adler"].extend(int(x) for x in cks[:, 0])
+            out["crc"].extend(int(x) for x in cks[:, 1])
     with maybe_stage("stitch"):
         for j in range(b1 - b0):
             i = b0 + j
             nbits = int(nbits_np[j])
-            words = flat_np[w_off[j] : w_off[j + 1]]
             out["segments"].append(
-                policy.assemble_chunk(ctx, i, nbits, words, keep[j])
+                policy.assemble_chunk(ctx, i, nbits, words[j], keep[j])
             )
             if not ctx.frame or not keep[j]:
                 # Unframed segments carry no index; a stored fallback's
@@ -300,22 +357,43 @@ def _finish(ctx: _Ctx, sl, plans, res, kbm, emitted):
 
 
 def encode_segments(data: bytes, config, dictionary: bytes | None,
-                    device: torch.device, stream_final: bool = True,
+                    devices: list, stream_final: bool = True,
                     frame: bool = True, with_anchors: bool = False,
-                    halo: bool = True) -> dict:
+                    halo: bool = True, with_checksums: bool = False) -> dict:
     """Deflate payload as byte-aligned per-chunk segments, each
     sync-flush framed except the final one. Returns {"segments",
-    "blocks", "anchors"}, one entry per chunk.
+    "blocks", "anchors", "adler", "crc"}, one entry per chunk ("adler"
+    and "crc" are None unless with_checksums).
 
     stream_final=False leaves the stream open: the last chunk is framed
     like the others (BFINAL 0, sync-flush marker, the non-final stored
     rule). frame=False returns unframed (bytes, nbits) segments with no
     sync marker, no stored fallback and no index rows, the last byte
     possibly partial, for callers that join them at bit granularity (the
-    stream layer's Z_BLOCK)."""
+    stream layer's Z_BLOCK).
+
+    devices is the mesh, a list of torch.device, each CUDA one with its
+    index (api._resolve_device, parallel.make_mesh); it may name one
+    device more than once, and one device stands for [device]. Every
+    batch has len(devices) x per_dev rows, and rows [j*per_dev,
+    (j+1)*per_dev) run on devices[j]: upload, analyze, emit and copies.
+    The bytes do not depend on the layout at chunk_bytes >= 32 KiB.
+    Below that a chunk's halo reaches back past the previous chunk and is
+    cut at a batch's first row (as in the reference), so moving the batch
+    boundaries moves matches; the stream still decodes. with_checksums
+    computes each chunk's Adler-32 and CRC-32 on its device during
+    analyze and returns them in chunk order, for container trailers that
+    never read the input again."""
+    if isinstance(devices, (str, torch.device)):
+        devices = [devices]
+    devices = [torch.device(d) for d in devices]
     ctx = _make_ctx(data, config, dictionary, stream_final, frame,
-                    with_anchors, halo, device)
-    ctx.results = {"segments": [], "blocks": [], "anchors": []}
+                    with_anchors, halo, devices, with_checksums)
+    ctx.results = {
+        "segments": [], "blocks": [], "anchors": [],
+        "adler": [] if with_checksums else None,
+        "crc": [] if with_checksums else None,
+    }
 
     a_q: collections.deque = collections.deque()
     e_q: collections.deque = collections.deque()

@@ -115,9 +115,9 @@ def optimal_override(ctx, plans, ana, mm_packed, buf, valid_ends, b0: int):
     mm_packed, buf, valid_ends: the batch's host (B, N) int32 candidates
     (mlen << 16 | mdist), (B, N) uint8 rows and (B,) ends. Every row is
     parsed, padded ones too (they are empty). Replaces `plans` in place;
-    returns the emit's override arrays on ctx.device (committed,
-    is_match, litlen_sym, lcode, mlen = the DP's length; the analysis'
-    own dcode and mdist) and the largest committed-token count of a row.
+    returns the emit's override arrays (committed, is_match, litlen_sym,
+    lcode, mlen = the DP's length; the analysis' own dcode and mdist) on
+    the analysis' device and the largest committed-token count of a row.
     Port of ``zzflate_tpu/encode_policy.py:102-186``."""
     bsz, nn = buf.shape
     mlen = mm_packed >> 16
@@ -155,12 +155,14 @@ def optimal_override(ctx, plans, ana, mm_packed, buf, valid_ends, b0: int):
             fixed_only=ctx.fixed_only,
         )
 
+    dev = ana["dcode"].device
+
     def up(a):
         t = torch.as_tensor(a)
-        if ctx.device.type == "cuda":
+        if dev.type == "cuda":
             # Pinned staging: the upload does not wait for queued work.
             t = t.pin_memory()
-        return t.to(ctx.device, non_blocking=True)
+        return t.to(dev, non_blocking=True)
 
     override = {
         "committed": up(com_b),

@@ -17,7 +17,7 @@ from __future__ import annotations
 import torch
 
 from zzflate_tpu_torch import constants as C
-from zzflate_tpu_torch.ops import bitpack, huffman, matcher
+from zzflate_tpu_torch.ops import bitpack, checksums, huffman, matcher
 from zzflate_tpu_torch.ops.canonical import _dist_extra_base, _len_extra_base
 
 U32 = bitpack.U32
@@ -95,7 +95,7 @@ def output_words_bound(chunk_bytes: int) -> int:
 
 def analyze_chunks_batch(data, starts, valid_ends, window_starts, params,
                          huffman_only: bool = False, strategy: int = 0,
-                         max_dist: int = 32768):
+                         max_dist: int = 32768, with_checksums: bool = False):
     """Match + parse + sub-block histograms on a (B, N) uint8 batch.
 
     strategy follows zlib.h:196-200: 2=HUFFMAN_ONLY (no matches, via
@@ -104,7 +104,10 @@ def analyze_chunks_batch(data, starts, valid_ends, window_starts, params,
     windowBits by dropping far matches. Returns the reference's dict:
     freq_ll (B, SB, 288), freq_d (B, SB, 30), freqs (both, packed), and
     the (B, N) committed, is_match, litlen_sym, lcode, dcode, mlen, mdist,
-    and at levels 7-9 mm_packed = mlen << 16 | mdist.
+    and at levels 7-9 mm_packed = mlen << 16 | mdist. with_checksums
+    adds each row's Adler-32 and CRC-32 over [starts, valid_ends) (the
+    chunk's own bytes, not its dictionary or halo prefix) as (B,) int64
+    "adler" and "crc", and both packed as "cks" (B, 2) for one copy.
     """
     bch, n = data.shape
     if huffman_only:
@@ -164,6 +167,10 @@ def analyze_chunks_batch(data, starts, valid_ends, window_starts, params,
         # The host optimal-parse DP (levels 7-9) reads the candidates:
         # (mlen, mdist <= 32768) packed into one int32, one copy.
         out["mm_packed"] = (mlen << 16) | mdist
+    if with_checksums:
+        out["adler"] = checksums.adler32_rows(data, valid_ends, starts)
+        out["crc"] = checksums.crc32_rows(data, valid_ends, starts)
+        out["cks"] = torch.stack([out["adler"], out["crc"]], dim=1)
     return out
 
 

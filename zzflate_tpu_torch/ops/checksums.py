@@ -3,9 +3,11 @@ math that stitches partials.
 
 The port's own copy of ``zzflate_tpu/ops/checksums.py``. The host
 combines stitch per-shard or per-group partials in order
-(``utils/resume``, ``models/inflate_device``). ``crc32`` and ``adler32``
-run on the tensor's own device: device decode verifies every group's
-CRC-32 on the card, and only 4 bytes of it come back. Whole-buffer
+(``utils/resume``, ``models/inflate_device``, ``parallel``). ``crc32``
+and ``adler32`` run on the tensor's own device: device decode verifies
+every group's CRC-32 on the card, and only 4 bytes of it come back.
+``crc32_rows`` and ``adler32_rows`` give one checksum per row of a
+batch, every row at once: the encode's per-chunk partials. Whole-buffer
 containers use the stdlib ``zlib`` checksums, the stream layer the C
 runtime's.
 
@@ -22,6 +24,7 @@ shifts and comparisons on the CPU.
 from __future__ import annotations
 
 import functools
+import zlib
 
 import numpy as np
 import torch
@@ -189,8 +192,26 @@ def _crc_table_on(device: torch.device) -> torch.Tensor:
     return torch.from_numpy(CRC_TABLE.astype(np.int64)).to(device)
 
 
+def _crc_tree(c: torch.Tensor) -> torch.Tensor:
+    """Tree-combine per-byte CRC contributions along the last axis:
+    c(L||R) = A^len(R) c(L) ^ c(R), with len(R) = 2^j at level j. An odd
+    level prepends an all-zero segment on the left, where leading zeros
+    are transparent to the zero-init contribution, so the result is the
+    contribution of the whole width for any width."""
+    dev = c.device
+    level = 0
+    while c.shape[-1] > 1:
+        if c.shape[-1] % 2:
+            c = torch.cat([c.new_zeros(c.shape[:-1] + (1,)), c], dim=-1)
+        c = (_gf_matvec_batch(_tables_on("fwd", level, dev), c[..., 0::2])
+             ^ c[..., 1::2])
+        level += 1
+    return c[..., 0]
+
+
 def _crc32_impl(data: torch.Tensor, length: int, start: int = 0):
-    """CRC-32 of data[start:length]; data is uint8 of a power-of-two size.
+    """CRC-32 of data[start:length]; data is uint8 (a power-of-two size
+    keeps the tree's levels even).
 
     Leading zeros are transparent to the zero-init contribution (T[0]==0
     and A(0)==0); only the init fold needs the true length. The length
@@ -199,20 +220,10 @@ def _crc32_impl(data: torch.Tensor, length: int, start: int = 0):
     A^len(0xFFFFFFFF) is a host constant: the values are the reference's,
     which selects with a where() on every bit."""
     dev = data.device
-    n_pad = data.shape[0]
-    idx = torch.arange(n_pad, device=dev)
+    idx = torch.arange(data.shape[0], device=dev)
     x = torch.where((idx >= start) & (idx < length), data.long(), 0)
-    c = _crc_table_on(dev)[x]
-    level = 0
-    eff_total = n_pad
-    while c.shape[0] > 1:
-        if c.shape[0] % 2:
-            c = torch.cat([c, c.new_zeros(1)])
-            eff_total += 1 << level
-        c = _gf_matvec_batch(_tables_on("fwd", level, dev), c[0::2]) ^ c[1::2]
-        level += 1
-    c_true = c[0]
-    pad = (eff_total - length) & _M32
+    c_true = _crc_tree(_crc_table_on(dev)[x])
+    pad = (data.shape[0] - length) & _M32
     for j in range(_MAX_LOG):
         if (pad >> j) & 1:
             c_true = _gf_matvec_batch(_tables_on("inv", j, dev), c_true)
@@ -233,6 +244,46 @@ def crc32(data: torch.Tensor, length: int | None = None, start: int = 0):
     return _crc32_impl(data, int(length), int(start))
 
 
+def _adler_tree(x: torch.Tensor, block: int):
+    """S/W partials of (..., n_pad) int64 bytes, n_pad a multiple of
+    block, tree-combined along the last axis. At each level pairs of
+    equal-length segments merge; odd levels append an implicit all-zero
+    segment, so the effective padded length `seg` grows past n_pad and
+    the caller's right-padding correction uses it. Returns (S, W_pad,
+    seg), S and W mod 65521."""
+    m = ADLER_MOD
+    x = x.reshape(x.shape[:-1] + (-1, block))
+    weights = block - torch.arange(block, device=x.device)
+    s = x.sum(-1) % m
+    w = (x * weights).sum(-1) % m
+    seg = block
+    while s.shape[-1] > 1:
+        if s.shape[-1] % 2:
+            zero = s.new_zeros(s.shape[:-1] + (1,))
+            s = torch.cat([s, zero], dim=-1)
+            w = torch.cat([w, zero], dim=-1)
+        sl, sr = s[..., 0::2], s[..., 1::2]
+        wl, wr = w[..., 0::2], w[..., 1::2]
+        w = (wl + (((seg % m) * sl) % m) + wr) % m
+        s = (sl + sr) % m
+        seg *= 2
+    return s[..., 0], w[..., 0], seg
+
+
+def _adler_finish(s_total, w_pad, seg: int, length, start):
+    """Adler-32 from the tree's partials: right-padding correction
+    (padded zero bytes inflate every weight by seg - length, so W_true =
+    W_pad - pad*S mod m) and the n term. length and start are host ints
+    or (B,) int64 tensors."""
+    m = ADLER_MOD
+    pad = ((seg - length) & _M32) % m
+    w_true = (w_pad + ((m - pad) % m) * s_total % m) % m
+    n_mod = ((length - start) & _M32) % m
+    s1 = (1 + s_total) % m
+    s2 = (n_mod + w_true) % m
+    return (s2 << 16) | s1
+
+
 def _adler32_impl(data: torch.Tensor, length: int, start: int = 0,
                   block: int = _BLOCK):
     """Adler-32 of data[start:length]; data is uint8, a multiple of block.
@@ -240,38 +291,11 @@ def _adler32_impl(data: torch.Tensor, length: int, start: int = 0,
     Leading zeros are transparent to the S/W partials (x=0 contributes
     nothing, and W's weight (length - i) equals the in-chunk weight), so
     only the final n term needs the true chunk length."""
-    dev = data.device
-    n_pad = data.shape[0]
-    assert n_pad % block == 0
-    m = ADLER_MOD
-    idx = torch.arange(n_pad, device=dev)
+    assert data.shape[0] % block == 0
+    idx = torch.arange(data.shape[0], device=data.device)
     x = torch.where((idx >= start) & (idx < length), data.long(), 0)
-    x = x.reshape(-1, block)
-    weights = (block - torch.arange(block, device=dev)).reshape(1, block)
-    s = x.sum(1) % m
-    w = (x * weights).sum(1) % m
-    seg = block
-    # Tree combine: at each level pairs of equal-length segments merge.
-    # Odd levels append an implicit all-zero segment, growing the
-    # effective padded length; track it so the final correction is exact.
-    while s.shape[0] > 1:
-        if s.shape[0] % 2:
-            s = torch.cat([s, s.new_zeros(1)])
-            w = torch.cat([w, w.new_zeros(1)])
-        sl, sr = s[0::2], s[1::2]
-        wl, wr = w[0::2], w[1::2]
-        w = (wl + (((seg % m) * sl) % m) + wr) % m
-        s = (sl + sr) % m
-        seg *= 2
-    s_total, w_pad = s[0], w[0]
-    # Right-padding correction: padded zero bytes inflate every weight by
-    # (seg - length); W_true = W_pad - pad*S (mod m).
-    pad = ((seg - length) & _M32) % m
-    w_true = (w_pad + ((m - pad) % m) * s_total % m) % m
-    n_mod = ((length - start) & _M32) % m
-    s1 = (1 + s_total) % m
-    s2 = (n_mod + w_true) % m
-    return (s2 << 16) | s1
+    s_total, w_pad, seg = _adler_tree(x, block)
+    return _adler_finish(s_total, w_pad, seg, length, start)
 
 
 def adler32(data: torch.Tensor, length: int | None = None, start: int = 0):
@@ -285,3 +309,69 @@ def adler32(data: torch.Tensor, length: int | None = None, start: int = 0):
     if n_pad != n:
         data = torch.cat([data, data.new_zeros(n_pad - n)])
     return _adler32_impl(data, int(length), int(start))
+
+
+# ---------------------------------------------------------------------------
+# Per-row partials: one checksum per row of a (B, N) batch, every row at
+# once (the reference's _adler32_impl/_crc32_impl under jax.vmap).
+# ---------------------------------------------------------------------------
+
+
+def _row_window(data: torch.Tensor, ends, starts):
+    """(B, N) uint8 and per-row [start, end) -> int64 bytes with the rest
+    zeroed, and the bounds as (B,) int64 on the data's device."""
+    dev = data.device
+    ends = torch.as_tensor(ends, device=dev).long()
+    starts = torch.as_tensor(starts, device=dev).long()
+    idx = torch.arange(data.shape[1], device=dev)[None, :]
+    keep = (idx >= starts[:, None]) & (idx < ends[:, None])
+    return torch.where(keep, data.long(), 0), ends, starts
+
+
+@functools.cache
+def _short_init_on(device: torch.device) -> torch.Tensor:
+    """(5,) int64: for a range of L < 4 bytes, what its init fold
+    A^L(0xFFFFFFFF) differs by from the zero-init contribution of 0xFF
+    in its first L bytes (crc32(b"\xff" * L) ^ 0xFFFFFFFF); 0 for L >= 4,
+    where the two are equal."""
+    vals = [zlib.crc32(b"\xff" * k) ^ _M32 for k in range(4)] + [0]
+    return torch.tensor(vals, dtype=torch.int64, device=device)
+
+
+def crc32_rows(data: torch.Tensor, ends, starts) -> torch.Tensor:
+    """CRC-32 of data[b, starts[b]:ends[b]] for every row b of a (B, N)
+    uint8 tensor (0 <= start <= end <= N; any N), on the data's device.
+    Returns (B,) int64 holding u32 values; an empty range gives 0.
+
+    Each row is shifted so its range ends at the last column: the tree's
+    zero padding is all on the left, where it is transparent, so no row
+    needs the reference's per-bit right-padding correction. The init
+    0xFFFFFFFF contributes A^len(0xFFFFFFFF), which equals 0xFF XORed
+    into the range's first 4 bytes (for len >= 4; shorter ranges take a
+    constant from a table): no per-bit init fold either."""
+    bch, n = data.shape
+    if n == 0:
+        data = data.new_zeros((bch, 1))
+        n = 1
+    x, ends, starts = _row_window(data, ends, starts)
+    idx = torch.arange(n, device=x.device)[None, :]
+    head = torch.minimum(starts + 4, ends)[:, None]
+    x = torch.where((idx >= starts[:, None]) & (idx < head), x ^ 0xFF, x)
+    src = idx - (n - ends)[:, None]
+    x = torch.where(src >= 0, x.gather(1, src.clamp(min=0)), 0)
+    c = _crc_tree(_crc_table_on(x.device)[x])
+    short = _short_init_on(x.device)[(ends - starts).clamp(max=4)]
+    return c ^ short ^ _M32
+
+
+def adler32_rows(data: torch.Tensor, ends, starts) -> torch.Tensor:
+    """Adler-32 of data[b, starts[b]:ends[b]] for every row b of a (B, N)
+    uint8 tensor (0 <= start <= end <= N), on the data's device. Returns
+    (B,) int64 holding u32 values; an empty range gives 1."""
+    bch, n = data.shape
+    n_pad = max(_BLOCK, -(-n // _BLOCK) * _BLOCK)
+    if n_pad != n:
+        data = torch.cat([data, data.new_zeros((bch, n_pad - n))], dim=1)
+    x, ends, starts = _row_window(data, ends, starts)
+    s_total, w_pad, seg = _adler_tree(x, _BLOCK)
+    return _adler_finish(s_total, w_pad, seg, ends, starts)

@@ -118,7 +118,7 @@ class Compressor:
             )
         else:
             out = b"".join(encode_segments(
-                payload, self.config, self._window or None, self._device,
+                payload, self.config, self._window or None, [self._device],
                 stream_final=final,
             )["segments"])
         self._window = (self._window + payload)[-_WINDOW:]
@@ -175,7 +175,7 @@ class Compressor:
         dev = self._device or _resolve_device(self._device_arg)
         out = bytearray()
         for seg, nbits in encode_segments(
-            payload, self.config, self._window or None, dev,
+            payload, self.config, self._window or None, [dev],
             stream_final=final, frame=False,
         )["segments"]:
             out += self._emit_bits(seg, nbits)

@@ -1,10 +1,11 @@
-"""Per-stage wall times of the encode pipeline.
+"""Per-stage wall times of the encode pipeline, traces, and run reports.
 
-Port of ``zzflate_tpu/utils/profiling.py:58-80`` (``collect``,
-``maybe_stage``, ``StageTimer``). Eager CUDA returns before the device
-finishes, so a stage on a CUDA device synchronises that device before
-it stops its timer. The synchronisation happens only while a collector
-is active; with none, ``maybe_stage`` costs nothing.
+Port of ``zzflate_tpu/utils/profiling.py`` (``trace``, ``collect``,
+``maybe_stage``, ``StageTimer``, ``run_report``). Eager CUDA returns
+before the device finishes, so a stage on CUDA devices synchronises
+each of them before it stops its timer. The synchronisation happens
+only while a collector is active; with none, ``maybe_stage`` costs
+nothing.
 
     with profiling.collect() as t:
         zzflate_tpu_torch.compress(data)
@@ -13,12 +14,31 @@ is active; with none, ``maybe_stage`` costs nothing.
 from __future__ import annotations
 
 import contextlib
+import json
+import os
 import threading
 import time
 
 import torch
 
 _current: "StageTimer | None" = None
+
+
+@contextlib.contextmanager
+def trace(logdir: str):
+    """Profile a region (host and CUDA activity) and write a gzipped
+    Chrome trace into `logdir` (view with Perfetto or chrome://tracing);
+    yields the profiler, whose key_averages() the caller may read."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    with profile(activities=acts) as prof:
+        yield prof
+    name = f"trace_{os.getpid()}_{time.time_ns()}.json.gz"
+    prof.export_chrome_trace(os.path.join(logdir, name))
 
 
 @contextlib.contextmanager
@@ -34,8 +54,9 @@ def collect():
 
 
 @contextlib.contextmanager
-def maybe_stage(name: str, device: torch.device | None = None):
-    """Record a stage on the active collector, if any."""
+def maybe_stage(name: str, device=None):
+    """Record a stage on the active collector, if any. `device` is a
+    torch.device or a list of them (a mesh may name one twice)."""
     t = _current
     if t is None:
         yield
@@ -44,17 +65,26 @@ def maybe_stage(name: str, device: torch.device | None = None):
             yield
 
 
+def _cuda_devices(device) -> list[torch.device]:
+    devs = device if isinstance(device, (list, tuple)) else [device]
+    out = []
+    for d in devs:
+        if d is not None and d.type == "cuda" and d not in out:
+            out.append(d)
+    return out
+
+
 class StageTimer:
     def __init__(self):
         self.stages: dict[str, float] = {}
         self._lock = threading.Lock()  # stages run on two threads
 
     @contextlib.contextmanager
-    def stage(self, name: str, device: torch.device | None = None):
+    def stage(self, name: str, device=None):
         t0 = time.perf_counter()
         yield
-        if device is not None and device.type == "cuda":
-            torch.cuda.synchronize(device)
+        for d in _cuda_devices(device):
+            torch.cuda.synchronize(d)
         dt = time.perf_counter() - t0
         with self._lock:
             self.stages[name] = self.stages.get(name, 0.0) + dt
@@ -62,3 +92,27 @@ class StageTimer:
     def as_ms(self) -> dict[str, float]:
         with self._lock:
             return {k: v * 1e3 for k, v in self.stages.items()}
+
+
+def run_report(op: str, bytes_in: int, bytes_out: int, seconds: float,
+               stages: StageTimer | None = None, **extra) -> str:
+    """One run as a JSON line with the reference's keys: op, device,
+    n_devices, bytes in and out, ratio, seconds, MBps, stages_ms."""
+    if torch.cuda.is_available():
+        device, n_devices = torch.cuda.get_device_name(), torch.cuda.device_count()
+    else:
+        device, n_devices = "cpu", 1
+    rep = {
+        "op": op,
+        "device": device,
+        "n_devices": n_devices,
+        "bytes_in": bytes_in,
+        "bytes_out": bytes_out,
+        "ratio": round(bytes_in / max(1, bytes_out), 4),
+        "seconds": round(seconds, 4),
+        "MBps": round(bytes_in / 1e6 / max(seconds, 1e-9), 2),
+    }
+    if stages is not None:
+        rep["stages_ms"] = {k: round(v, 2) for k, v in stages.as_ms().items()}
+    rep.update(extra)
+    return json.dumps(rep)

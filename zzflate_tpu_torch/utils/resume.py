@@ -70,7 +70,7 @@ def compress_to_dir(
         if key in manifest["shards"] and os.path.exists(_shard_path(outdir, i)):
             continue
         shard = data[i * shard_bytes : (i + 1) * shard_bytes]
-        res = encode_segments(shard, config, None, dev, stream_final=False)
+        res = encode_segments(shard, config, None, [dev], stream_final=False)
         seg = b"".join(res["segments"])
         with open(_shard_path(outdir, i), "wb") as f:
             f.write(seg)
