@@ -66,11 +66,15 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    with to_device=True to a CUDA tensor equal to the input, as an
    indexed stream (whose index drops its anchors at that size, so the
    per-bit path runs, once) and as a stdlib gzip stream (the walk). The
-   walk kernel equals its plain version exactly on the indexed run's
-   first group and on a seeded input with invalid windows and lanes
-   past the output's end, and its time per launch is printed with its
-   bound and share and beside the time of its first lane alone (the
-   serial chain); a v2 index (per-bit path, no walk) decodes, with
+   walk kernel equals its plain version exactly on the first group of
+   the indexed run and of the gzip run (at FOREIGN_ANCHOR_TOKENS) and on
+   two seeded inputs (invalid windows, the fixed code's reserved
+   symbols, an incomplete code's windows past the tree and distances 30
+   and 31, lanes past the body and past the output's end). For every
+   launch of those two runs: its time with its bound and share, its
+   lanes, blocks (each on one SM) and the units a block spans, and its
+   first lane alone at t_steps and at half of it, which give ns a step
+   and the chain floor. A v2 index (per-bit path, no walk) decodes, with
    its commit sweeps' launches and time.
 
 7. parallel: a seeded 64 MiB corpus at L6 gzip, 256 KiB chunks (256
@@ -725,13 +729,18 @@ def phase_reference(torch, zt, data, corpus):
         f"{digest} == REF_SHA256_STREAM_4K")
 
 
-# Integer operations of one token in csrc/walk.cu, counted from its
-# source: the window (8), the bit reversal (2), the canonical symbol (15
-# compares, 15 adds, 6 more) and the tests and emit (12) for a literal;
-# a match adds its length (16), the distance's window, reversal and
-# symbol (40) and its value and the advance (20).
-WALK_OPS_LITERAL = 60
-WALK_OPS_MATCH = 136
+# Integer operations of one token of the walk, counted from the step of
+# csrc/walk.cu (its table path), each kind by the operations its result
+# needs. A literal: the window's first word (1), the table lookup (2),
+# the stop test (2), its code length and value (4), the emit (5: the
+# value, the range test, atomicMax), the output and bit advance and the
+# window's move (16: the offsets, the word delta and base, three word
+# selects, the next word's load). A match adds the window's second word (1), the distance lookup
+# and its test (7), the length's and distance's fields and extra bits
+# (19), the longer advance (3) and a second word's load (3). The step is
+# branch-free, so it issues the match's count for either kind.
+WALK_OPS_LITERAL = 30
+WALK_OPS_MATCH = 63
 
 
 def to_v2(blob: bytes, containers) -> bytes:
@@ -795,30 +804,96 @@ def walk_bound(args, after):
             "matches": matches}
 
 
-def hostile_walk_input(torch, args, seed: int):
-    """A real launch's tables with seeded words (half real code, half
-    random: invalid windows), lanes at random bits, a fifth of them past
-    the output's end, some with a unit id out of range, some invalid."""
+def hostile_walk_input(torch, idv, args, seed: int):
+    """A real launch's tables plus idv._with_edge_units' two (the
+    reserved litlen symbols 286 and 287, windows past the tree, the
+    distance symbols 30 and 31), seeded words (half real code, half
+    random: invalid windows), lanes at random bits, a tenth of them past
+    the body's last word, a fifth past the output's end, some with a unit
+    id out of range, some invalid."""
     words, ll, d, lanes, packed0, t_steps = args
     g = torch.Generator(device="cuda").manual_seed(seed)
     nw = words.shape[0]
     n = 4096
     npad = packed0.shape[0]
+    ll, d = idv._with_edge_units(ll, d)
     u = ll[0].shape[0]
 
     def ri(lo, hi, k=n):
         return torch.randint(lo, hi, (k,), generator=g, device="cuda",
                              dtype=torch.int32)
 
+    def coin(p):
+        return torch.rand((n,), generator=g, device="cuda") < p
+
     w = torch.randint(-(1 << 31), 1 << 31, (nw,), generator=g, device="cuda",
                       dtype=torch.int64).int()
     w[: nw // 2] = words[: nw // 2]
-    far = torch.rand((n,), generator=g, device="cuda") < 0.2
-    lanes = (ri(0, 32 * nw), torch.where(far, ri(npad - 50, npad + 500),
-                                         ri(0, npad)).int(),
-             ri(-2, u + 3), (torch.rand((n,), generator=g, device="cuda")
-                             < 0.9).int())
+    lanes = (torch.where(coin(0.1), ri(32 * nw - 40, 32 * nw + 4000),
+                         ri(0, 32 * nw)).int(),
+             torch.where(coin(0.2), ri(npad - 50, npad + 500),
+                         ri(0, npad)).int(),
+             torch.where(coin(0.5), ri(u - 2, u), ri(-2, u + 3)).int(),
+             coin(0.9).int())
     return (w, ll, d, lanes, packed0, t_steps)
+
+
+def walk_launch_report(torch, kernels, timer, args, label: str) -> dict:
+    """One real walk launch: its time, bound and share; its lanes, blocks
+    and the units a block spans; its first lane alone at t_steps and at about half of it
+    (tokens and time), whose difference gives the time of one step and
+    the chain floor t_steps x that."""
+    words, ll, d, lanes, packed0, t_steps = args
+    scratch = packed0.clone()
+    ms = timer.kernel_ms(lambda: kernels.anchor_walk(
+        words, ll, d, lanes, scratch, t_steps))
+    after = kernels.anchor_walk(words, ll, d, lanes, packed0.clone(),
+                                t_steps)
+    b = walk_bound(args, after)
+    live = (lanes[3] != 0).cpu().numpy()
+    uid = lanes[2].cpu().numpy()
+    wt = kernels.WALK_THREADS
+    spans = [len(set(uid[i : i + wt][live[i : i + wt]].tolist()))
+             for i in range(0, len(uid), wt)]
+    spans = [x for x in spans if x]
+    solo = {}
+    one = tuple(t[:1] for t in lanes)
+    for steps in (t_steps, t_steps // 2 + 1):
+        out = packed0.clone()
+        ms1 = timer.kernel_ms(lambda: kernels.anchor_walk(
+            words, ll, d, one, out, steps))
+        solo[steps] = (ms1, int((out != packed0).sum().item()))
+    (full_ms, full_tok), (half_ms, half_tok) = solo.values()
+    step_ns = ((full_ms - half_ms) / max(1, full_tok - half_tok) * 1e6)
+    b.update(launch=label, ms=ms, share=b["bound_ms"] / ms,
+             blocks=len(spans),
+             units_per_block_max=max(spans),
+             units_per_block_mean=sum(spans) / len(spans),
+             t_steps=t_steps, one_lane_ms=full_ms, one_lane_tokens=full_tok,
+             half_lane_ms=half_ms, half_lane_tokens=half_tok,
+             step_ns=step_ns, chain_floor_ms=t_steps * step_ns * 1e-6)
+    log(f"  anchor_walk {label}: {b['lanes']} lanes in {b['blocks']} blocks "
+        f"of {wt}, units a block max {b['units_per_block_max']} mean "
+        f"{b['units_per_block_mean']:.2f}; {b['literals']} literals + "
+        f"{b['matches']} matches, t_steps {t_steps}: {ms:.4f} ms; bound "
+        f"{b['bound_ms'] * 1e3:.2f} us ({b['bound_by']}; bytes "
+        f"{b['bytes_ms'] * 1e3:.2f} us for {b['body_bytes']} B of body and "
+        f"{b['changed']} packed entries, ops {b['ops_ms'] * 1e3:.2f} us), "
+        f"share {b['share']:.4f}; first lane alone {full_ms:.4f} ms "
+        f"({full_tok} tokens), at t_steps {t_steps // 2 + 1} {half_ms:.4f} ms "
+        f"({half_tok} tokens): {step_ns:.1f} ns a step, chain floor "
+        f"{b['chain_floor_ms']:.4f} ms = {b['chain_floor_ms'] / ms:.3f} of "
+        f"the launch")
+    return b
+
+
+def foreign_walk_calls(kernels, idv, blob: bytes, fmt: str, want: bytes):
+    """Every anchor_walk call of one device decode of a foreign stream."""
+    calls: list = []
+    with walk_capture(kernels, calls):
+        if idv.decompress_foreign(blob, format=fmt) != want:
+            raise AssertionError("foreign decode: output differs")
+    return calls
 
 
 def phase_decode(torch, kernels, zt, profiling, timer, data, corpus):
@@ -994,9 +1069,14 @@ def phase_decode(torch, kernels, zt, profiling, timer, data, corpus):
     calls: list = []
     with walk_capture(kernels, calls):
         zt.decompress(indexed, format="gzip", engine="device")
+    fmt, gz = streams["gzip"]
+    fcalls = foreign_walk_calls(kernels, idv, gz, fmt, data)
+    if fcalls[0][5] != idv.FOREIGN_ANCHOR_TOKENS + 2:
+        raise AssertionError("foreign walk: t_steps is not the spacing + 2")
     checked, err, plain_ms = 0, 0, None
-    for args in (calls[0], hostile_walk_input(torch, calls[0], seed=3),
-                 hostile_walk_input(torch, calls[-1], seed=4)):
+    for args in (calls[0], fcalls[0],
+                 hostile_walk_input(torch, idv, calls[0], seed=3),
+                 hostile_walk_input(torch, idv, fcalls[0], seed=4)):
         words, ll, d, lanes, packed0, t_steps = args
         got = kernels.anchor_walk(words, ll, d, lanes, packed0.clone(),
                                   t_steps)
@@ -1014,37 +1094,20 @@ def phase_decode(torch, kernels, zt, profiling, timer, data, corpus):
         checked += 1
     if err:
         raise AssertionError(f"anchor_walk: kernel != plain (err {err})")
-    per_launch = []
-    for k, args in enumerate(calls):
-        words, ll, d, lanes, packed0, t_steps = args
-        scratch = packed0.clone()
-        ms = timer.kernel_ms(lambda: kernels.anchor_walk(
-            words, ll, d, lanes, scratch, t_steps))
-        after = kernels.anchor_walk(words, ll, d, lanes, packed0.clone(),
-                                    t_steps)
-        b = walk_bound(args, after)
-        # The serial chain, measured: the launch's first lane alone.
-        one = tuple(t[:1] for t in lanes)
-        solo = packed0.clone()
-        one_ms = timer.kernel_ms(lambda: kernels.anchor_walk(
-            words, ll, d, one, solo, t_steps))
-        b.update(group=k, ms=ms, share=b["bound_ms"] / ms,
-                 one_lane_ms=one_ms,
-                 one_lane_tokens=int((solo != packed0).sum().item()))
-        per_launch.append(b)
-        log(f"  anchor_walk group {k}: {b['lanes']} lanes, "
-            f"{b['literals']} literals + {b['matches']} matches, t_steps "
-            f"{t_steps}: {ms:.4f} ms; bound {b['bound_ms'] * 1e3:.2f} us "
-            f"({b['bound_by']}; bytes {b['bytes_ms'] * 1e3:.2f} us for "
-            f"{b['body_bytes']} B of body and {b['changed']} packed entries, "
-            f"ops {b['ops_ms'] * 1e3:.2f} us), share {b['share']:.4f}; its "
-            f"first lane alone ({b['one_lane_tokens']} tokens) "
-            f"{one_ms:.4f} ms = {one_ms / ms:.3f} of the launch")
+    per_launch = [walk_launch_report(torch, kernels, timer, args,
+                                     f"indexed group {k}")
+                  for k, args in enumerate(calls)]
+    foreign_launch = [walk_launch_report(torch, kernels, timer, args,
+                                         f"gzip group {k}")
+                      for k, args in enumerate(fcalls)]
     first = per_launch[0]
-    log(f"kernel anchor_walk: {checked} comparisons, max abs err {err}; "
-        f"first group kernel {first['ms']:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"bound {first['bound_ms'] * 1e3:.2f} us ({first['bound_by']}), "
-        f"first lane alone {first['one_lane_ms']:.4f} ms; library: none")
+    log(f"kernel anchor_walk: {checked} comparisons (indexed and gzip first "
+        f"groups, two hostile inputs), max abs err {err}; first indexed "
+        f"group kernel {first['ms']:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{first['bound_ms'] * 1e3:.2f} us ({first['bound_by']}), first lane "
+        f"alone {first['one_lane_ms']:.4f} ms; each block of "
+        f"{kernels.WALK_THREADS} lanes asks {kernels.WALK_SMEM_BYTES} B of "
+        f"dynamic shared memory (csrc/kernels.h); library: none")
 
     pre = data[:V2_BYTES]
     v2 = to_v2(zt.compress(pre, level=6, format="gzip",
@@ -1079,7 +1142,8 @@ def phase_decode(torch, kernels, zt, profiling, timer, data, corpus):
             "max_abs_err": err, "ms": first["ms"], "plain_ms": plain_ms,
             "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
             "library_ms": None,
-            "per_launch": per_launch,
+            "per_launch": per_launch, "foreign_per_launch": foreign_launch,
+            "foreign_spacing": idv.FOREIGN_ANCHOR_TOKENS,
             "MBps_device_vs_host": rates}
 
 

@@ -455,6 +455,61 @@ def test_anchor_walk_matches_plain_on_seeded_inputs(seed):
     _walk_exact(_t(w), ll, d, lanes, packed, t_steps)
 
 
+def test_anchor_walk_matches_plain_on_foreign_and_shuffled_lanes():
+    """Every group of a stdlib gzip stream at FOREIGN_ANCHOR_TOKENS, its
+    lanes as planned and shuffled (blocks spanning more units than their
+    tables hold: those lanes take the ladder)."""
+    _card()
+    seen = []
+    orig = kernels.anchor_walk
+
+    def rec(words, ll, d, lanes, packed, t_steps):
+        seen.append((words, ll, d, lanes, packed.clone(), t_steps))
+        return orig(words, ll, d, lanes, packed, t_steps)
+
+    kernels.anchor_walk = rec
+    try:
+        assert idv.decompress_foreign(gzip.compress(DATA, 6, mtime=0),
+                                      format="gzip") == DATA
+    finally:
+        kernels.anchor_walk = orig
+    assert seen and seen[0][5] == idv.FOREIGN_ANCHOR_TOKENS + 2
+    for words, ll, d, lanes, packed, t_steps in seen:
+        _walk_exact(words, ll, d, lanes, packed, t_steps)
+        perm = torch.randperm(lanes[0].shape[0],
+                              generator=torch.Generator().manual_seed(0))
+        shuffled = tuple(t[perm.cuda()].contiguous() for t in lanes)
+        _walk_exact(words, ll, d, shuffled, packed, t_steps)
+
+
+def test_anchor_walk_matches_plain_on_hostile_trees():
+    """The real tables plus the fixed code (litlen 286/287) and an
+    incomplete code (windows past the tree, distances 30 and 31), seeded
+    words, and lanes at random bits, a fifth of them past the body."""
+    _card()
+    blob = zt.compress(DATA, level=6, format="gzip", chunk_bytes=4096,
+                       indexed=True)
+    words, ll, d, lanes, packed, t_steps = _walk_inputs(blob, "cuda")[0]
+    ll, d = idv._with_edge_units(ll, d)
+    rng = np.random.default_rng(7)
+    nw = words.shape[0]
+    w = rng.integers(0, 1 << 32, nw, dtype=np.uint64).astype(
+        np.uint32).view(np.int32)
+    w[: nw // 2] = words.cpu().numpy()[: nw // 2]
+    n = 3000
+    u = ll[0].shape[0]
+    far = rng.random(n) < 0.2
+    lanes = (
+        _t(np.where(far, rng.integers(32 * nw - 40, 32 * nw + 4000, n),
+                    rng.integers(0, 32 * nw, n))),
+        _t(rng.integers(0, packed.shape[0], n)),
+        _t(np.where(rng.random(n) < 0.6, rng.integers(u - 2, u, n),
+                    rng.integers(-2, u + 3, n))),
+        _t(rng.random(n) < 0.9),
+    )
+    _walk_exact(_t(w), ll, d, lanes, packed, t_steps)
+
+
 def _v2(out):
     """The same body behind a legacy v2 'ZZ' subfield (no anchors)."""
     header_len, cb, _t, chunks = containers.parse_gzip_index(out)

@@ -37,6 +37,7 @@ import zzflate_tpu as zf
 import zzflate_tpu_torch as zt
 from zzflate_tpu.models import inflate_tpu as ref
 from zzflate_tpu.ops import checksums as rcs
+from zzflate_tpu_torch.constants import ANCHOR_TOKENS
 from zzflate_tpu_torch.models import inflate_device as idv
 from zzflate_tpu_torch.ops import canonical as canon
 from zzflate_tpu_torch.ops import checksums as cs
@@ -371,8 +372,13 @@ def test_walk_core_on_hostile_input_matches_reference(real_group):
 
 
 # ---------------------------------------------------------------------------
-# The numpy mirror of csrc/walk.cu (change the two together).
+# The scalar mirror of csrc/walk.cu (change the two together).
 # ---------------------------------------------------------------------------
+
+W_THREADS, W_UNITS = kernels.WALK_THREADS, kernels.WALK_UNITS
+LL_BITS, D_BITS = kernels.WALK_LL_BITS, kernels.WALK_D_BITS
+K_LEN, K_STOP, K_LONG = 1 << 21, 1 << 22, 1 << 23
+K_BAD, K_DLONG = 1 << 28, 1 << 29
 
 
 def _brev15_mirror(x):
@@ -380,28 +386,82 @@ def _brev15_mirror(x):
     return int(f"{x & M32:032b}"[::-1], 2) >> 17
 
 
-def _canon_mirror(v, hi, fsh, off, sym, nsym):
+def _funnel_mirror(lo, hi, s):
+    """__funnelshift_r(lo, hi, s): bits s..s+31 of hi:lo (s <= 31)."""
+    return (((hi << 32) | lo) >> s) & M32
+
+
+def _ll_entry_mirror(sym, nb):
+    """off2 = nb + lext | nb << 5 | lext << 9 | value << 12 | flags."""
+    if sym < 256:
+        return nb | (nb << 5) | (sym << 12)
+    if sym == 256 or sym > 285:
+        return K_STOP
+    lc = sym - 257
+    le = max((lc >> 2) - 1, 0)
+    lext = 0 if lc < 4 or lc >= 28 else le
+    lbase = 258 if lc >= 28 else (
+        lc + 3 if lc < 4 else 3 + ((4 + (lc & 3)) << le))
+    return (nb + lext) | (nb << 5) | (lext << 9) | (lbase << 12) | K_LEN
+
+
+def _d_entry_mirror(dsym, dnb):
+    """dnb + dext | dnb << 5 | dext << 9 | dbase << 13, or K_BAD."""
+    if dsym >= 30:
+        return K_BAD
+    de = max((dsym >> 1) - 1, 0)
+    dext = 0 if dsym < 4 else de
+    dbase = dsym + 1 if dsym < 4 else 1 + ((2 + (dsym & 1)) << de)
+    return (dnb + dext) | (dnb << 5) | (dext << 9) | (dbase << 13)
+
+
+def _ladder_mirror(win, rows, is_ll):
+    """The long path: the compare ladder, as an entry."""
+    hi, fsh, off, sym = rows
+    v = _brev15_mirror(win)
     ln = 1 + sum(1 for L in range(1, 16) if v >= hi[L])
-    lnc = min(ln, 15)
-    idx = off[lnc] + ((v - fsh[lnc]) >> (15 - lnc))
-    return sym[min(max(idx, 0), nsym - 1)], lnc, ln <= 15
+    if ln > 15:
+        return K_STOP if is_ll else K_BAD
+    nsym = 288 if is_ll else 32
+    idx = min(max(off[ln] + ((v - fsh[ln]) >> (15 - ln)), 0), nsym - 1)
+    return (_ll_entry_mirror if is_ll else _d_entry_mirror)(sym[idx], ln)
 
 
-def _extract_mirror(lo, hi, offset, n):
-    o = min(offset, 31)
-    a = (lo >> o) | ((((hi << (31 - o)) & M32) << 1) & M32)
-    b = hi >> min(max(offset - 32, 0), 31)
-    r = a if offset < 32 else b
-    return r & ((1 << n) - 1)
+def _table_mirror(rows, is_ll):
+    """build_table: one tree's 2^B primary entries (K_LONG / K_DLONG:
+    long), indexed by a window's first B stream bits."""
+    hi, fsh, off, sym = rows
+    bits = LL_BITS if is_ll else D_BITS
+    nsym = 288 if is_ll else 32
+    ok = all(hi[L] >= hi[L - 1] for L in range(2, 16)) and all(
+        (hi[L] & ((1 << (15 - L)) - 1)) == 0
+        and (fsh[L] & ((1 << (15 - L)) - 1)) == 0
+        for L in range(1, bits + 1))
+    tab = []
+    for t in range(1 << bits):
+        v = _brev15_mirror(t)
+        e = K_LONG if is_ll else K_DLONG
+        if ok and v < hi[bits]:
+            ln = 1 + sum(1 for L in range(1, bits) if v >= hi[L])
+            idx = min(max(off[ln] + ((v - fsh[ln]) >> (15 - ln)), 0),
+                      nsym - 1)
+            e = (_ll_entry_mirror if is_ll else _d_entry_mirror)(sym[idx],
+                                                                 ln)
+        tab.append(e)
+    return tab
 
 
 def _walk_mirror(words, ll, d, lanes, packed, t_steps):
-    """csrc/walk.cu's per-lane loop in scalar Python, in its order: the
-    three words loaded directly at clip(p >> 5, 0, nw - 3) (no cache), s
-    from the unclipped p; a literal emits (sym << 1) | 1 and advances by
-    its code length; a length decodes its distance and emits
-    (dist << 9) | 1; EOB, an invalid window or an invalid distance ends
-    the lane; targets outside [0, n_out_pad) are dropped."""
+    """csrc/walk.cu in scalar Python, in its order. Per block of
+    WALK_THREADS lanes: the live lanes' clipped unit ids, tables for the
+    units [umin, umin + min(umax - umin + 1, WALK_UNITS)). Per lane: the
+    register words c0..c2 at wi = min(p >> 5, nw - 3) and f3, f4 after
+    them, s = p & 31, room = nw - 3 - wi. Per step: the window (lo, hi);
+    the litlen entry from the table (K_LONG for a lane whose unit has no
+    table) and the distance entry at its bit offset, for every lane; one
+    rare path for a long entry, EOB or an invalid symbol (the ladder,
+    stop); the emit and both advances selected by islen; then the words
+    shifted by min(adv >> 5, room), with f3 and f4 reloaded."""
     words = [int(w) for w in np.asarray(words).view(np.uint32)]
     nw = len(words)
     ll = [np.asarray(t).tolist() for t in ll]
@@ -410,48 +470,67 @@ def _walk_mirror(words, ll, d, lanes, packed, t_steps):
     out = np.asarray(packed, np.int64).copy()
     n_out_pad = len(out)
     n_units = len(ll[0])
-    for lane in range(len(bit)):
-        if valid[lane] == 0:
+    top = nw - 1
+    tables = {}  # a unit's tables: the same in every block that builds them
+    for b0 in range(0, len(bit), W_THREADS):
+        live = [j for j in range(b0, min(b0 + W_THREADS, len(bit)))
+                if valid[j] != 0]
+        if not live:
             continue
-        uid = min(max(uid_in[lane], 0), n_units - 1)
-        lt = [t[uid] for t in ll]
-        dt = [t[uid] for t in d]
-        p, o = bit[lane], outp[lane]
-        for _ in range(t_steps):
-            wi = min(max(p >> 5, 0), nw - 3)
-            s = p & 31
-            w0, w1, w2 = words[wi], words[wi + 1], words[wi + 2]
-            inv = 31 - s
-            lo = (w0 >> s) | ((((w1 << inv) & M32) << 1) & M32)
-            hi = (w1 >> s) | ((((w2 << inv) & M32) << 1) & M32)
-            sym, nb, lvalid = _canon_mirror(_brev15_mirror(lo), *lt, 288)
-            if not (lvalid and sym <= 285) or sym == 256:
-                break
-            if sym < 256:
-                if 0 <= o < n_out_pad:
-                    out[o] = max(out[o], (sym << 1) | 1)
-                o += 1
-                p += nb
-                continue
-            lc = sym - 257
-            le = max((lc >> 2) - 1, 0)
-            lext = 0 if lc < 4 or lc >= 28 else le
-            lbase = 258 if lc >= 28 else (
-                lc + 3 if lc < 4 else 3 + ((4 + (lc & 3)) << le))
-            mlen = lbase + _extract_mirror(lo, hi, nb, lext)
-            off2 = nb + lext
-            dsym, dnb, dv = _canon_mirror(
-                _brev15_mirror(_extract_mirror(lo, hi, off2, 15)), *dt, 32)
-            if not dv or dsym >= 30:
-                break
-            de = max((dsym >> 1) - 1, 0)
-            dext = 0 if dsym < 4 else de
-            dbase = dsym + 1 if dsym < 4 else 1 + ((2 + (dsym & 1)) << de)
-            mdist = dbase + _extract_mirror(lo, hi, off2 + dnb, dext)
-            if 0 <= o < n_out_pad:
-                out[o] = max(out[o], (mdist << 9) | 1)
-            o += mlen
-            p += off2 + dnb + dext
+        uids = {j: min(max(uid_in[j], 0), n_units - 1) for j in live}
+        umin = min(uids.values())
+        nu = min(max(uids.values()) - umin + 1, W_UNITS)
+        for u in range(umin, umin + nu):
+            if u not in tables:
+                tables[u] = (_table_mirror([t[u] for t in ll], True),
+                             _table_mirror([t[u] for t in d], False))
+        for j in live:
+            uid = uids[j]
+            lrows = [t[uid] for t in ll]
+            drows = [t[uid] for t in d]
+            lt, dt = tables[uid] if uid - umin < nu else (None, None)
+            p, o = bit[j], outp[j]
+            wi = min(p >> 5, nw - 3)
+            room, s = nw - 3 - wi, p & 31
+            c0, c1, c2 = words[wi], words[wi + 1], words[wi + 2]
+            f3, f4 = words[min(wi + 3, top)], words[min(wi + 4, top)]
+            for _ in range(t_steps):
+                lo = _funnel_mirror(c0, c1, s)
+                hi = _funnel_mirror(c1, c2, s)
+                e = lt[lo & ((1 << LL_BITS) - 1)] if lt else K_LONG
+                dwin = _funnel_mirror(lo, hi, e & 31)
+                de = dt[dwin & ((1 << D_BITS) - 1)] if dt else K_DLONG
+                if e & (K_STOP | K_LONG) or (e & K_LEN
+                                             and de & (K_BAD | K_DLONG)):
+                    if e & K_LONG:
+                        e = _ladder_mirror(lo, lrows, True)
+                    if e & K_STOP:
+                        break
+                    if e & K_LEN:
+                        dwin = _funnel_mirror(lo, hi, e & 31)
+                        if dt:
+                            de = dt[dwin & ((1 << D_BITS) - 1)]
+                        if de & K_DLONG:
+                            de = _ladder_mirror(dwin, drows, False)
+                        if de & K_BAD:
+                            break
+                islen = bool(e & K_LEN)
+                off2, nb, lext = e & 31, (e >> 5) & 15, (e >> 9) & 7
+                val = (e >> 12) & 511
+                dnb, dext = (de >> 5) & 15, (de >> 9) & 15
+                mext = _funnel_mirror(lo, hi, nb) & ((1 << lext) - 1)
+                dx = ((((hi << 32) | lo) >> (off2 + dnb))
+                      & ((1 << dext) - 1))
+                mdist = ((de >> 13) & 0x7FFF) + dx
+                pk = (mdist << 9) | 1 if islen else (val << 1) | 1
+                if o < n_out_pad:
+                    out[o] = max(out[o], pk)
+                o += val + mext if islen else 1
+                adv = s + (off2 + (de & 31) if islen else nb)
+                delta = min(adv >> 5, room)
+                s, room, wi = adv & 31, room - delta, wi + delta
+                c0, c1, c2 = ((c0, c1, c2), (c1, c2, f3), (c2, f3, f4))[delta]
+                f3, f4 = words[min(wi + 3, top)], words[min(wi + 4, top)]
     return out
 
 
@@ -469,13 +548,41 @@ def _walk_kernel_args(arrs, n_out_pad, n_stored, prefix):
     return arrs["words"], ll, d, lanes, packed
 
 
-@pytest.mark.parametrize("kind", ["real", "hostile"])
+def _hostile_trees(words, ll, d, lanes, packed, seed):
+    """The real tables plus idv._with_edge_units' two (the reserved
+    litlen symbols 286/287, windows past the tree, distances 30 and 31),
+    seeded words (half real code), and lanes at random bits, a fifth of
+    them past the body's last word."""
+    rng = np.random.default_rng(seed)
+    ll, d = idv._with_edge_units(ll, d)
+    nw = words.shape[0]
+    w = rng.integers(0, 1 << 32, nw, dtype=np.uint64).astype(
+        np.uint32).view(np.int32)
+    w[: nw // 2] = words.numpy()[: nw // 2]
+    n = 300
+    u = ll[0].shape[0]
+    npad = packed.shape[0]
+    far = rng.random(n) < 0.2
+    lanes = tuple(torch.from_numpy(x.astype(np.int32)) for x in (
+        np.where(far, rng.integers(32 * nw - 40, 32 * nw + 4000, n),
+                 rng.integers(0, 32 * nw, n)),
+        rng.integers(0, npad, n),
+        np.where(rng.random(n) < 0.6, rng.integers(u - 2, u, n),
+                 rng.integers(-2, u + 3, n)),
+        rng.random(n) < 0.9))
+    return torch.from_numpy(w.copy()), ll, d, lanes, packed
+
+
+@pytest.mark.parametrize("kind", ["real", "hostile", "hostile_trees"])
 def test_walk_mirror_matches_plain(real_group, kind):
     arrs, prefix, _crc_len, n_out_pad, n_stored, t_steps = real_group
     if kind == "hostile":
         arrs, n_out_pad = _hostile_walk_input(arrs, seed=12)
     words, ll, d, lanes, packed = _walk_kernel_args(arrs, n_out_pad,
                                                     n_stored, prefix)
+    if kind == "hostile_trees":
+        words, ll, d, lanes, packed = _hostile_trees(words, ll, d, lanes,
+                                                     packed, seed=13)
     before = kernels.launches["anchor_walk"]
     got = kernels.anchor_walk(words, ll, d, lanes, packed.clone(), t_steps)
     assert kernels.launches["anchor_walk"] == before  # CPU: plain version
@@ -485,6 +592,125 @@ def test_walk_mirror_matches_plain(real_group, kind):
     np.testing.assert_array_equal(got.numpy(), plain.numpy())
     np.testing.assert_array_equal(mirror, plain.numpy())
     assert (plain.numpy() != packed.numpy()).any()
+
+
+def _entries_from_plain(sym, ln, valid, is_ll):
+    """The entry each window must decode to, from the plain version's
+    symbol decode (numpy over all windows)."""
+    sym, ln, valid = (np.asarray(x, np.int64) for x in (sym, ln, valid))
+    if is_ll:
+        lc = np.clip(sym - 257, 0, 28)
+        le = np.maximum((lc >> 2) - 1, 0)
+        lext = np.where((lc < 4) | (lc >= 28), 0, le)
+        lbase = np.where(lc >= 28, 258,
+                         np.where(lc < 4, lc + 3, 3 + ((4 + (lc & 3)) << le)))
+        e = np.where(sym < 256, ln | (ln << 5) | (sym << 12),
+                     (ln + lext) | (ln << 5) | (lext << 9) | (lbase << 12)
+                     | K_LEN)
+        stop = ~valid.astype(bool) | (sym == 256) | (sym > 285)
+        return np.where(stop, K_STOP, e)
+    ds = np.clip(sym, 0, 29)
+    de = np.maximum((ds >> 1) - 1, 0)
+    dext = np.where(ds < 4, 0, de)
+    dbase = np.where(ds < 4, ds + 1, 1 + ((2 + (ds & 1)) << de))
+    e = (ln + dext) | (ln << 5) | (dext << 9) | (dbase << 13)
+    return np.where(~valid.astype(bool) | (sym >= 30), K_BAD, e)
+
+
+def test_walk_table_equals_ladder_on_every_window(real_group):
+    """The mirrored primary table of each unit of the real group, against
+    the plain version's compare ladder on every 15-bit window: a fast
+    entry decodes its window exactly, and an entry is long exactly where
+    the code is longer than B bits or the window lies past the tree."""
+    arrs, prefix, _c, n_out_pad, n_stored, _t = real_group
+    _w, ll, d, _lanes, _p = _walk_kernel_args(arrs, n_out_pad, n_stored,
+                                              prefix)
+    wins = np.arange(1 << 15)
+    v = torch.from_numpy(idv._brev15()[wins]).long()
+    units = int(arrs["unit_valid"].sum())
+    assert units >= 2
+    for u in range(units):
+        for rows, is_ll in ((ll, True), (d, False)):
+            nsym = 288 if is_ll else 32
+            tables = tuple(t[u : u + 1].expand(len(wins), -1).long()
+                           for t in rows[:3])
+            sym, ln, valid = canon._canon_symbol(
+                v, *tables, rows[3].long().reshape(-1),
+                torch.full((len(wins),), u), nsym)
+            want = _entries_from_plain(sym.numpy(), ln.numpy(),
+                                       valid.numpy(), is_ll)
+            tab = np.array(_table_mirror([t[u].tolist() for t in rows],
+                                         is_ll))
+            bits = LL_BITS if is_ll else D_BITS
+            got = tab[wins & ((1 << bits) - 1)]
+            fast = got != (K_LONG if is_ll else K_DLONG)
+            np.testing.assert_array_equal(got[fast], want[fast])
+            long_ = (ln.numpy() > bits) | ~valid.numpy()
+            np.testing.assert_array_equal(~fast, long_)
+            assert fast.mean() > 0.5
+            ladder = [_ladder_mirror(int(w), [t[u].tolist() for t in rows],
+                                     is_ll) for w in wins[::97]]
+            np.testing.assert_array_equal(ladder, want[::97])
+
+
+def test_sorted_padded_lanes_walk_like_unpadded():
+    """Shuffled lanes and the same lanes planned by _walk_lanes (sorted
+    by (uid, bit), each unit's run padded with invalid lanes) give the
+    unpadded lanes' packed, in the plain version and in the mirror (whose
+    blocks of shuffled lanes span more units than a block holds: those
+    lanes take the ladder). One group of 15 chunks of 4 KiB."""
+    data = INDEXED["defer"]()
+    mp = pytest.MonkeyPatch()
+    try:
+        out, calls = _capture_port(mp, _indexed(data))
+    finally:
+        mp.undo()
+    assert out == data and len(calls) == 1
+    arrs, prefix, _c, n_out_pad, n_stored, t_steps = calls[0]
+    words, ll, d, lanes, packed = _walk_kernel_args(arrs, n_out_pad,
+                                                    n_stored, prefix)
+    live = lanes[3].numpy() != 0
+    bit, out, uid = (t.numpy()[live] for t in lanes[:3])
+    assert len(np.unique(uid)) > W_UNITS  # the plan has runs to pad
+    perm = np.random.default_rng(5).permutation(len(bit))
+    shuffled = tuple(torch.from_numpy(np.ascontiguousarray(x)) for x in (
+        bit[perm], out[perm], uid[perm], np.ones(len(bit), np.int32)))
+    planned = idv._walk_lanes(bit[perm], out[perm], uid[perm])
+    assert planned.shape[1] % (W_THREADS // W_UNITS) == 0
+    ok = planned[3] != 0
+    assert sorted(zip(*planned[:3, ok].tolist())) == sorted(
+        zip(bit.tolist(), out.tolist(), uid.tolist()))
+    for b0 in range(0, planned.shape[1], W_THREADS):
+        blk = slice(b0, b0 + W_THREADS)
+        assert len(np.unique(planned[2, blk][planned[3, blk] != 0])) \
+            <= W_UNITS
+    planned = tuple(torch.from_numpy(np.ascontiguousarray(x))
+                    for x in planned)
+    exp = kernels.anchor_walk_plain(words, ll, d, lanes, packed.clone(),
+                                    t_steps).numpy()
+    for ln in (shuffled, planned):
+        got = kernels.anchor_walk_plain(words, ll, d, ln, packed.clone(),
+                                        t_steps)
+        np.testing.assert_array_equal(got.numpy(), exp)
+        mirror = _walk_mirror(words, ll, d, ln, packed.numpy(), t_steps)
+        np.testing.assert_array_equal(mirror, exp)
+
+
+def test_walk_constants_match_kernels_header():
+    """ops/kernels' launch shape equals csrc/kernels.h's #defines."""
+    import re
+    from pathlib import Path
+
+    src = (Path(kernels.__file__).resolve().parent.parent / "csrc"
+           / "kernels.h").read_text()
+    defs = dict(re.findall(r"#define (ZZ_WALK_\w+) (\d+)\n", src))
+    assert {k: int(v) for k, v in defs.items()} == {
+        "ZZ_WALK_THREADS": kernels.WALK_THREADS,
+        "ZZ_WALK_UNITS": kernels.WALK_UNITS,
+        "ZZ_WALK_LL_BITS": kernels.WALK_LL_BITS,
+        "ZZ_WALK_D_BITS": kernels.WALK_D_BITS}
+    assert kernels.WALK_SMEM_BYTES == 21824
+    assert "ZZ_WALK_SMEM_BYTES" in src and "(1 << ZZ_WALK_LL_BITS)" in src
 
 
 def test_anchor_walk_rejects_bad_arguments(real_group):
@@ -528,7 +754,9 @@ def test_plan_units_match_reference(streams):
 def test_group_inputs_match_reference(streams, monkeypatch, name):
     """The lanes, words, tables and stored runs of every group, against
     what the reference hands its _walk_all (multi-group with
-    _WGROUP_OUT = 32 KiB in both packages)."""
+    _WGROUP_OUT = 32 KiB in both packages). The port's lanes are the
+    reference's, planned by _walk_lanes: sorted by (uid, bit), each
+    unit's run padded with invalid lanes, then zeros."""
     data, blob = streams[name]
     if name == "grouped":
         monkeypatch.setattr(ref, "_WGROUP_OUT", 1 << 15)
@@ -546,11 +774,16 @@ def test_group_inputs_match_reference(streams, monkeypatch, name):
     assert len(calls) == len(seen) >= (2 if name == "grouped" else 1)
     for (arrs, _p, crc_len, n_out_pad, n_stored, t_steps), e in zip(calls,
                                                                     seen):
-        for k, ea in zip(_WALK_KEYS, e):
+        for k, ea in zip(_WALK_KEYS[:9], e):
             ga = arrs[k].numpy()
             if k == "words":
                 ga = ga.view(np.uint32)
             np.testing.assert_array_equal(ga, ea.astype(ga.dtype))
+        live = e[12].astype(bool)
+        want = idv._walk_lanes(*(x[live] for x in e[9:12]))
+        got = np.stack([arrs[k].numpy() for k in _WALK_KEYS[9:]])
+        np.testing.assert_array_equal(got[:, : want.shape[1]], want)
+        assert not got[:, want.shape[1] :].any()
         np.testing.assert_array_equal(arrs["sr"].numpy(), e[14])
         assert crc_len == int(e[15])
         kw = e[16]
@@ -732,6 +965,39 @@ def test_decompress_foreign_matches_reference(mixed, name):
     want = mixed if name in ("zlib1", "zlib6", "zlib9", "gzip6",
                              "raw6") else mixed[: 1 << 17]
     assert got == exp == want
+
+
+@pytest.mark.parametrize("name", list(FOREIGN))
+def test_foreign_spacing_keeps_walk_arrays(mixed, monkeypatch, name):
+    """decompress_foreign at FOREIGN_ANCHOR_TOKENS (shorter lanes) gives
+    every group's _walk_core arrays as at C.ANCHOR_TOKENS, and the
+    reference's bytes."""
+    fmt, make = FOREIGN[name]
+    blob = make(mixed)
+    orig = idv._walk_core
+    runs = {}
+    assert idv.FOREIGN_ANCHOR_TOKENS < ANCHOR_TOKENS
+    for spacing in (idv.FOREIGN_ANCHOR_TOKENS, ANCHOR_TOKENS):
+        seen = []
+
+        def rec(*args):
+            seen.append((args[12].sum().item(), args[-1],
+                         [t.clone() for t in orig(*args)]))
+            return tuple(t.clone() for t in seen[-1][2])
+
+        monkeypatch.setattr(idv, "_walk_core", rec)
+        monkeypatch.setattr(idv, "FOREIGN_ANCHOR_TOKENS", spacing)
+        runs[spacing] = (idv.decompress_foreign(blob, format=fmt,
+                                                device="cpu"), seen)
+    monkeypatch.setattr(idv, "_walk_core", orig)
+    (fine, fine_walks), (coarse, coarse_walks) = runs.values()
+    assert fine == coarse == ref.decompress_foreign(blob, format=fmt,
+                                                    verify=False)
+    assert len(fine_walks) == len(coarse_walks) >= 1
+    for (nf, tf, af), (nc, tc, ac) in zip(fine_walks, coarse_walks):
+        assert nf > nc and tf < tc  # more, shorter lanes
+        for g, e in zip(af, ac):
+            np.testing.assert_array_equal(g.numpy(), e.numpy())
 
 
 def test_foreign_none_corrupt_multimember_and_to_device(mixed):

@@ -40,8 +40,24 @@ int zz_parse_marks(const int* step, const int* starts,
 // Device decode's token walk: each of n_lanes lanes walks up to t_steps
 // tokens from (lane_bit, lane_out) and atomicMax-es dist << 9 | lit << 1 | 1
 // into packed[o] for 0 <= o < n_out_pad. words: nw >= 3 u32; per unit
-// (n_units >= 1): *_hi, *_fsh, *_off 16 int each, ll_sym 288, d_sym 32;
-// lane_bit and lane_out >= 0; packed entries >= 0.
+// (n_units >= 1): *_hi, *_fsh, *_off 16 int each, ll_sym 288 entries in
+// [0, 288), d_sym 32 in [0, 32); lane_bit and lane_out >= 0; packed
+// entries >= 0. Any lane order gives the same packed; a block's lanes
+// find their units' tables in shared memory when they span at most
+// ZZ_WALK_UNITS units from the lowest (the host plan sorts and pads them
+// so), and any other lane decodes every window by the compare ladder.
+//
+// The launch: one warp a block, ZZ_WALK_THREADS lanes; ZZ_WALK_SMEM_BYTES
+// of dynamic shared memory a block (21 824 B: ZZ_WALK_UNITS units of
+// 2^ZZ_WALK_LL_BITS litlen and 2^ZZ_WALK_D_BITS distance u32 entries, and
+// one tree's staged rows, 48 + 288 int).
+#define ZZ_WALK_THREADS 32
+#define ZZ_WALK_UNITS 4
+#define ZZ_WALK_LL_BITS 10
+#define ZZ_WALK_D_BITS 8
+#define ZZ_WALK_SMEM_BYTES                                          \
+  ((ZZ_WALK_UNITS * ((1 << ZZ_WALK_LL_BITS) + (1 << ZZ_WALK_D_BITS)) \
+    + 48 + 288) * 4)
 int zz_anchor_walk(const unsigned* words, int nw, const int* ll_hi,
                    const int* ll_fsh, const int* ll_off, const int* ll_sym,
                    const int* d_hi, const int* d_fsh, const int* d_off,

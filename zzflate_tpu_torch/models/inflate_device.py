@@ -7,10 +7,12 @@ decoded. Two parallel answers live here, selected by the stream:
 **Anchor-walk decode (v3 indexed streams and foreign streams).** The
 encoder records the (bit, output) position of every block start and of
 every ANCHOR_TOKENS-th token in its 'ZZ' FEXTRA index; for a foreign
-stream the host C pre-scan (``native.scan_anchors``) finds the same
-set. Each recorded position is a LANE, and each lane decodes its token
-interval serially: ``ops/kernels.anchor_walk``, one CUDA thread per
-lane, every token max-combined into one packed output-space array. No
+stream the host C pre-scan (``native.scan_anchors``) finds the block
+starts and every FOREIGN_ANCHOR_TOKENS-th token. Each recorded position
+is a LANE, and each lane decodes its token interval serially:
+``ops/kernels.anchor_walk``, one CUDA thread per lane (lanes sorted by
+block and padded by ``_walk_lanes``, so a warp's blocks share decode
+tables), every token max-combined into one packed output-space array. No
 speculation: the index says where tokens start. Lanes stop at EOB or on
 an invalid window and may re-walk the head of the next interval
 (identical values, harmless under max).
@@ -45,7 +47,6 @@ chunk or block larger than a group.
 """
 from __future__ import annotations
 
-import bisect
 import functools
 import struct
 
@@ -93,6 +94,14 @@ _WGROUP_BODY = 4 << 20
 _WGROUP_OUT = (4 << 20) - _W
 
 _SCAN_ROW = 2048  # row length of the two-level running max
+
+# Anchor spacing of foreign streams, in tokens. An indexed stream's is
+# the format's C.ANCHOR_TOKENS; a foreign stream's anchors come from the
+# host scan, so the decoder chooses: shorter lanes start every serial
+# chain sooner and make more blocks of the walk for the card's SMs
+# (chosen from 64, 128 and 256 on the H100 with utils/decode_bench.py:
+# PERF.md).
+FOREIGN_ANCHOR_TOKENS = 64
 
 
 # ---------------------------------------------------------------------------
@@ -188,6 +197,28 @@ class _FixedDecs:
         return cls._pair
 
 
+def _with_edge_units(ll, d):
+    """The walk's unit tables (hi_mono, fsh, off, sym) as anchor_walk
+    takes them, with two units appended on their device whose codes reach
+    the walk's edge cases: the fixed code (litlen symbols 286 and 287
+    reachable) and an incomplete code (litlen '0' = 'A', '10' = EOB, '11'
+    past the tree; distance '0' = 0, '10' = 30, '110' = 31, '111' past the
+    tree). For the walk's tests."""
+    lit = [0] * _MAX_LL
+    lit[65], lit[256] = 1, 2
+    dist = [0] * _MAX_D
+    dist[0], dist[30], dist[31] = 1, 2, 3
+    decs = (_FixedDecs.get(), (CanonicalDecoder(lit), CanonicalDecoder(dist)))
+    out = []
+    for k, (tabs, nsym) in enumerate(((ll, _MAX_LL), (d, _MAX_D))):
+        first, cnt, off, sym = (torch.from_numpy(np.stack(x)) for x in zip(
+            *(_canon_desc(pair[k], nsym) for pair in decs)))
+        rows = (*_canon_unit_tables(first, cnt, off), sym)
+        out.append(tuple(torch.cat([t, r.to(t.device)])
+                         for t, r in zip(tabs, rows)))
+    return tuple(out)
+
+
 class _Unit:
     __slots__ = ("bit", "out_base", "ll", "d")
 
@@ -266,6 +297,34 @@ def _stored_runs(seg: bytes, out_base: int, out_bytes: int,
 
 def _pow2(n: int) -> int:
     return 1 << max(0, (n - 1)).bit_length()
+
+
+def _walk_lanes(bit, out, uid) -> np.ndarray:
+    """One group's walk lanes, planned for the kernel's blocks: sorted by
+    (uid, bit), each unit's run padded with invalid lanes to a multiple
+    of WALK_THREADS // WALK_UNITS, so that every block of WALK_THREADS
+    lanes spans at most WALK_UNITS units and finds their decode tables in
+    shared memory. Neither the order nor the padding changes the walk's
+    output (it combines with max). Returns (4, n) int32 rows: bit, out,
+    uid, valid."""
+    bit, out, uid = (np.asarray(x, np.int64) for x in (bit, out, uid))
+    n = len(bit)
+    if n == 0:
+        return np.zeros((4, 0), np.int32)
+    order = np.lexsort((bit, uid))
+    bit, out, uid = bit[order], out[order], uid[order]
+    starts = np.flatnonzero(np.r_[True, uid[1:] != uid[:-1]])
+    counts = np.diff(np.r_[starts, n])
+    align = kernels.WALK_THREADS // kernels.WALK_UNITS
+    padded = -(-counts // align) * align
+    base = np.r_[0, np.cumsum(padded)[:-1]]
+    pos = np.repeat(base - starts, counts) + np.arange(n)
+    lanes = np.zeros((4, int(padded.sum())), np.int32)
+    lanes[0, pos] = bit
+    lanes[1, pos] = out
+    lanes[2, pos] = uid
+    lanes[3, pos] = 1
+    return lanes
 
 
 def _lane_bucket(n: int) -> int:
@@ -652,13 +711,10 @@ def _stage_arrays(gbody: bytes, nw: int, u_pad: int, units, n_stored: int,
         sr = np.zeros((1, 3), np.int32)
     a["sr"] = sr
     if l_pad is not None:
-        for name in ("lane_bit", "lane_out", "lane_uid", "lane_valid"):
+        for k, name in enumerate(("lane_bit", "lane_out", "lane_uid",
+                                  "lane_valid")):
             a[name] = np.zeros(l_pad, np.int32)
-        for j, (lb, lo_, lu) in enumerate(lanes):
-            a["lane_bit"][j] = lb
-            a["lane_out"][j] = lo_
-            a["lane_uid"][j] = lu
-            a["lane_valid"][j] = 1
+            a[name][: lanes.shape[1]] = lanes[k]
     return a
 
 
@@ -789,37 +845,38 @@ def decompress_indexed(data: bytes, verify: bool = True,
                 # Walk lanes: every block's first token + every index
                 # anchor (rebased into the group's bit/output spaces),
                 # each tagged with the unit whose tree decodes it.
-                lanes: list[tuple[int, int, int]] = []
+                lanes = None
                 if use_walk:
+                    parts = [np.zeros((3, 0), np.int64)]
                     for ci in range(glo, ghi):
                         ulo, uhi = uranges[ci - glo]
                         if ulo == uhi:
                             continue  # stored fallback: no token lanes
-                        for u in range(ulo, uhi):
-                            lanes.append((units[u].bit, units[u].out_base, u))
-                        seg_bit0 = (cpos[ci] - cpos[glo]) * 8
-                        outbase = _W + out_starts[ci] - g_out_lo
-                        ustarts = [units[u].bit for u in range(ulo, uhi)]
-                        for ab, ao in chunks[ci][2]:
-                            bit = seg_bit0 + ab
-                            k = bisect.bisect_right(ustarts, bit) - 1
-                            if k < 0:
-                                continue  # anchor before any token: bogus
-                            lanes.append((bit, outbase + ao, ulo + k))
-                if lanes:
+                        ubit = np.array([units[u].bit
+                                         for u in range(ulo, uhi)], np.int64)
+                        parts.append(np.stack([
+                            ubit,
+                            [units[u].out_base for u in range(ulo, uhi)],
+                            np.arange(ulo, uhi)]))
+                        anc = np.array(chunks[ci][2], np.int64).reshape(-1, 2)
+                        abit = (cpos[ci] - cpos[glo]) * 8 + anc[:, 0]
+                        k = np.searchsorted(ubit, abit, side="right") - 1
+                        ok = k >= 0  # an anchor before any token: bogus
+                        parts.append(np.stack([
+                            abit[ok],
+                            _W + out_starts[ci] - g_out_lo + anc[ok, 1],
+                            ulo + k[ok]]))
+                    bit, out, uid = np.concatenate(parts, axis=1)
                     # A crafted index can place an anchor exactly on a
                     # block-first token: drop duplicate (bit, out) lanes
                     # (first occurrence wins; duplicates walk the same).
-                    seen: set[tuple[int, int]] = set()
-                    lanes = [
-                        ln for ln in lanes
-                        if (ln[0], ln[1]) not in seen
-                        and not seen.add((ln[0], ln[1]))
-                    ]
+                    _, first = np.unique((bit << 32) | out, return_index=True)
+                    first.sort()
+                    lanes = _walk_lanes(bit[first], out[first], uid[first])
+                    max_lanes = max(max_lanes, lanes.shape[1])
                 plans.append((glo, ghi, units, sruns, lanes))
                 max_units = max(max_units, len(units))
                 max_stored = max(max_stored, len(sruns))
-                max_lanes = max(max_lanes, len(lanes))
         except (IndexError, struct.error) as e:
             # Host header parsing ran off the segment: the index lied.
             raise ValueError(f"corrupt indexed segment: {e}") from e
@@ -915,7 +972,8 @@ def _fetch_bytes(out_dev: torch.Tensor, total_out: int, base: int = 0) -> bytes:
 # Arbitrary zlib/gzip/raw streams carry no index, so the C scanner
 # (native.scan_anchors) walks the bitstream once without materializing
 # output and records exactly the lane set the walk needs: every block's
-# first token plus every ANCHOR_TOKENS-th token's (bit, out) position.
+# first token plus every FOREIGN_ANCHOR_TOKENS-th token's (bit, out)
+# position.
 # ---------------------------------------------------------------------------
 
 
@@ -947,7 +1005,7 @@ def decompress_foreign(data: bytes, format: str = "gzip", verify: bool = True,
     if len(body) > (1 << 30):
         return None
 
-    T = C.ANCHOR_TOKENS
+    T = FOREIGN_ANCHOR_TOKENS
     with maybe_stage("decode_scan"):
         try:
             blocks, anchors, total_out, end_bit = native.scan_anchors(body, T)
@@ -1019,7 +1077,7 @@ def decompress_foreign(data: bytes, format: str = "gzip", verify: bool = True,
             go = int(out_ends[ghi - 1]) - out_lo
             units = []
             sruns: list[tuple[int, int, int]] = []
-            ustarts: list[int] = []
+            ustarts: list[int] = []  # each coded block's header bit
             for bi in range(glo, ghi):
                 bit0, btype, ostart, aux0, aux1 = (int(v) for v in blocks[bi])
                 if btype == 0:
@@ -1045,19 +1103,24 @@ def decompress_foreign(data: bytes, format: str = "gzip", verify: bool = True,
                     )
                 )
                 ustarts.append(bit0)
-            lanes = [(u.bit, u.out_base, j) for j, u in enumerate(units)]
+            # Lanes: every coded block's first token and every anchor,
+            # tagged with the unit whose block holds it.
             a_lo = np.searchsorted(abit, blocks[glo, 0], side="left")
             a_hi = np.searchsorted(abit, bit_ends[ghi - 1], side="left")
-            for ai in range(int(a_lo), int(a_hi)):
-                bit, aout = int(anchors[ai, 0]), int(anchors[ai, 1])
-                k = bisect.bisect_right(ustarts, bit) - 1
-                if k < 0:
-                    continue
-                lanes.append((bit - 8 * byte_lo, _W + aout - out_lo, k))
+            anc = anchors[a_lo:a_hi]
+            k = np.searchsorted(np.array(ustarts, np.int64), anc[:, 0],
+                                side="right") - 1
+            ok = k >= 0
+            ubit = np.array([u.bit for u in units], np.int64)
+            uout = np.array([u.out_base for u in units], np.int64)
+            lanes = _walk_lanes(
+                np.concatenate([ubit, anc[ok, 0] - 8 * byte_lo]),
+                np.concatenate([uout, _W + anc[ok, 1] - out_lo]),
+                np.concatenate([np.arange(len(units)), k[ok]]))
             plans.append((byte_lo, byte_hi, go, units, sruns, lanes))
             max_units = max(max_units, len(units))
             max_stored = max(max_stored, len(sruns))
-            max_lanes = max(max_lanes, len(lanes))
+            max_lanes = max(max_lanes, lanes.shape[1])
             max_body = max(max_body, byte_hi - byte_lo)
             max_go = max(max_go, go)
 

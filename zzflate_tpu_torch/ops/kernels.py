@@ -50,6 +50,18 @@ launches = {"scan_candidates": 0, "propagate_matches": 0, "parse_rows": 0,
             "anchor_walk": 0}
 
 
+# The walk's launch shape, as csrc/kernels.h defines it (a test holds the
+# two equal): one warp of WALK_THREADS lanes a block, holding the primary
+# decode tables of at most WALK_UNITS units (2^WALK_LL_BITS litlen and
+# 2^WALK_D_BITS distance entries each) in WALK_SMEM_BYTES of shared memory.
+WALK_THREADS = 32
+WALK_UNITS = 4
+WALK_LL_BITS = 10
+WALK_D_BITS = 8
+WALK_SMEM_BYTES = (WALK_UNITS * ((1 << WALK_LL_BITS) + (1 << WALK_D_BITS))
+                   + 48 + _MAX_LL) * 4
+
+
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
@@ -420,9 +432,15 @@ def anchor_walk(words, ll, d, lanes, packed, t_steps: int):
 
     words: (nw,) int32, the group's body as u32 bits, nw >= 3;
     ll, d: (hi_mono, fsh, off, sym) per unit: (U, 16) int32 x 3 and
-    (U, 288) or (U, 32) int32 (ops/canonical._canon_unit_tables);
+    (U, 288) or (U, 32) int32 (ops/canonical._canon_unit_tables), the
+    symbols in [0, 288) and [0, 32);
     lanes: (bit, out, uid, valid), (L,) int32 each, bit and out >= 0;
-    packed: (n_out_pad,) int32, every entry >= 0."""
+    packed: (n_out_pad,) int32, every entry >= 0.
+
+    Any lane order gives the same packed. The kernel decodes fastest when
+    every run of WALK_THREADS lanes spans at most WALK_UNITS units from
+    its lowest (models/inflate_device._walk_lanes plans them so); other
+    lanes decode every window by the compare ladder."""
     lane_bit, lane_out, lane_uid, lane_valid = lanes
     ts = [("words", words, 1), ("packed", packed, 1)]
     ts += [(f"ll[{k}]", t, 2) for k, t in enumerate(ll)]
@@ -439,7 +457,7 @@ def anchor_walk(words, ll, d, lanes, packed, t_steps: int):
     if not _route(words, packed, *ll, *d, *lanes):
         return anchor_walk_plain(words, ll, d, lanes, packed, t_steps)
     n_lanes = lane_bit.shape[0]
-    if n_lanes and t_steps > 0:
+    if n_lanes and t_steps > 0 and packed.shape[0]:
         with torch.cuda.device(words.device):
             rc = _load().zz_anchor_walk(
                 words.data_ptr(), words.shape[0],
