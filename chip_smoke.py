@@ -6,7 +6,7 @@
 Phases (any failure raises and exits nonzero; nothing is caught):
 
 1. card: the device name, nvidia-smi's name and power limit, the nvcc
-   build of the four kernels from zzflate_tpu_torch/csrc (one nvcc per
+   build of the five kernel sources from zzflate_tpu_torch/csrc (one nvcc per
    source, all started together) and the host C compiler's build of the
    port's C runtime (zzflate_tpu_torch/native);
 2. kernels: at the main-path shape (16, 294912) each kernel is held
@@ -57,15 +57,17 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    level 6 as zlib, gzip and raw, each decoded by
    decompress(engine="device") to the input, with the anchor walk
    launched in each run (counts reset just before the first timed call,
-   read just after); the CRC checked on the card (gzip, indexed), the
-   Adler-32 on the host (zlib). The median MB/s of DECODE_REPS calls
-   beside the host C decoder's on the same bytes, stage times, a trace
-   of one indexed call (device time by kernel, idle share), the LZ
-   resolve's doubling rounds, the CRC's kernel launches; a flipped
+   read just after); the CRC checked on the card by crc32_rows (gzip,
+   indexed: launched in each run), the Adler-32 on the host (zlib). The
+   median MB/s of DECODE_REPS calls beside the host C decoder's on the
+   same bytes, stage times, a trace of one indexed call (device time by
+   kernel, idle share), the LZ resolve's doubling rounds, the device
+   launches and time of one 4 MiB group's CRC (at most 3); a flipped
    payload byte raises ValueError on the card; a 64 MiB corpus decodes
    with to_device=True to a CUDA tensor equal to the input, as an
    indexed stream (whose index drops its anchors at that size, so the
-   per-bit path runs, once) and as a stdlib gzip stream (the walk). The
+   per-bit path runs, once) and as a stdlib gzip stream (the walk), the
+   CRC kernel launched in both. The
    walk kernel equals its plain version exactly on the first group of
    the indexed run and of the gzip run (at FOREIGN_ANCHOR_TOKENS) and on
    two seeded inputs (invalid windows, the fixed code's reserved
@@ -83,11 +85,12 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    device's partials and their merge run even on one card). The bytes
    must equal compress() on one card and decode with stdlib gzip, the
    trailer's CRC (combined from the card's per-chunk partials) must
-   equal zlib.crc32, and all three kernels must launch in each layout's
-   run (counts reset just before, read just after). Median MB/s of
-   PAR_REPS calls beside the one-card one-shot's, stage times (analyze
-   includes the partials), make_mesh's trace and idle share, and the
-   partials' own device time and launches on one batch. The cases of
+   equal zlib.crc32, and all three matcher kernels and both checksum
+   kernels must launch in each layout's run (counts reset just before,
+   read just after). Median MB/s of PAR_REPS calls beside the one-card
+   one-shot's, stage times (analyze includes the partials), make_mesh's
+   trace and idle share, and the partials' own device time and launches
+   (at most 6) on one batch. The cases of
    __graft_entry__.dryrun_multichip on the card named 8 times (256 KiB
    chunks, mem_level=1, an uneven tail, an incompressible chunk taking
    the stored fallback; indexed + seekable with a decompress_range
@@ -96,15 +99,27 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    its own card (cuda:rank % count: here all share one) with a
    chunk-aligned range of the 64 MiB: root's bytes must equal the
    single-process bytes and decode with stdlib gzip, and every process
-   must report all three kernels launched. The wall time from a barrier
-   to root's return, median of PAR_REPS calls in the same processes, as
-   aggregate MB/s beside one process's.
+   must report all five encode kernels launched. The wall time from a
+   barrier to root's return, median of PAR_REPS calls in the same
+   processes, as aggregate MB/s beside one process's.
+
+8. checksum kernels: crc32_rows and adler32_rows (csrc/checksum.cu)
+   each held exactly against its plain version and zlib on the real
+   decode groups that phase 6's indexed and gzip runs checked, on phase
+   7's partials batch, on a hostile batch (empty ranges at 0, inside and
+   at N, lengths 1-4, start > 0 with end < N, ranges across a block edge,
+   odd width 37 197; by tensor bounds and by one shared range) and on a
+   single row of 64 MiB + 5 B; each kernel's time per launch (L2 flushed,
+   median of 15) on a decode group, the partials batch and the 64 MiB
+   row, with its bytes and operations bound and share, the plain
+   version's time; no PyTorch call computes either (library: none).
 
 Every trace goes through utils.profiling.trace, which also writes it
 gzipped to chiprun_out/traces/. The second-to-last lines are the
-kernels JSON (the four kernels, each with its launches by run under
-"launches_by_level", the phase 7 paths among them, and phase 7's MB/s
-and partials under "parallel") and nvidia-smi's line; the last line is
+kernels JSON (the six kernels, each with its launches by run under
+"launches_by_level" or "launches_by_run", the phase 7 paths among them,
+and phase 7's MB/s and partials under "parallel") and nvidia-smi's line;
+the last line is
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -168,6 +183,20 @@ KERNELS = {
 # Device decode's kernel: no Pallas kernel, the reference's lax.fori_loop.
 WALK = ("anchor_walk", "zzflate_tpu_torch/csrc/walk.cu",
         "zzflate_tpu/models/inflate_tpu.py:727 (_walk_core, lax.fori_loop)")
+# The checksums over row ranges: no Pallas kernels, the reference's jitted
+# programs (vmapped by its encoder, run per group by its device decode).
+CHECKSUMS = {
+    "crc32_rows": ("zzflate_tpu_torch/csrc/checksum.cu",
+                   "zzflate_tpu/ops/checksums.py:245 (_crc32_impl, jit)"),
+    "adler32_rows": ("zzflate_tpu_torch/csrc/checksum.cu",
+                     "zzflate_tpu/ops/checksums.py:174 (_adler32_impl, jit)"),
+}
+# Integer operations a byte that each function needs: a table CRC xors the
+# byte into the state, masks the index, shifts the state and xors the
+# entry in; Adler adds the byte to s and multiply-adds it into w.
+CKS_OPS_PER_BYTE = {"crc32_rows": 4, "adler32_rows": 2}
+CKS_BIG = (64 << 20) + 5  # phase 8's single long row
+CKS_ODD_WIDTH = 37197  # phase 8's hostile batch
 
 
 def log(*parts) -> None:
@@ -618,6 +647,27 @@ def device_events(profiling, fn):
             sum(e.self_device_time_total for e in ev) / 1e3)
 
 
+# Host runtime calls that put work on the card: a launch or an async copy
+# or fill each.
+RUNTIME_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                    "cuLaunchKernel", "cudaMemcpyAsync", "cudaMemsetAsync")
+
+
+def launch_calls(profiling, fn):
+    """One call of fn under profiling.trace: its result and the work it
+    put on the card, counted from the host's runtime calls. The profiler
+    may return no device records for a window this short (seen on the
+    H100 for a call of two kernels), so device time comes from events
+    around the call (DeviceTimer.kernel_ms) instead."""
+    import torch
+
+    with profiling.trace(TRACE_DIR) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, sum(e.count for e in prof.key_averages()
+                    if e.key in RUNTIME_LAUNCHES)
+
+
 def phase_stream(torch, kernels, zt, profiling, data, zlib6: int,
                  oneshot_mbps: float):
     """The 8 MiB corpus streamed through zlib_compat on the card."""
@@ -915,7 +965,7 @@ def phase_decode(torch, kernels, zt, profiling, timer, data, corpus):
         "gzip": ("gzip", gzip.compress(data, 6, mtime=0)),
         "raw": ("raw", co.compress(data) + co.flush()),
     }
-    counts, rates = {}, {}
+    counts, rates, cks_counts = {}, {}, {}
     for name, (fmt, blob) in streams.items():
         def run():
             return zt.decompress(blob, format=fmt, engine="device")
@@ -927,10 +977,13 @@ def phase_decode(torch, kernels, zt, profiling, timer, data, corpus):
         out = run()
         secs = [time.perf_counter() - t0]
         launched = kernels.launches["anchor_walk"]
+        cks_counts[name] = {k: kernels.launches[k] for k in CHECKSUMS}
         if out != data:
             raise AssertionError(f"decode {name}: output differs from input")
         if launched == 0:
             raise AssertionError(f"decode {name}: anchor_walk never launched")
+        if fmt == "gzip" and cks_counts[name]["crc32_rows"] == 0:
+            raise AssertionError(f"decode {name}: crc32_rows never launched")
         for _ in range(DECODE_REPS - 1):
             t0 = time.perf_counter()
             if run() != data:
@@ -947,7 +1000,7 @@ def phase_decode(torch, kernels, zt, profiling, timer, data, corpus):
             f"median {dt:.4f} s of {DECODE_REPS} (min {min(secs):.4f}, max "
             f"{max(secs):.4f}) = {mb / dt:.3f} MB/s of output; host C decoder "
             f"median {ht:.4f} s = {mb / ht:.3f} MB/s; anchor_walk launches "
-            f"{launched}")
+            f"{launched}; checksum kernel launches {cks_counts[name]}")
         with profiling.collect() as st:
             run()
         log(f"stages decode {name} ms (each device stage synchronises the "
@@ -975,19 +1028,45 @@ def phase_decode(torch, kernels, zt, profiling, timer, data, corpus):
         idv._resolve_parent = orig_resolve
     log(f"LZ resolve doubling rounds per group (indexed, then zlib): {rounds}")
 
+    # Every group CRC of one indexed and one gzip decode, for phase 8.
+    crc_groups = []
+    orig_crc = cs._crc32_impl
+    for name in ("indexed", "gzip"):
+        fmt, blob = streams[name]
+
+        def rec_crc(buf, length, start=0, name=name):
+            k = sum(g[0].startswith(name) for g in crc_groups)
+            crc_groups.append((f"{name} group {k}", buf, int(length),
+                               int(start)))
+            return orig_crc(buf, length, start)
+
+        cs._crc32_impl = rec_crc
+        try:
+            zt.decompress(blob, format=fmt, engine="device")
+        finally:
+            cs._crc32_impl = orig_crc
+
     buf = torch.randint(0, 256, (1 << 22,), dtype=torch.uint8, device="cuda")
     n_crc = (1 << 22) - 12345
-    cs._crc32_impl(buf, n_crc, idv._W)  # warm-up: the tables' uploads
+    cs._crc32_impl(buf, n_crc, idv._W)  # warm-up: the tables' upload
     torch.cuda.synchronize()
-    crc, n_ev, ev_ms = device_events(
+    kernels.reset_launches()
+    crc, n_ev = launch_calls(
         profiling, lambda: cs._crc32_impl(buf, n_crc, idv._W))
+    calls = kernels.launches["crc32_rows"]
     want = zlib.crc32(buf[idv._W : n_crc].cpu().numpy().tobytes())
     if int(crc) != want:
         raise AssertionError("device crc32 != zlib.crc32")
+    if calls != 1 or n_ev > 3:
+        raise AssertionError(f"4 MiB group CRC: {calls} crc32_rows calls, "
+                             f"{n_ev} device launches")
+    ev_ms = timer.kernel_ms(lambda: cs._crc32_impl(buf, n_crc, idv._W))
     crc_ms = timer.wall_ms(lambda: cs._crc32_impl(buf, n_crc, idv._W))
-    log(f"CRC-32 of a 4 MiB group on the card: {n_ev} device launches, "
-        f"{ev_ms:.3f} ms device time, {crc_ms:.3f} ms a call (events); "
-        "equals zlib.crc32")
+    crc_line = {"launches": n_ev, "device_ms": ev_ms, "call_ms": crc_ms}
+    log(f"CRC-32 of a 4 MiB group on the card: {n_ev} launches (runtime "
+        f"calls; {calls} crc32_rows call), {ev_ms:.4f} ms device time "
+        f"(events, L2 flushed, median of 15), {crc_ms:.4f} ms a call "
+        "(events); equals zlib.crc32")
 
     bad = bytearray(indexed)
     bad[len(bad) // 2] ^= 0x40  # a payload byte
@@ -1040,12 +1119,15 @@ def phase_decode(torch, kernels, zt, profiling, timer, data, corpus):
             secs.append(time.perf_counter() - t0)
             if k == 0:
                 counts[key] = kernels.launches["anchor_walk"]
+                cks_counts[key] = {c: kernels.launches[c] for c in CHECKSUMS}
             if (not arr.is_cuda or n != len(big)
                     or not torch.equal(arr, want_t)):
                 raise AssertionError(f"{key}: tensor differs from input")
             del arr
         if (counts[key] > 0) != walk:
             raise AssertionError(f"{key}: anchor_walk launches {counts[key]}")
+        if cks_counts[key]["crc32_rows"] == 0:
+            raise AssertionError(f"{key}: crc32_rows never launched")
         t0 = time.perf_counter()
         if zt.decompress(blob, format="gzip") != big:
             raise AssertionError(f"{key}: host decode differs")
@@ -1054,7 +1136,8 @@ def phase_decode(torch, kernels, zt, profiling, timer, data, corpus):
         log(f"decode {key}=True: {len(blob)} -> {len(big)} B; median "
             f"{dt:.4f} s of {len(secs)} call(s) (min {min(secs):.4f}, max "
             f"{max(secs):.4f}) = {big_mb / dt:.3f} MB/s; a CUDA tensor equal "
-            f"to the input; anchor_walk launches {counts[key]}; host C "
+            f"to the input; anchor_walk launches {counts[key]}; checksum "
+            f"kernel launches {cks_counts[key]}; host C "
             f"decoder to bytes {host_s:.4f} s = {big_mb / host_s:.3f} MB/s")
         rates[key] = (big_mb / dt, big_mb / host_s)
         if walk:
@@ -1138,13 +1221,15 @@ def phase_decode(torch, kernels, zt, profiling, timer, data, corpus):
         f"{len(pre) / 1e6 / v2_s:.3f} MB/s; _commit_walk on {a[0].numel()} "
         f"bits: {n_ev} device launches, {ev_ms:.3f} ms device time, "
         f"{sweep_ms:.3f} ms a call (events)")
-    return {"launches": counts["indexed"], "launches_by_run": counts,
+    walk = {"launches": counts["indexed"], "launches_by_run": counts,
             "max_abs_err": err, "ms": first["ms"], "plain_ms": plain_ms,
             "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
             "library_ms": None,
             "per_launch": per_launch, "foreign_per_launch": foreign_launch,
             "foreign_spacing": idv.FOREIGN_ANCHOR_TOKENS,
             "MBps_device_vs_host": rates}
+    return walk, {"launches_by_run": cks_counts, "groups": crc_groups,
+                  "crc_4mib_group": crc_line}
 
 
 def trailer_crc(blob: bytes) -> int:
@@ -1209,7 +1294,7 @@ def phase_parallel(torch, kernels, zt, profiling, timer, corpus):
             raise AssertionError(f"sharded {name}: output does not decode")
         if trailer_crc(out) != want_crc:
             raise AssertionError(f"sharded {name}: trailer CRC != zlib.crc32")
-        idle = [k for k in KERNELS if launched[k] == 0]
+        idle = [k for k in (*KERNELS, *CHECKSUMS) if launched[k] == 0]
         if idle:
             raise AssertionError(f"sharded {name}: never launched: {idle}")
         for _ in range(PAR_REPS - 1):
@@ -1245,19 +1330,27 @@ def phase_parallel(torch, kernels, zt, profiling, timer, corpus):
         return cs.adler32_rows(rows, ends, starts), cs.crc32_rows(
             rows, ends, starts)
 
-    partials()  # warm-up: the tables' uploads
-    (adler, crc), n_ev, ev_ms = device_events(profiling, partials)
+    partials()  # warm-up: the tables' upload
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    (adler, crc), n_ev = launch_calls(profiling, partials)
+    calls = {k: kernels.launches[k] for k in CHECKSUMS}
+    if n_ev > 6 or any(v != 1 for v in calls.values()):
+        raise AssertionError(
+            f"partials: {n_ev} device launches, calls {calls}")
     for j in range(nch):
         chunk = data[j * MAIN_CHUNK : (j + 1) * MAIN_CHUNK]
         if (int(adler[j]), int(crc[j])) != (zlib.adler32(chunk),
                                             zlib.crc32(chunk)):
             raise AssertionError(f"partials of chunk {j} != zlib's")
+    ev_ms = timer.kernel_ms(partials)
     part_ms = timer.wall_ms(partials)
-    part = {"launches": n_ev, "device_ms": ev_ms, "call_ms": part_ms}
+    part = {"launches": n_ev, "device_ms": ev_ms, "call_ms": part_ms,
+            "kernel_calls": calls}
     log(f"partials of one batch {tuple(rows.shape)} (adler32_rows + "
-        f"crc32_rows): {part['launches']} device launches, "
-        f"{part['device_ms']:.3f} ms device time, {part_ms:.3f} ms a call "
-        f"(events); equal zlib's on every chunk")
+        f"crc32_rows): {n_ev} launches (runtime calls; {calls}), "
+        f"{ev_ms:.4f} ms device time (events, L2 flushed, median of 15), "
+        f"{part_ms:.4f} ms a call (events); equal zlib's on every chunk")
 
     # __graft_entry__.dryrun_multichip(8)'s cases, the card named 8 times.
     rng = np.random.default_rng(7)
@@ -1300,7 +1393,8 @@ def phase_parallel(torch, kernels, zt, profiling, timer, corpus):
         if gzip.decompress(blob) != data:
             raise AssertionError(f"multihost {nproc}: output does not decode")
         for r in ranks:
-            idle = [k for k in KERNELS if r["launches"][k] == 0]
+            idle = [k for k in (*KERNELS, *CHECKSUMS)
+                    if r["launches"][k] == 0]
             if idle:
                 raise AssertionError(
                     f"multihost {nproc} rank {r['rank']}: never launched "
@@ -1316,7 +1410,117 @@ def phase_parallel(torch, kernels, zt, profiling, timer, corpus):
                         f"{r['launches']}" for r in ranks))
         counts[f"multihost {nproc}"] = [r["launches"] for r in ranks]
         rates[f"multihost {nproc}"] = mb / dt
-    return counts, rates, part
+    return counts, rates, part, (rows, ends, starts)
+
+
+def hostile_rows(np, n: int, seed: int):
+    """Seeded (B, n) uint8 rows and their (ends, starts), int32: empty
+    ranges at 0, inside and at n, a whole row, start > 0 with end < n,
+    lengths 1-4, ranges across a kernel block's edge, and random ones."""
+    from zzflate_tpu_torch.ops.kernels import CKS_BLOCK_BYTES as blk
+
+    rng = np.random.default_rng(seed)
+    cases = [(0, 0), (n // 2, n // 2), (n, n), (0, n), (1, n - 1), (3, 4),
+             (3, 5), (7, 10), (n - 4, n), (n - 1, n), (5, 5 + blk),
+             (n - blk - 3, n - 2)]
+    cases += [tuple(sorted(int(v) for v in rng.integers(0, n + 1, 2)))
+              for _ in range(4)]
+    data = rng.integers(0, 256, (len(cases), n), np.uint8)
+    data[1, : n // 3] = 0xFF  # the CRC init fold's own byte value
+    ends = np.array([c[1] for c in cases], np.int32)
+    starts = np.array([c[0] for c in cases], np.int32)
+    return data, ends, starts
+
+
+def zlib_rows(fn, data, ends, starts) -> list[int]:
+    """fn (zlib.crc32 or adler32) of every row's range, on the host."""
+    host = data.cpu().numpy()
+    b = host.shape[0]
+    if isinstance(ends, int):
+        ends, starts = [ends] * b, [starts] * b
+    else:
+        ends, starts = ends.cpu().tolist(), starts.cpu().tolist()
+    return [fn(host[r, starts[r] : ends[r]].tobytes()) for r in range(b)]
+
+
+def cks_bound(name: str, data, ends, starts):
+    """Least time of one call: max(bytes / HBM rate, ops / integer rate).
+    Bytes: every byte of each row's range read once, the row bounds read
+    (when they are tensors) and 8 B a row written. Ops: CKS_OPS_PER_BYTE
+    a byte of the ranges."""
+    b = data.shape[0]
+    if isinstance(ends, int):
+        nbytes, moved = (ends - starts) * b, 8 * b
+    else:
+        nbytes = int((ends.long() - starts.long()).sum().item())
+        moved = 16 * b
+    t_bytes = (nbytes + moved) / HBM_BYTES_PER_S * 1e3
+    t_ops = nbytes * CKS_OPS_PER_BYTE[name] / INT_OPS_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
+            "operations", nbytes)
+
+
+def phase_checksums(torch, kernels, timer, decode, batch):
+    """crc32_rows and adler32_rows against their plain versions and zlib
+    on the real decode groups, the partials batch, a hostile batch and a
+    64 MiB + 5 B row; time, bound and share per launch."""
+    import numpy as np
+
+    inputs = [(label, buf[None], end, start)
+              for label, buf, end, start in decode["groups"]]
+    rows, ends, starts = batch
+    inputs.append((f"partials batch {tuple(rows.shape)}", rows, ends, starts))
+    hd, he, hs = hostile_rows(np, CKS_ODD_WIDTH, seed=5)
+    hd = torch.from_numpy(hd).cuda()
+    inputs.append((f"hostile {tuple(hd.shape)}", hd,
+                   torch.from_numpy(he).cuda(), torch.from_numpy(hs).cuda()))
+    inputs.append((f"hostile {tuple(hd.shape)}, one shared range [17, N-2)",
+                   hd, CKS_ODD_WIDTH - 2, 17))
+    g = torch.Generator(device="cuda").manual_seed(8)
+    big = torch.randint(0, 256, (1, CKS_BIG), generator=g, device="cuda",
+                        dtype=torch.uint8)
+    inputs.append(("64 MiB + 5 B row", big, CKS_BIG, 0))
+    inputs.append(("64 MiB + 5 B row, [3, N-2)", big, CKS_BIG - 2, 3))
+    # Timed: the first indexed decode group, the partials batch, the row.
+    timed = [inputs[0], inputs[len(decode["groups"])], inputs[-2]]
+    results = {}
+    for name in CHECKSUMS:
+        kfn = getattr(kernels, name)
+        pfn = getattr(kernels, f"{name}_plain")
+        zfn = zlib.crc32 if name == "crc32_rows" else zlib.adler32
+        err = 0
+        for label, data, e, s in inputs:
+            got, exp = kfn(data, e, s), pfn(data, e, s)
+            torch.cuda.synchronize()
+            want = zlib_rows(zfn, data, e, s)
+            if got.cpu().tolist() != want or exp.cpu().tolist() != want:
+                raise AssertionError(f"{name} on {label}: kernel, plain and "
+                                     "zlib differ")
+            err = max(err, max_abs_err(torch, got, exp))
+        per_launch = []
+        for label, data, e, s in timed:
+            ms = timer.kernel_ms(lambda: kfn(data, e, s))
+            plain_ms = timer.wall_ms(lambda: pfn(data, e, s))
+            b_ms, b_by, nbytes = cks_bound(name, data, e, s)
+            per_launch.append({"input": label, "shape": list(data.shape),
+                               "range_bytes": nbytes, "ms": ms,
+                               "plain_ms": plain_ms, "bound_ms": b_ms,
+                               "bound_by": b_by, "share": b_ms / ms})
+            log(f"  {name} {label}: {nbytes} B of ranges, {ms:.4f} ms, "
+                f"bound {b_ms * 1e3:.2f} us ({b_by}), share {b_ms / ms:.3f}; "
+                f"plain {plain_ms:.4f} ms")
+        # The main path's launch: a decode group's CRC, the partials' Adler.
+        main = per_launch[0] if name == "crc32_rows" else per_launch[1]
+        results[name] = {"max_abs_err": err, "ms": main["ms"],
+                         "plain_ms": main["plain_ms"],
+                         "bound_ms": main["bound_ms"],
+                         "bound_by": main["bound_by"], "library_ms": None,
+                         "per_launch": per_launch}
+        log(f"kernel {name}: {len(inputs)} comparisons with its plain "
+            f"version and zlib exact ({len(decode['groups'])} decode "
+            f"groups, the partials batch, the hostile batch by tensor bounds "
+            f"and by one range, the 64 MiB + 5 B row twice); library: none")
+    return results
 
 
 def multihost_run(nproc: int, nbytes: int = PAR_BYTES,
@@ -1438,11 +1642,14 @@ def main() -> int:
     took("4 (streaming)")
     phase_reference(torch, zt, data, corpus)
     took("5 (reference)")
-    walk = phase_decode(torch, kernels, zt, profiling, timer, data, corpus)
+    walk, decode_cks = phase_decode(torch, kernels, zt, profiling, timer, data,
+                                    corpus)
     took("6 (device decode)")
-    par_counts, par_rates, partials = phase_parallel(
+    par_counts, par_rates, partials, batch = phase_parallel(
         torch, kernels, zt, profiling, timer, corpus)
     took("7 (parallel)")
+    cks = phase_checksums(torch, kernels, timer, decode_cks, batch)
+    took("8 (checksum kernels)")
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
 
     line = {"kernels": [
@@ -1455,8 +1662,19 @@ def main() -> int:
          **results[k]}
         for k, (src, rep) in KERNELS.items()
     ] + [{"name": WALK[0], "route": "cuda", "source": WALK[1],
-          "replaces": WALK[2], **walk}],
-        "parallel": {"MBps": par_rates, "partials_one_batch": partials}}
+          "replaces": WALK[2], **walk}] + [
+        {"name": k, "route": "cuda", "source": src, "replaces": rep,
+         "launches": (decode_cks["launches_by_run"]["indexed"][k]
+                      if k == "crc32_rows"
+                      else par_counts["sharded make_mesh"][k]),
+         "launches_by_run": {
+             **{r: c[k] for r, c in decode_cks["launches_by_run"].items()},
+             **{p: ([r[k] for r in c] if isinstance(c, list) else c[k])
+                for p, c in par_counts.items()}},
+         **cks[k]}
+        for k, (src, rep) in CHECKSUMS.items()],
+        "parallel": {"MBps": par_rates, "partials_one_batch": partials},
+        "crc_4mib_group": decode_cks["crc_4mib_group"]}
     log(json.dumps(line))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -646,6 +646,140 @@ def test_row_partials_on_card_equal_cpu():
         zlib.crc32(data[i * 4096 : (i + 1) * 4096]) for i in range(n)]
 
 
+# ---------------------------------------------------------------------------
+# crc32_rows and adler32_rows (csrc/checksum.cu): device decode's group
+# CRC and the encode's per-chunk partials.
+# ---------------------------------------------------------------------------
+
+CKS = ("crc32_rows", "adler32_rows")
+
+
+def _cks_exact(data, ends, starts):
+    """Both checksum kernels equal their plain versions and zlib on one
+    input, one launch each."""
+    host = data.cpu().numpy()
+    b = host.shape[0]
+    if isinstance(ends, int):
+        e, s = [ends] * b, [starts] * b
+    else:
+        e, s = ends.cpu().tolist(), starts.cpu().tolist()
+    for name, zfn in zip(CKS, (zlib.crc32, zlib.adler32)):
+        before = kernels.launches[name]
+        got = getattr(kernels, name)(data, ends, starts)
+        assert got.is_cuda and got.dtype == torch.int64 and got.shape == (b,)
+        assert kernels.launches[name] == before + 1
+        exp = getattr(kernels, f"{name}_plain")(data, ends, starts)
+        want = [zfn(host[r, s[r] : e[r]].tobytes()) for r in range(b)]
+        assert got.tolist() == exp.tolist() == want, name
+
+
+@pytest.mark.parametrize("width", [1, 37197, 4 * 16384 + 3])
+def test_checksum_kernels_equal_plain_and_zlib_on_hostile_rows(width):
+    """Empty ranges at 0, inside and at N, lengths 1-4, start > 0 with
+    end < N, ranges across a block's edge, odd widths; by (B,) bounds
+    (int64 and int32) and by one range every row shares."""
+    _card()
+    rng = np.random.default_rng(width)
+    n, blk = width, kernels.CKS_BLOCK_BYTES
+    cases = [(0, 0), (n // 2, n // 2), (n, n), (0, n), (1, n - 1), (3, 4),
+             (3, 5), (7, 10), (n - 4, n), (n - 1, n), (5, 5 + blk),
+             (n - blk - 3, n - 2)]
+    cases += [tuple(sorted(rng.integers(0, n + 1, 2).tolist()))
+              for _ in range(4)]
+    cases = [(min(max(lo, 0), n), min(max(hi, lo, 0), n)) for lo, hi in cases]
+    data = rng.integers(0, 256, (len(cases), n), np.uint8)
+    data[1, : n // 3] = 0xFF
+    t = torch.from_numpy(data).cuda()
+    ends = torch.tensor([c[1] for c in cases], device="cuda")
+    starts = torch.tensor([c[0] for c in cases], device="cuda",
+                          dtype=torch.int32)
+    _cks_exact(t, ends, starts)
+    _cks_exact(t, n, n // 3)
+    _cks_exact(t[:1], 0, 0)
+
+
+def test_checksum_kernels_on_a_long_row():
+    """A row of more than CKS_THREADS blocks: the second launch's threads
+    each combine several block partials."""
+    _card()
+    n = (kernels.CKS_THREADS + 3) * kernels.CKS_BLOCK_BYTES + 5
+    g = torch.Generator(device="cuda").manual_seed(3)
+    row = torch.randint(0, 256, (1, n), generator=g, device="cuda",
+                        dtype=torch.uint8)
+    _cks_exact(row, n, 0)
+    _cks_exact(row, n - 2, 7)
+
+
+@pytest.mark.parametrize("case", ["indexed", "gzip", "gzip-to-device"])
+def test_device_decode_checks_every_group_with_the_crc_kernel(case,
+                                                              monkeypatch):
+    """Every group's CRC runs through crc32_rows (an indexed stream in
+    groups of 8 KiB: several; a foreign one in one group, since its
+    blocks are longer), and the kernel equals the plain version and zlib
+    on each."""
+    _card()
+    from zzflate_tpu_torch.ops import checksums as cs
+
+    if case == "indexed":
+        monkeypatch.setattr(idv, "_WGROUP_OUT", 8192)
+    calls = []
+    orig = cs._crc32_impl
+
+    def rec(buf, length, start=0):
+        calls.append((buf, int(length), int(start)))
+        return orig(buf, length, start)
+
+    monkeypatch.setattr(cs, "_crc32_impl", rec)
+    kernels.reset_launches()
+    if case == "indexed":
+        blob = zt.compress(DATA, level=6, format="gzip", chunk_bytes=4096,
+                           indexed=True)
+        assert zt.decompress(blob, format="gzip", engine="device") == DATA
+    elif case == "gzip":
+        blob = gzip.compress(DATA, 6, mtime=0)
+        assert zt.decompress(blob, format="gzip", engine="device") == DATA
+    else:
+        arr, n = idv.decompress_foreign(gzip.compress(DATA, 6, mtime=0),
+                                        format="gzip", to_device=True)
+        assert arr.is_cuda and bytes(arr[:n].cpu().numpy()) == DATA
+    torch.cuda.synchronize()
+    assert len(calls) >= (2 if case == "indexed" else 1)
+    assert kernels.launches["crc32_rows"] == len(calls)
+    for buf, end, start in calls:
+        assert buf.is_cuda
+        _cks_exact(buf[None], end, start)
+
+
+def test_sharded_encode_partials_go_through_the_checksum_kernels(
+        monkeypatch):
+    """compress_sharded's per-chunk partials: every batch launches both
+    kernels once, each equal to its plain version and zlib, and the
+    trailer CRC combined from them is zlib's."""
+    _card()
+    from zzflate_tpu_torch.ops import checksums as cs
+    from zzflate_tpu_torch.parallel import compress_sharded
+
+    calls = []
+    for name in CKS:
+        def rec(data, ends, starts, orig=getattr(cs, name)):
+            calls.append((data, ends, starts))
+            return orig(data, ends, starts)
+
+        monkeypatch.setattr(cs, name, rec)
+    data = mixed_corpus(6 * 32768 + 77, 21)
+    kernels.reset_launches()
+    got = compress_sharded(data, level=6, format="gzip",
+                           mesh=["cuda:0", "cuda:0"], chunk_bytes=32768,
+                           mem_level=1)
+    torch.cuda.synchronize()
+    assert kernels.launches["crc32_rows"] == kernels.launches["adler32_rows"]
+    assert kernels.launches["crc32_rows"] == len(calls) // 2 > 1
+    assert gzip.decompress(got) == data
+    assert int.from_bytes(got[-8:-4], "little") == zlib.crc32(data)
+    for rows, ends, starts in calls[::2]:
+        _cks_exact(rows, ends, starts)
+
+
 # One process of a 2-process run on the card(s): its chunk-aligned range
 # of mixed_corpus(nbytes, 2) through compress_multihost on its own card
 # (device=None), counts reset just before; prints its launches.
@@ -676,7 +810,8 @@ print(json.dumps(dict(kernels.launches)))
 
 def test_multihost_two_processes_on_card_equal_one_process(tmp_path):
     """Two processes on this box's card(s) over gloo: root's bytes are
-    one process's, and every process launched all three kernels."""
+    one process's, and every process launched all three matcher kernels
+    and both checksum kernels (its partials)."""
     _card()
     kernels.build()  # once here, not in each worker
     nbytes, out = 4 << 20, tmp_path / "out.gz"
@@ -708,4 +843,4 @@ def test_multihost_two_processes_on_card_equal_one_process(tmp_path):
     assert gzip.decompress(blob) == data
     for _, o, _ in runs:
         launched = json.loads(o.strip().splitlines()[-1])
-        assert all(launched[k] > 0 for k in MAIN), launched
+        assert all(launched[k] > 0 for k in MAIN + CKS), launched

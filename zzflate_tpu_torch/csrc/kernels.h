@@ -1,5 +1,5 @@
-// Plain C interface of the port's CUDA kernels: the matcher's three and
-// device decode's anchor walk.
+// Plain C interface of the port's CUDA kernels: the matcher's three,
+// device decode's anchor walk, and CRC-32 and Adler-32 over row ranges.
 //
 // Every entry launches on the given stream without synchronising and
 // returns cudaGetLastError() as an int (0 = cudaSuccess). The matcher's
@@ -65,6 +65,28 @@ int zz_anchor_walk(const unsigned* words, int nw, const int* ll_hi,
                    const int* lane_out, const int* lane_uid,
                    const int* lane_valid, int n_lanes, int* packed,
                    int n_out_pad, int t_steps, void* stream);
+
+// CRC-32 and Adler-32 of data[r, start_r:end_r] for every row r of a
+// (batch, n) uint8 array, n < 2^31 and 0 <= start_r <= end_r <= n, into
+// out[r] (u32 values in int64). ends and starts hold batch ints, or are
+// both NULL and every row takes [start0, end0). Each entry makes two
+// launches: batch * nblk blocks of ZZ_CKS_THREADS threads, a thread
+// taking ZZ_CKS_SEG bytes, so a block ZZ_CKS_BLOCK_BYTES of a row's range
+// counted back from its end (nblk such blocks must cover the longest
+// range), writing partials to part (2 * batch * nblk u32); then one block
+// a row. tables (CRC only): T's 256 entries, then for j < 32 the four
+// byte tables of A^(2^j) (1 024 entries each).
+#define ZZ_CKS_SEG 64
+#define ZZ_CKS_THREADS 256
+#define ZZ_CKS_BLOCK_BYTES (ZZ_CKS_SEG * ZZ_CKS_THREADS)
+int zz_crc32_rows(const unsigned char* data, int batch, int n,
+                  const int* ends, const int* starts, int end0, int start0,
+                  const unsigned* tables, unsigned* part, int nblk,
+                  long long* out, void* stream);
+
+int zz_adler32_rows(const unsigned char* data, int batch, int n,
+                    const int* ends, const int* starts, int end0, int start0,
+                    unsigned* part, int nblk, long long* out, void* stream);
 
 #ifdef __cplusplus
 }

@@ -1,7 +1,9 @@
 """The port's hand-written CUDA kernels, their plain torch versions, the
 nvcc/ctypes loader and the launch counters: the matcher's three
-(scan_candidates, propagate_matches, parse_rows) and device decode's
-anchor walk.
+(scan_candidates, propagate_matches, parse_rows), device decode's
+anchor walk, and the checksums over row ranges (crc32_rows,
+adler32_rows) that device decode's group CRC and the encode's per-chunk
+partials run on.
 
 The matcher's wrappers take the JAX package's layout with a batch
 dimension: (B, n) int32 tensors, one row per chunk. A CPU tensor goes to the plain
@@ -17,14 +19,17 @@ keyed on a hash of the sources and flags, and loaded with ctypes.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import tempfile
 import threading
+import zlib
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from zzflate_tpu_torch.constants import MAX_MATCH, WINDOW_SIZE
@@ -35,10 +40,15 @@ from zzflate_tpu_torch.ops.canonical import (
     _canon_lane_tables,
     _decode_bits_canon,
 )
+from zzflate_tpu_torch.ops.checksum_math import (
+    ADLER_MOD,
+    CRC_TABLE,
+    byte_tables,
+)
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD = Path(__file__).resolve().parent.parent / "_build"
-_SOURCES = ("scan.cu", "propagate.cu", "parse.cu", "walk.cu")
+_SOURCES = ("scan.cu", "propagate.cu", "parse.cu", "walk.cu", "checksum.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -47,7 +57,7 @@ NVCC_FLAGS = (
 # Kernel launches per wrapper, counted where the kernel is launched and
 # nowhere else (plain-version calls do not count).
 launches = {"scan_candidates": 0, "propagate_matches": 0, "parse_rows": 0,
-            "anchor_walk": 0}
+            "anchor_walk": 0, "crc32_rows": 0, "adler32_rows": 0}
 
 
 # The walk's launch shape, as csrc/kernels.h defines it (a test holds the
@@ -147,9 +157,12 @@ def _load():
             lib.zz_parse_marks.argtypes = [p, p, p, p, p, i, i, i, p]
             lib.zz_anchor_walk.argtypes = [p, i, p, p, p, p, p, p, p, p, i,
                                            p, p, p, p, i, p, i, i, p]
+            lib.zz_crc32_rows.argtypes = [p, i, i, p, p, i, i, p, p, i, p, p]
+            lib.zz_adler32_rows.argtypes = [p, i, i, p, p, i, i, p, i, p, p]
             for fn in (lib.zz_scan_candidates, lib.zz_propagate_matches,
                        lib.zz_parse_exits, lib.zz_parse_marks,
-                       lib.zz_anchor_walk):
+                       lib.zz_anchor_walk, lib.zz_crc32_rows,
+                       lib.zz_adler32_rows):
                 fn.restype = ctypes.c_int
             _lib = lib
     return _lib
@@ -538,3 +551,238 @@ def anchor_walk_plain(words, ll, d, lanes, packed, t_steps: int):
     buf.scatter_reduce_(0, idx, rec_pack.reshape(-1), "amax")
     packed.copy_(buf[:n_out_pad])
     return packed
+
+
+# ---------------------------------------------------------------------------
+# 5. crc32_rows and adler32_rows (device decode's group CRC, the encode's
+#    per-chunk partials)
+# ---------------------------------------------------------------------------
+
+# The checksum kernels' launch shape, as csrc/kernels.h defines it (a test
+# holds the two equal): a thread takes CKS_SEG bytes of a row's range, a
+# block CKS_THREADS threads, so one block covers CKS_BLOCK_BYTES.
+CKS_SEG = 64
+CKS_THREADS = 256
+CKS_BLOCK_BYTES = CKS_SEG * CKS_THREADS
+# A^(2^j) byte tables the CRC kernel reads: j < 32 covers every shift of a
+# row below 2^31 bytes.
+CKS_POW_LEVELS = 32
+ADLER_BLOCK = 1024  # level-0 block of the plain Adler tree: small partials
+
+
+def crc32_rows(data, ends, starts):
+    """CRC-32 (zlib/gzip polynomial) of data[b, starts[b]:ends[b]] for
+    every row b of a (B, N) uint8 tensor, N < 2^31 and 0 <= start <= end
+    <= N. ends and starts are (B,) integer tensors (or arrays), or two
+    ints that every row shares. Returns (B,) int64 holding u32 values on
+    the data's device; an empty range gives 0."""
+    return _checksum_rows("crc32_rows", data, ends, starts)
+
+
+def adler32_rows(data, ends, starts):
+    """Adler-32 of data[b, starts[b]:ends[b]] for every row b, as
+    crc32_rows takes them. Returns (B,) int64 holding u32 values on the
+    data's device; an empty range gives 1."""
+    return _checksum_rows("adler32_rows", data, ends, starts)
+
+
+def _checksum_rows(name: str, data, ends, starts):
+    if data.dtype != torch.uint8:
+        raise TypeError(f"{name}: expected uint8, got {data.dtype}")
+    if data.dim() != 2:
+        raise ValueError(
+            f"{name}: expected 2-D, got shape {tuple(data.shape)}")
+    if not data.is_contiguous():
+        raise ValueError(f"{name}: tensor must be contiguous")
+    b, n = data.shape
+    shared = isinstance(ends, int) and isinstance(starts, int)
+    if shared:
+        if not 0 <= starts <= ends <= n:
+            raise ValueError(f"{name}: need 0 <= start <= end <= N")
+    else:
+        ends = torch.as_tensor(ends, device=data.device)
+        starts = torch.as_tensor(starts, device=data.device)
+        if ends.shape != (b,) or starts.shape != (b,):
+            raise ValueError(f"{name}: ends and starts must be (B,)")
+    plain = crc32_rows_plain if name == "crc32_rows" else adler32_rows_plain
+    if not _route(data):
+        return plain(data, ends, starts)
+    if n >= 1 << 31:
+        raise ValueError(f"{name}: rows must be shorter than 2^31 bytes")
+    dev = data.device
+    out = torch.empty((b,), dtype=torch.int64, device=dev)
+    if not b:
+        return out
+    if shared:
+        # One range for every row: the grid covers just that range.
+        span, bounds = ends - starts, (None, None, ends, starts)
+    else:
+        ends = ends.to(torch.int32).contiguous()
+        starts = starts.to(torch.int32).contiguous()
+        span, bounds = n, (ends.data_ptr(), starts.data_ptr(), 0, 0)
+    nblk = max(1, -(-span // CKS_BLOCK_BYTES))
+    part = torch.empty((b * nblk * 2,), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        lib = _load()
+        if name == "crc32_rows":
+            rc = lib.zz_crc32_rows(
+                data.data_ptr(), b, n, *bounds, _cks_tables_on(dev).data_ptr(),
+                part.data_ptr(), nblk, out.data_ptr(), _stream(data))
+        else:
+            rc = lib.zz_adler32_rows(
+                data.data_ptr(), b, n, *bounds, part.data_ptr(), nblk,
+                out.data_ptr(), _stream(data))
+    _raise_rc(name, rc)
+    launches[name] += 1
+    return out
+
+
+@functools.cache
+def _cks_tables_on(device: torch.device) -> torch.Tensor:
+    """The CRC kernel's tables, uploaded once per card: T (256 u32), then
+    the four byte tables of A^(2^j) for j < CKS_POW_LEVELS (1 024 u32
+    each), as int32 bits."""
+    tabs = np.concatenate([CRC_TABLE.astype(np.int64)]
+                          + [byte_tables(j).reshape(-1)
+                             for j in range(CKS_POW_LEVELS)])
+    return torch.from_numpy(tabs.astype(np.uint32).view(np.int32)).to(device)
+
+
+def _gf_matvec_batch(tables: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Apply a GF(2) 32x32 matrix to a batch of u32 (int64) values.
+
+    The reference XORs the 32 columns selected by v's bits (128
+    elementwise steps); the map is linear, so it equals the XOR of its
+    images of v's four bytes, looked up in the matrix's (4, 256) byte
+    tables (``checksum_math.byte_tables``): 4 gathers."""
+    out = tables[0][v & 0xFF]
+    for k in range(1, 4):
+        out = out ^ tables[k][(v >> (8 * k)) & 0xFF]
+    return out
+
+
+@functools.cache
+def _tables_on(j: int, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(byte_tables(j)).to(device)
+
+
+@functools.cache
+def _crc_table_on(device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(CRC_TABLE.astype(np.int64)).to(device)
+
+
+def _crc_tree(c: torch.Tensor) -> torch.Tensor:
+    """Tree-combine per-byte CRC contributions along the last axis:
+    c(L||R) = A^len(R) c(L) ^ c(R), with len(R) = 2^j at level j. An odd
+    level prepends an all-zero segment on the left, where leading zeros
+    are transparent to the zero-init contribution, so the result is the
+    contribution of the whole width for any width."""
+    dev = c.device
+    level = 0
+    while c.shape[-1] > 1:
+        if c.shape[-1] % 2:
+            c = torch.cat([c.new_zeros(c.shape[:-1] + (1,)), c], dim=-1)
+        c = (_gf_matvec_batch(_tables_on(level, dev), c[..., 0::2])
+             ^ c[..., 1::2])
+        level += 1
+    return c[..., 0]
+
+
+def _row_window(data: torch.Tensor, ends, starts):
+    """(B, N) uint8 and per-row [start, end) -> int64 bytes with the rest
+    zeroed, and the bounds as (B,) int64 on the data's device."""
+    dev = data.device
+    ends = torch.as_tensor(ends, device=dev).long().expand(data.shape[:1])
+    starts = torch.as_tensor(starts, device=dev).long().expand(data.shape[:1])
+    idx = torch.arange(data.shape[1], device=dev)[None, :]
+    keep = (idx >= starts[:, None]) & (idx < ends[:, None])
+    return torch.where(keep, data.long(), 0), ends, starts
+
+
+@functools.cache
+def _short_init_on(device: torch.device) -> torch.Tensor:
+    """(5,) int64: for a range of L < 4 bytes, what its init fold
+    A^L(0xFFFFFFFF) differs by from the zero-init contribution of 0xFF
+    in its first L bytes (crc32(b"\\xff" * L) ^ 0xFFFFFFFF); 0 for L >= 4,
+    where the two are equal."""
+    vals = [zlib.crc32(b"\xff" * k) ^ _M32 for k in range(4)] + [0]
+    return torch.tensor(vals, dtype=torch.int64, device=device)
+
+
+def crc32_rows_plain(data, ends, starts):
+    """Plain torch version of crc32_rows: the reference's _crc32_impl tree
+    under vmap, with each row shifted so its range ends at the last
+    column. The tree's zero padding is then all on the left, where it is
+    transparent, so no row needs the reference's per-bit right-padding
+    correction. The init 0xFFFFFFFF contributes A^len(0xFFFFFFFF), which
+    equals 0xFF XORed into the range's first 4 bytes (for len >= 4;
+    shorter ranges take a constant from a table): no per-bit init fold
+    either."""
+    bch, n = data.shape
+    if n == 0:
+        data = data.new_zeros((bch, 1))
+        n = 1
+    x, ends, starts = _row_window(data, ends, starts)
+    idx = torch.arange(n, device=x.device)[None, :]
+    head = torch.minimum(starts + 4, ends)[:, None]
+    x = torch.where((idx >= starts[:, None]) & (idx < head), x ^ 0xFF, x)
+    src = idx - (n - ends)[:, None]
+    x = torch.where(src >= 0, x.gather(1, src.clamp(min=0)), 0)
+    c = _crc_tree(_crc_table_on(x.device)[x])
+    short = _short_init_on(x.device)[(ends - starts).clamp(max=4)]
+    return c ^ short ^ _M32
+
+
+def _adler_tree(x: torch.Tensor, block: int):
+    """S/W partials of (..., n_pad) int64 bytes, n_pad a multiple of
+    block, tree-combined along the last axis. At each level pairs of
+    equal-length segments merge; odd levels append an implicit all-zero
+    segment, so the effective padded length `seg` grows past n_pad and
+    the caller's right-padding correction uses it. Returns (S, W_pad,
+    seg), S and W mod 65521."""
+    m = ADLER_MOD
+    x = x.reshape(x.shape[:-1] + (x.shape[-1] // block, block))
+    weights = block - torch.arange(block, device=x.device)
+    s = x.sum(-1) % m
+    w = (x * weights).sum(-1) % m
+    seg = block
+    while s.shape[-1] > 1:
+        if s.shape[-1] % 2:
+            zero = s.new_zeros(s.shape[:-1] + (1,))
+            s = torch.cat([s, zero], dim=-1)
+            w = torch.cat([w, zero], dim=-1)
+        sl, sr = s[..., 0::2], s[..., 1::2]
+        wl, wr = w[..., 0::2], w[..., 1::2]
+        w = (wl + (((seg % m) * sl) % m) + wr) % m
+        s = (sl + sr) % m
+        seg *= 2
+    return s[..., 0], w[..., 0], seg
+
+
+def _adler_finish(s_total, w_pad, seg: int, length, start):
+    """Adler-32 from the tree's partials: right-padding correction
+    (padded zero bytes inflate every weight by seg - length, so W_true =
+    W_pad - pad*S mod m) and the n term. length and start are (B,) int64
+    tensors."""
+    m = ADLER_MOD
+    pad = ((seg - length) & _M32) % m
+    w_true = (w_pad + ((m - pad) % m) * s_total % m) % m
+    n_mod = ((length - start) & _M32) % m
+    s1 = (1 + s_total) % m
+    s2 = (n_mod + w_true) % m
+    return (s2 << 16) | s1
+
+
+def adler32_rows_plain(data, ends, starts):
+    """Plain torch version of adler32_rows: the reference's _adler32_impl
+    tree (blocks of ADLER_BLOCK, pairs merged level by level, the
+    right-padding correction at the end) with a batch dimension. Leading
+    zeros are transparent to the S/W partials, since W's weight (length -
+    i) is measured from the range's end."""
+    bch, n = data.shape
+    n_pad = max(ADLER_BLOCK, -(-n // ADLER_BLOCK) * ADLER_BLOCK)
+    if n_pad != n:
+        data = torch.cat([data, data.new_zeros((bch, n_pad - n))], dim=1)
+    x, ends, starts = _row_window(data, ends, starts)
+    s_total, w_pad, seg = _adler_tree(x, ADLER_BLOCK)
+    return _adler_finish(s_total, w_pad, seg, ends, starts)

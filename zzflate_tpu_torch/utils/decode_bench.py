@@ -1,7 +1,9 @@
-"""Device decode of foreign streams, timed for one checkout of the port.
+"""Device decode of indexed and foreign streams, timed for one checkout
+of the port.
 
 Decodes the seeded 8 MiB corpus (``utils/corpus.mixed_corpus``, seed 0)
-as stdlib zlib, gzip and raw at level 6, and the 64 MiB corpus (seed 1)
+as the checkout's own indexed L6 gzip (256 KiB chunks) and as stdlib
+zlib, gzip and raw at level 6, and the 64 MiB corpus (seed 1)
 as stdlib gzip to a CUDA tensor, each with ``engine="device"``, and
 prints one JSON line per stream and anchor spacing: the device MB/s
 (median of REPS calls, output bytes per second of host wall time), the
@@ -35,9 +37,11 @@ SMALL = 8 << 20
 BIG = 64 << 20
 
 
-def _streams(corpus):
+def _streams(corpus, zt):
     data = corpus.mixed_corpus(SMALL, seed=0)
     co = zlib.compressobj(6, zlib.DEFLATED, -15)
+    yield "indexed", "gzip", data, zt.compress(
+        data, level=6, format="gzip", chunk_bytes=1 << 18, indexed=True)
     yield "zlib", "zlib", data, zlib.compress(data, 6)
     yield "gzip", "gzip", data, gzip.compress(data, 6, mtime=0)
     yield "raw", "raw", data, co.compress(data) + co.flush()
@@ -87,7 +91,7 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     own = getattr(idv, "FOREIGN_ANCHOR_TOKENS", C.ANCHOR_TOKENS)
-    for name, fmt, data, blob in _streams(corpus):
+    for name, fmt, data, blob in _streams(corpus, zt):
         mb = len(data) / 1e6
         to_device = len(data) > SMALL
         want = (torch.frombuffer(bytearray(data), dtype=torch.uint8).cuda()
