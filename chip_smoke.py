@@ -6,7 +6,7 @@
 Phases (any failure raises and exits nonzero; nothing is caught):
 
 1. card: the device name, nvidia-smi's name and power limit, the nvcc
-   build of the five kernel sources from zzflate_tpu_torch/csrc (one nvcc per
+   build of the six kernel sources from zzflate_tpu_torch/csrc (one nvcc per
    source, all started together) and the host C compiler's build of the
    port's C runtime (zzflate_tpu_torch/native);
 2. kernels: at the main-path shape (16, 294912) each kernel is held
@@ -64,10 +64,11 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    kernel, idle share), the LZ resolve's doubling rounds, the device
    launches and time of one 4 MiB group's CRC (at most 3); a flipped
    payload byte raises ValueError on the card; a 64 MiB corpus decodes
-   with to_device=True to a CUDA tensor equal to the input, as an
-   indexed stream (whose index drops its anchors at that size, so the
-   per-bit path runs, once) and as a stdlib gzip stream (the walk), the
-   CRC kernel launched in both. The
+   with to_device=True to a CUDA tensor equal to the input, DECODE_REPS
+   times, as an indexed stream (whose index drops its anchors at that
+   size, so the per-bit path runs: the commit kernel launched once a
+   group) and as a stdlib gzip stream (the walk), the CRC kernel launched
+   in both, MB/s and stages beside the host C decoder's. The
    walk kernel equals its plain version exactly on the first group of
    the indexed run and of the gzip run (at FOREIGN_ANCHOR_TOKENS) and on
    two seeded inputs (invalid windows, the fixed code's reserved
@@ -76,8 +77,22 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    launch of those two runs: its time with its bound and share, its
    lanes, blocks (each on one SM) and the units a block spans, and its
    first lane alone at t_steps and at half of it, which give ns a step
-   and the chain floor. A v2 index (per-bit path, no walk) decodes, with
-   its commit sweeps' launches and time.
+   and the chain floor. A 1 MiB v2 index (per-bit path, no walk) decodes
+   DECODE_REPS times: MB/s beside the host C decoder's, stages, and the
+   device time of one group's _decode_all split into the commit kernels'
+   and the rest. The commit walk (csrc/commit.cu) launches in both
+   per-bit runs (once a group) and in no walk run, and equals its plain
+   version exactly on every group of the v2 run, the first and last
+   group of the 64 MiB per-bit run, and the seeded cases of
+   corpus.commit_walk_inputs at 2 and 4 superrows and a group's 4 194 304
+   bits (random steps with stops, several units and an invalid one,
+   starts at bit 0, in the last row and on the last bit, blocks across
+   superrows, max_sup_span at its cap and below it, steps up to 256, and
+   the reference's shared-row case). Per real group: the kernel's time
+   (L2 flushed, median of 15), its bytes and operations bound and share,
+   the serial depth, the device launches of a call against the plain
+   version's, and the plain version's time; and the kernel alone on one
+   superrow with one unit (its serial depth's floor).
 
 7. parallel: a seeded 64 MiB corpus at L6 gzip, 256 KiB chunks (256
    chunks), through parallel.compress_sharded on make_mesh() (every
@@ -116,7 +131,7 @@ Phases (any failure raises and exits nonzero; nothing is caught):
 
 Every trace goes through utils.profiling.trace, which also writes it
 gzipped to chiprun_out/traces/. The second-to-last lines are the
-kernels JSON (the six kernels, each with its launches by run under
+kernels JSON (the seven kernels, each with its launches by run under
 "launches_by_level" or "launches_by_run", the phase 7 paths among them,
 and phase 7's MB/s and partials under "parallel") and nvidia-smi's line;
 the last line is
@@ -183,6 +198,17 @@ KERNELS = {
 # Device decode's kernel: no Pallas kernel, the reference's lax.fori_loop.
 WALK = ("anchor_walk", "zzflate_tpu_torch/csrc/walk.cu",
         "zzflate_tpu/models/inflate_tpu.py:727 (_walk_core, lax.fori_loop)")
+# Device decode's per-bit path: no Pallas kernel, the reference's five
+# lax.fori_loops.
+COMMIT = ("commit_walk", "zzflate_tpu_torch/csrc/commit.cu",
+          "zzflate_tpu/models/inflate_tpu.py:477 (_commit_walk, five "
+          "lax.fori_loops at :505, :521, :537, :555, :572)")
+# Integer operations of the commit walk: P1 reads a bit's code, adds,
+# compares and selects (4), P2a reads, compares and selects (3), P3 reads,
+# marks and advances a committed token (4). P2c's hops are left out, so
+# the bound stays a lower one.
+COMMIT_OPS_BIT = 7
+COMMIT_OPS_MARK = 4
 # The checksums over row ranges: no Pallas kernels, the reference's jitted
 # programs (vmapped by its encoder, run per group by its device decode).
 CHECKSUMS = {
@@ -633,20 +659,6 @@ def trace(profiling, run, what: str) -> None:
         log(f"  {us / 1e3:9.3f} ms {count:6d}x {key[:90]}")
 
 
-def device_events(profiling, fn):
-    """One call of fn under profiling.trace: its result, its device
-    launches and their device time in ms."""
-    import torch
-
-    with profiling.trace(TRACE_DIR) as prof:
-        out = fn()
-        torch.cuda.synchronize()
-    ev = [e for e in prof.key_averages()
-          if str(e.device_type).endswith("CUDA")]
-    return (out, sum(e.count for e in ev),
-            sum(e.self_device_time_total for e in ev) / 1e3)
-
-
 # Host runtime calls that put work on the card: a launch or an async copy
 # or fill each.
 RUNTIME_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC",
@@ -937,6 +949,96 @@ def walk_launch_report(torch, kernels, timer, args, label: str) -> dict:
     return b
 
 
+@contextlib.contextmanager
+def recording(owner, name: str, calls: list):
+    """Record the positional arguments of every call of owner.name while
+    the body runs; the function itself runs as it is."""
+    orig = getattr(owner, name)
+
+    def rec(*a):
+        calls.append(a)
+        return orig(*a)
+
+    setattr(owner, name, rec)
+    try:
+        yield
+    finally:
+        setattr(owner, name, orig)
+
+
+def commit_bound(kernels, args, mark) -> dict:
+    """Least time of one commit_walk call: max(bytes / HBM rate, ops /
+    integer rate). Bytes: the step read once as int32 (4 B a bit), the
+    mark written once (1 B a bit), the starts and flags. Ops: per bit P1's
+    and P2a's, per committed token P3's (COMMIT_OPS_*). The serial depth
+    is the phases' dependent steps: 256 each for P1 (twice), P2a, P2c and
+    P3, and the chain's max_sup_span."""
+    step, start, valid, span = args
+    nbits = step.numel()
+    marks = int(mark.sum().item())
+    nbytes = nbits * 5 + start.numel() * 5
+    ops = nbits * COMMIT_OPS_BIT + marks * COMMIT_OPS_MARK
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT_OPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes_ms": t_bytes, "ops_ms": t_ops, "nbits": nbits,
+            "units": int(valid.sum().item()), "max_sup_span": int(span),
+            "marks": marks, "depth_steps": 5 * kernels.COMMIT_ROW + int(span)}
+
+
+def commit_report(torch, kernels, profiling, timer, args, label) -> dict:
+    """One real commit_walk call: the kernel against its plain version
+    (exact), the kernel's device time on the int32 step (its three
+    launches alone; L2 flushed, median of 15), the device launches of the
+    call as the decode makes it (the int64 step's cast included) and of
+    the plain version, the plain version's time, the bound and share."""
+    step, start, valid, span = args
+    got = kernels.commit_walk(*args)
+    exp = kernels.commit_walk_plain(*args)
+    err = max_abs_err(torch, got, exp)
+    if err:
+        raise AssertionError(f"commit_walk {label}: kernel != plain")
+    s32 = step.to(torch.int32)
+    ms = timer.kernel_ms(lambda: kernels.commit_walk(s32, start, valid, span))
+    _, n_call = launch_calls(profiling, lambda: kernels.commit_walk(*args))
+    _, n_plain = launch_calls(profiling,
+                              lambda: kernels.commit_walk_plain(*args))
+    plain_ms = timer.wall_ms(lambda: kernels.commit_walk_plain(*args), reps=1)
+    b = commit_bound(kernels, args, got)
+    b.update(launch=label, ms=ms, share=b["bound_ms"] / ms,
+             plain_ms=plain_ms, launches_a_call=n_call,
+             plain_launches_a_call=n_plain)
+    log(f"  commit_walk {label}: {b['nbits']} bits, {b['units']} units, "
+        f"max_sup_span {span}, {b['marks']} marks; kernel {ms:.4f} ms; bound "
+        f"{b['bound_ms'] * 1e3:.2f} us ({b['bound_by']}; bytes "
+        f"{b['bytes_ms'] * 1e3:.2f} us, ops {b['ops_ms'] * 1e3:.2f} us), "
+        f"share {b['share']:.4f}; serial depth {b['depth_steps']} steps; "
+        f"{n_call} device launches a call (runtime calls; the plain version "
+        f"{n_plain}); plain {plain_ms:.3f} ms a call (events); equal")
+    return b
+
+
+def device_split(torch, profiling, fn, prefix: str):
+    """One call of fn under profiling.trace: its device launches, their
+    device time and the part of it in kernels whose name holds prefix, in
+    ms (None for the times when the profile holds no device records); the
+    eight largest device rows are logged."""
+    with profiling.trace(TRACE_DIR) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages()
+          if str(e.device_type).endswith("CUDA")]
+    if not ev:
+        return 0, None, None
+    for e in sorted(ev, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x "
+            f"{e.key[:90]}")
+    return (sum(e.count for e in ev),
+            sum(e.self_device_time_total for e in ev) / 1e3,
+            sum(e.self_device_time_total for e in ev if prefix in e.key) / 1e3)
+
+
 def foreign_walk_calls(kernels, idv, blob: bytes, fmt: str, want: bytes):
     """Every anchor_walk call of one device decode of a foreign stream."""
     calls: list = []
@@ -948,8 +1050,9 @@ def foreign_walk_calls(kernels, idv, blob: bytes, fmt: str, want: bytes):
 
 def phase_decode(torch, kernels, zt, profiling, timer, data, corpus):
     """Device decode of the 8 MiB corpus (indexed, zlib, gzip, raw), the
-    64 MiB data-loading run, the walk kernel against its plain version,
-    and the v2 per-bit path."""
+    64 MiB data-loading runs, the walk kernel against its plain version,
+    and the per-bit path (a v2 index, and the 64 MiB indexed run) with
+    the commit kernel against its plain version."""
 
     from zzflate_tpu_torch.models import inflate_device as idv
     from zzflate_tpu_torch.ops import checksums as cs
@@ -965,7 +1068,7 @@ def phase_decode(torch, kernels, zt, profiling, timer, data, corpus):
         "gzip": ("gzip", gzip.compress(data, 6, mtime=0)),
         "raw": ("raw", co.compress(data) + co.flush()),
     }
-    counts, rates, cks_counts = {}, {}, {}
+    counts, rates, cks_counts, commit_counts = {}, {}, {}, {}
     for name, (fmt, blob) in streams.items():
         def run():
             return zt.decompress(blob, format=fmt, engine="device")
@@ -978,8 +1081,12 @@ def phase_decode(torch, kernels, zt, profiling, timer, data, corpus):
         secs = [time.perf_counter() - t0]
         launched = kernels.launches["anchor_walk"]
         cks_counts[name] = {k: kernels.launches[k] for k in CHECKSUMS}
+        commit_counts[name] = kernels.launches["commit_walk"]
         if out != data:
             raise AssertionError(f"decode {name}: output differs from input")
+        if commit_counts[name]:
+            raise AssertionError(f"decode {name}: commit_walk launched on "
+                                 "the walk path")
         if launched == 0:
             raise AssertionError(f"decode {name}: anchor_walk never launched")
         if fmt == "gzip" and cks_counts[name]["crc32_rows"] == 0:
@@ -1095,6 +1202,7 @@ def phase_decode(torch, kernels, zt, profiling, timer, data, corpus):
         raise AssertionError("64 MiB index carries anchors: expected none")
     want_t = torch.frombuffer(bytearray(big), dtype=torch.uint8).cuda()
     big_mb = len(big) / 1e6
+    big_commit = []  # the per-bit run's first and last groups' arguments
     for name, blob, walk in (("indexed, per-bit path", big_idx, False),
                              ("stdlib gzip, anchor walk", big_gz, True)):
         def run_big():
@@ -1106,20 +1214,24 @@ def phase_decode(torch, kernels, zt, profiling, timer, data, corpus):
             torch.cuda.synchronize()
             return arr, n
 
-        if walk:
-            run_big()  # warm-up
         key = f"64 MiB {name}, to_device"
+        groups: list = []
+        with recording(idv, "_commit_walk", groups):
+            run_big()  # warm-up, recording every group's commit arguments
+        if groups:
+            big_commit = [groups[0], groups[-1]]
+        commit_groups = len(groups)
+        del groups
         kernels.reset_launches()
         secs = []
-        # The per-bit path runs once, as a check: the 1 MiB v2 run below
-        # times its sweeps.
-        for k in range(DECODE_REPS if walk else 1):
+        for k in range(DECODE_REPS):
             t0 = time.perf_counter()
             arr, n = run_big()
             secs.append(time.perf_counter() - t0)
             if k == 0:
                 counts[key] = kernels.launches["anchor_walk"]
                 cks_counts[key] = {c: kernels.launches[c] for c in CHECKSUMS}
+                commit_counts[key] = kernels.launches["commit_walk"]
             if (not arr.is_cuda or n != len(big)
                     or not torch.equal(arr, want_t)):
                 raise AssertionError(f"{key}: tensor differs from input")
@@ -1128,6 +1240,10 @@ def phase_decode(torch, kernels, zt, profiling, timer, data, corpus):
             raise AssertionError(f"{key}: anchor_walk launches {counts[key]}")
         if cks_counts[key]["crc32_rows"] == 0:
             raise AssertionError(f"{key}: crc32_rows never launched")
+        if commit_counts[key] != (0 if walk else commit_groups):
+            raise AssertionError(f"{key}: commit_walk launches "
+                                 f"{commit_counts[key]}, groups "
+                                 f"{commit_groups}")
         t0 = time.perf_counter()
         if zt.decompress(blob, format="gzip") != big:
             raise AssertionError(f"{key}: host decode differs")
@@ -1136,15 +1252,15 @@ def phase_decode(torch, kernels, zt, profiling, timer, data, corpus):
         log(f"decode {key}=True: {len(blob)} -> {len(big)} B; median "
             f"{dt:.4f} s of {len(secs)} call(s) (min {min(secs):.4f}, max "
             f"{max(secs):.4f}) = {big_mb / dt:.3f} MB/s; a CUDA tensor equal "
-            f"to the input; anchor_walk launches {counts[key]}; checksum "
+            f"to the input; anchor_walk launches {counts[key]}; commit_walk "
+            f"launches {commit_counts[key]}; checksum "
             f"kernel launches {cks_counts[key]}; host C "
             f"decoder to bytes {host_s:.4f} s = {big_mb / host_s:.3f} MB/s")
         rates[key] = (big_mb / dt, big_mb / host_s)
-        if walk:
-            with profiling.collect() as st:
-                run_big()
-            log(f"stages decode {key} ms: " + json.dumps(
-                {k: round(v, 3) for k, v in st.as_ms().items()}))
+        with profiling.collect() as st:
+            run_big()
+        log(f"stages decode {key} ms: " + json.dumps(
+            {k: round(v, 3) for k, v in st.as_ms().items()}))
     log(f"64 MiB corpus, card L6 indexed encode and stdlib gzip: "
         f"{setup_s:.2f} s")
     del want_t
@@ -1195,32 +1311,97 @@ def phase_decode(torch, kernels, zt, profiling, timer, data, corpus):
     pre = data[:V2_BYTES]
     v2 = to_v2(zt.compress(pre, level=6, format="gzip",
                            chunk_bytes=MAIN_CHUNK, indexed=True), containers)
-    sweep_args = []
-    orig_commit = idv._commit_walk
-
-    def rec_commit(*a):
-        sweep_args.append(a)
-        return orig_commit(*a)
-
-    idv._commit_walk = rec_commit
-    try:
-        idv.decompress_indexed(v2)  # warm-up
-        kernels.reset_launches()
+    v2_commit, v2_all = [], []
+    with recording(idv, "_commit_walk", v2_commit), \
+            recording(idv, "_decode_all", v2_all):
+        idv.decompress_indexed(v2)  # warm-up, recording every group
+    kernels.reset_launches()
+    secs = []
+    for k in range(DECODE_REPS):
         t0 = time.perf_counter()
         if idv.decompress_indexed(v2) != pre:
             raise AssertionError("v2 index: device decode differs")
-        v2_s = time.perf_counter() - t0
-    finally:
-        idv._commit_walk = orig_commit
-    if kernels.launches["anchor_walk"]:
-        raise AssertionError("v2 index: the walk ran (per-bit path expected)")
-    a = sweep_args[-1]
-    _, n_ev, ev_ms = device_events(profiling, lambda: idv._commit_walk(*a))
-    sweep_ms = timer.wall_ms(lambda: idv._commit_walk(*a), reps=1)
-    log(f"v2 index (per-bit path), {len(pre)} B: {v2_s:.4f} s = "
-        f"{len(pre) / 1e6 / v2_s:.3f} MB/s; _commit_walk on {a[0].numel()} "
-        f"bits: {n_ev} device launches, {ev_ms:.3f} ms device time, "
-        f"{sweep_ms:.3f} ms a call (events)")
+        secs.append(time.perf_counter() - t0)
+        if k == 0:
+            commit_counts["v2 1 MiB"] = kernels.launches["commit_walk"]
+            if kernels.launches["anchor_walk"]:
+                raise AssertionError("v2 index: the walk ran (per-bit path "
+                                     "expected)")
+    if commit_counts["v2 1 MiB"] != len(v2_commit):
+        raise AssertionError(f"v2 index: commit_walk launches "
+                             f"{commit_counts['v2 1 MiB']}, groups "
+                             f"{len(v2_commit)}")
+    host = []
+    for _ in range(DECODE_REPS):
+        t0 = time.perf_counter()
+        if zt.decompress(v2, format="gzip") != pre:
+            raise AssertionError("v2 index: host decode differs")
+        host.append(time.perf_counter() - t0)
+    v2_mb = len(pre) / 1e6
+    v2_s, v2_host = statistics.median(secs), statistics.median(host)
+    rates["v2 1 MiB"] = (v2_mb / v2_s, v2_mb / v2_host)
+    with profiling.collect() as st:
+        idv.decompress_indexed(v2)
+    n_all, all_ms, commit_ms = device_split(
+        torch, profiling, lambda: idv._decode_all(*v2_all[0]), "commit_")
+    rest = ("not measured (no device records)" if all_ms is None else
+            f"{n_all} device launches, {all_ms:.3f} ms device time, of which "
+            f"the commit kernels {commit_ms:.3f} ms and the rest "
+            f"{all_ms - commit_ms:.3f} ms")
+    log(f"v2 index (per-bit path), {len(pre)} B in {len(v2_commit)} "
+        f"group(s): device median {v2_s:.4f} s of {DECODE_REPS} (min "
+        f"{min(secs):.4f}, max {max(secs):.4f}) = {v2_mb / v2_s:.3f} MB/s; "
+        f"host C decoder {v2_host:.4f} s = {v2_mb / v2_host:.3f} MB/s; "
+        f"commit_walk launches {commit_counts['v2 1 MiB']}; stages ms "
+        + json.dumps({k: round(v, 3) for k, v in st.as_ms().items()})
+        + f"; _decode_all of its first group: {rest}")
+    del v2_all
+
+    # The commit kernel against its plain version: seeded cases first
+    # (corpus.commit_walk_inputs, at the tests' sizes and a group's), then
+    # every v2 group and the 64 MiB per-bit run's first and last, each
+    # also timed.
+    synth, err = 0, 0
+    for case in corpus.COMMIT_CASES:
+        for nbits in (2 << 16, 4 << 16, idv._GROUP_BITS):
+            step, start, valid, span = corpus.commit_walk_inputs(case, nbits)
+            args = (torch.from_numpy(step).cuda(),
+                    torch.from_numpy(start).cuda(),
+                    torch.from_numpy(valid).cuda(), span)
+            err = max(err, max_abs_err(torch, kernels.commit_walk(*args),
+                                       kernels.commit_walk_plain(*args)))
+            synth += 1
+    if err:
+        raise AssertionError(f"commit_walk: kernel != plain on the seeded "
+                             f"cases (err {err})")
+    one = (torch.full((1 << 16,), 8, dtype=torch.int32, device="cuda"),
+           torch.zeros((1,), dtype=torch.int32, device="cuda"),
+           torch.ones((1,), dtype=torch.bool, device="cuda"), 1)
+    floor_ms = timer.kernel_ms(lambda: kernels.commit_walk(*one))
+    log(f"kernel commit_walk: exact on {synth} seeded inputs "
+        f"({len(corpus.COMMIT_CASES)} cases x 3 sizes); one superrow with "
+        f"one unit (its serial depth alone, one block a launch) "
+        f"{floor_ms:.4f} ms; each block of the two superrow launches asks "
+        f"132 096 B of dynamic shared memory (csrc/kernels.h)")
+    commit_reports = [
+        commit_report(torch, kernels, profiling, timer, a, f"v2 group {k}")
+        for k, a in enumerate(v2_commit)]
+    commit_reports += [
+        commit_report(torch, kernels, profiling, timer, a,
+                      f"64 MiB per-bit group {k}")
+        for k, a in zip(("first", "last"), big_commit)]
+    del v2_commit, big_commit
+    main = commit_reports[-2]  # the 64 MiB per-bit run's first group
+    commit = {"launches": commit_counts["64 MiB indexed, per-bit path, "
+                                        "to_device"],
+              "launches_by_run": commit_counts, "max_abs_err": err,
+              "ms": main["ms"], "plain_ms": main["plain_ms"],
+              "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+              "library_ms": None, "one_superrow_ms": floor_ms,
+              "seeded_inputs": synth, "per_launch": commit_reports,
+              "MBps_device_vs_host": {
+                  k: rates[k] for k in ("v2 1 MiB", "64 MiB indexed, "
+                                        "per-bit path, to_device")}}
     walk = {"launches": counts["indexed"], "launches_by_run": counts,
             "max_abs_err": err, "ms": first["ms"], "plain_ms": plain_ms,
             "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
@@ -1229,7 +1410,7 @@ def phase_decode(torch, kernels, zt, profiling, timer, data, corpus):
             "foreign_spacing": idv.FOREIGN_ANCHOR_TOKENS,
             "MBps_device_vs_host": rates}
     return walk, {"launches_by_run": cks_counts, "groups": crc_groups,
-                  "crc_4mib_group": crc_line}
+                  "crc_4mib_group": crc_line}, commit
 
 
 def trailer_crc(blob: bytes) -> int:
@@ -1642,8 +1823,8 @@ def main() -> int:
     took("4 (streaming)")
     phase_reference(torch, zt, data, corpus)
     took("5 (reference)")
-    walk, decode_cks = phase_decode(torch, kernels, zt, profiling, timer, data,
-                                    corpus)
+    walk, decode_cks, commit = phase_decode(torch, kernels, zt, profiling,
+                                            timer, data, corpus)
     took("6 (device decode)")
     par_counts, par_rates, partials, batch = phase_parallel(
         torch, kernels, zt, profiling, timer, corpus)
@@ -1663,6 +1844,8 @@ def main() -> int:
         for k, (src, rep) in KERNELS.items()
     ] + [{"name": WALK[0], "route": "cuda", "source": WALK[1],
           "replaces": WALK[2], **walk}] + [
+        {"name": COMMIT[0], "route": "cuda", "source": COMMIT[1],
+         "replaces": COMMIT[2], **commit}] + [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "launches": (decode_cks["launches_by_run"]["indexed"][k]
                       if k == "crc32_rows"

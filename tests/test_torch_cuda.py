@@ -28,7 +28,11 @@ import zzflate_tpu_torch as zt
 from zzflate_tpu_torch.models import inflate_device as idv
 from zzflate_tpu_torch.ops import kernels
 from zzflate_tpu_torch.utils import containers
-from zzflate_tpu_torch.utils.corpus import mixed_corpus
+from zzflate_tpu_torch.utils.corpus import (
+    COMMIT_CASES,
+    commit_walk_inputs,
+    mixed_corpus,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -574,6 +578,68 @@ def test_device_decode_to_device_returns_a_cuda_tensor():
     arr, n = idv.decompress_foreign(gzip.compress(DATA, 6), format="gzip",
                                     to_device=True)
     assert arr.is_cuda and bytes(arr.cpu().numpy()) == DATA
+
+
+# ---------------------------------------------------------------------------
+# commit_walk: the per-bit path's kernel (csrc/commit.cu).
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("nbits", [2 << 16, 4 << 16, 1 << 22],
+                         ids=["2RR", "4RR", "group"])
+@pytest.mark.parametrize("case", COMMIT_CASES)
+def test_commit_walk_matches_plain_on_synthetic_cases(case, nbits):
+    """The kernel equals its plain version exactly on every seeded case,
+    at the tests' two sizes and at a decode group's 4 194 304 bits, from
+    an int32 step and from _decode_bits' int64 one."""
+    _card()
+    step, start, valid, span = commit_walk_inputs(case, nbits)
+    st, sb = _t(step), _t(start)
+    uv = torch.from_numpy(valid).cuda()
+    exp = kernels.commit_walk_plain(st, sb, uv, span)
+    before = kernels.launches["commit_walk"]
+    for s in (st, st.long()):
+        got = kernels.commit_walk(s, sb, uv, span)
+        assert got.dtype == torch.bool and got.is_cuda
+        assert torch.equal(got, exp)
+    assert kernels.launches["commit_walk"] == before + 2
+
+
+def test_commit_walk_on_a_misaligned_step_and_int32_valid():
+    """A step view off 16-byte alignment is copied once; unit_valid may
+    be int32."""
+    _card()
+    step, start, valid, span = commit_walk_inputs("edges", 2 << 16)
+    st = _t(np.r_[0, step])[1:]
+    assert st.data_ptr() % 16
+    exp = kernels.commit_walk_plain(st, _t(start),
+                                    torch.from_numpy(valid).cuda(), span)
+    got = kernels.commit_walk(st, _t(start), _t(valid), span)
+    assert torch.equal(got, exp)
+
+
+def test_v2_decode_on_card_runs_the_commit_kernel(monkeypatch):
+    """The per-bit path (a v2 index) launches commit_walk once a group
+    and equals the CPU path."""
+    _card()
+    blob = _v2(zt.compress(DATA, level=6, format="gzip", chunk_bytes=4096,
+                           indexed=True))
+    calls = []
+    orig = idv._commit_walk
+
+    def rec(*a):
+        calls.append(a)
+        return orig(*a)
+
+    monkeypatch.setattr(idv, "_commit_walk", rec)
+    kernels.reset_launches()
+    assert idv.decompress_indexed(blob) == DATA
+    torch.cuda.synchronize()
+    assert kernels.launches["commit_walk"] == len(calls) >= 1
+    assert kernels.launches["anchor_walk"] == 0
+    for a in calls:
+        assert torch.equal(kernels.commit_walk(*a),
+                           kernels.commit_walk_plain(*a))
 
 
 # ---------------------------------------------------------------------------

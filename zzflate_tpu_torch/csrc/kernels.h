@@ -1,5 +1,6 @@
 // Plain C interface of the port's CUDA kernels: the matcher's three,
-// device decode's anchor walk, and CRC-32 and Adler-32 over row ranges.
+// device decode's anchor walk and commit walk, and CRC-32 and Adler-32
+// over row ranges.
 //
 // Every entry launches on the given stream without synchronising and
 // returns cudaGetLastError() as an int (0 = cudaSuccess). The matcher's
@@ -87,6 +88,28 @@ int zz_crc32_rows(const unsigned char* data, int batch, int n,
 int zz_adler32_rows(const unsigned char* data, int batch, int n,
                     const int* ends, const int* starts, int end0, int start0,
                     unsigned* part, int nblk, long long* out, void* stream);
+
+// Device decode's commit walk (the per-bit path): mark[p] = 1 at every
+// token start p that a valid unit reaches from its start bit by
+// next[p] = p + step[p] in the reference's row (ZZ_COMMIT_ROW bits) and
+// superrow (ZZ_COMMIT_ROW rows) sweeps, else 0 (nbits bytes, every one
+// written). nbits a multiple of ZZ_COMMIT_ROW^2 below 2^30; step 16-byte
+// and mark 4-byte aligned; valid holds n_units bytes, 0 or not; span is
+// max_sup_span. Domain: steps in [1, 256], or > 256 for a stop (the
+// decoder gives [1, 48] and 257); valid starts in [0, nbits). Outside it
+// the kernel stops the walk at a step below 1 as at one above 256 (the
+// plain version follows the reference there instead), and a valid unit
+// whose start lies outside [0, nbits) adds nothing (for a start >= nbits
+// both versions agree). Scratch the caller allocates: sup_exit (nbits /
+// ZZ_COMMIT_ROW int), start_exit (n_units int), ents (span * n_units
+// int). Three launches: one block of ZZ_COMMIT_ROW threads a superrow,
+// with 132 096 B of dynamic shared memory, then one thread a unit, then
+// one block a superrow again.
+#define ZZ_COMMIT_ROW 256
+int zz_commit_walk(const int* step, int nbits, const int* start,
+                   const unsigned char* valid, int n_units, int span,
+                   int* sup_exit, int* start_exit, int* ents,
+                   unsigned char* mark, void* stream);
 
 #ifdef __cplusplus
 }

@@ -77,7 +77,7 @@ from zzflate_tpu_torch.utils import containers
 from zzflate_tpu_torch.utils.profiling import maybe_stage
 
 _LUT_BITS = 15
-_R = 256                      # row size in bits for the commit sweeps
+_R = kernels.COMMIT_ROW       # row size in bits for the commit sweeps
 _RR = _R * _R                 # superrow size
 # A step of _HUGE (> _R) means "EOB / invalid: stop" (ops/canonical).
 
@@ -417,74 +417,14 @@ def _decode_bits(win_lo, win_hi, uid, ll_lut, d_lut):
 
 
 def _commit_walk(step, start_bits, unit_valid, max_sup_span):
-    """Exact token-boundary commit via hierarchical serial sweeps.
+    """Exact token-boundary commit via hierarchical serial sweeps
+    (ops/kernels.commit_walk: the CUDA kernel csrc/commit.cu on the card,
+    its plain torch version on the CPU).
 
     step: (nbits,) per-bit token width (_HUGE stops the walk);
     start_bits: (U,) absolute first-token bit per block. Returns the
-    (nbits,) bool committed mask. nbits must be a multiple of _R*_R.
-    About 4 * _R + max_sup_span short torch steps: the launch-bound part
-    of the legacy path."""
-    dev = step.device
-    step = step.long()
-    nbits = step.shape[0]
-    nrows = nbits // _R
-    nsup = nbits // _RR
-    sink = nbits
-
-    # P1: exit-of-row for every bit (reverse sweep, _R steps).
-    st_t = step.reshape(nrows, _R).T
-    row_base = torch.arange(nrows, device=dev) * _R
-    ex = torch.zeros((_R, nrows), dtype=torch.long, device=dev)
-    for j in range(_R - 1, -1, -1):
-        s = st_t[j]
-        land = j + s
-        hop = ex.gather(0, land.clamp(0, _R - 1)[None, :])[0]
-        val = torch.where(
-            s > _R, sink, torch.where(land >= _R, row_base + land, hop)
-        )
-        ex[j] = val.clamp(max=sink)
-    exit1 = ex.T.reshape(-1)
-
-    # P2a: exit-of-superrow for every bit (reverse sweep over rows).
-    e1s = exit1.reshape(nsup, _R, _R)
-    sup_end = (torch.arange(nsup, device=dev)[:, None] + 1) * _RR
-    e2 = torch.zeros((nsup, _R, _R), dtype=torch.long, device=dev)
-    e2f = e2.view(-1)
-    for j in range(_R - 1, -1, -1):
-        x1 = e1s[:, j, :]
-        hop = e2f[x1.clamp(0, nbits - 1)]
-        e2[:, j, :] = torch.where(x1 >= sup_end, x1, hop)
-    exit2 = e2.reshape(-1)
-
-    # P2b: per-block superrow chain (few steps, U lanes).
-    e = torch.where(unit_valid, start_bits.long(), sink)
-    ents = torch.full((max_sup_span, e.shape[0]), sink, dtype=torch.long,
-                      device=dev)
-    for k in range(max_sup_span):
-        ents[k] = e
-        e = torch.where(e >= sink, sink, exit2[e.clamp(0, nbits - 1)])
-
-    # P2c: expand superrow entries to row entries (walk exit1 in-sup).
-    pos = ents.reshape(-1)
-    rent = torch.full((nrows + 1,), sink, dtype=torch.long, device=dev)
-    for _ in range(_R):
-        r = torch.where(pos < sink, pos // _R, nrows)
-        rent.scatter_reduce_(0, r, pos, "amin")
-        nxt = exit1[pos.clamp(0, nbits - 1)]
-        same_sup = (nxt // _RR) == (pos // _RR)
-        pos = torch.where((pos < sink) & same_sup, nxt, sink)
-
-    # P3: mark committed token starts (every entered row, _R steps).
-    pos = rent[:nrows]
-    mark = torch.zeros((nbits + 1,), dtype=torch.long, device=dev)
-    for _ in range(_R):
-        active = pos < sink
-        mark.scatter_reduce_(0, pos.clamp(0, nbits), active.long(), "amax")
-        pc = pos.clamp(0, nbits - 1)
-        nxt = pos + step[pc]
-        row_end = (pc // _R + 1) * _R
-        pos = torch.where(active & (nxt < row_end), nxt, sink)
-    return mark[:nbits] == 1
+    (nbits,) bool committed mask. nbits must be a multiple of _R*_R."""
+    return kernels.commit_walk(step, start_bits, unit_valid, max_sup_span)
 
 
 def _decode_all(

@@ -1,9 +1,10 @@
 """The port's hand-written CUDA kernels, their plain torch versions, the
 nvcc/ctypes loader and the launch counters: the matcher's three
 (scan_candidates, propagate_matches, parse_rows), device decode's
-anchor walk, and the checksums over row ranges (crc32_rows,
-adler32_rows) that device decode's group CRC and the encode's per-chunk
-partials run on.
+anchor walk and commit walk (the per-bit path of indexes without
+anchors), and the checksums over row ranges (crc32_rows, adler32_rows)
+that device decode's group CRC and the encode's per-chunk partials run
+on.
 
 The matcher's wrappers take the JAX package's layout with a batch
 dimension: (B, n) int32 tensors, one row per chunk. A CPU tensor goes to the plain
@@ -48,7 +49,8 @@ from zzflate_tpu_torch.ops.checksum_math import (
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD = Path(__file__).resolve().parent.parent / "_build"
-_SOURCES = ("scan.cu", "propagate.cu", "parse.cu", "walk.cu", "checksum.cu")
+_SOURCES = ("scan.cu", "propagate.cu", "parse.cu", "walk.cu", "checksum.cu",
+            "commit.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -57,7 +59,8 @@ NVCC_FLAGS = (
 # Kernel launches per wrapper, counted where the kernel is launched and
 # nowhere else (plain-version calls do not count).
 launches = {"scan_candidates": 0, "propagate_matches": 0, "parse_rows": 0,
-            "anchor_walk": 0, "crc32_rows": 0, "adler32_rows": 0}
+            "anchor_walk": 0, "crc32_rows": 0, "adler32_rows": 0,
+            "commit_walk": 0}
 
 
 # The walk's launch shape, as csrc/kernels.h defines it (a test holds the
@@ -159,10 +162,11 @@ def _load():
                                            p, p, p, p, i, p, i, i, p]
             lib.zz_crc32_rows.argtypes = [p, i, i, p, p, i, i, p, p, i, p, p]
             lib.zz_adler32_rows.argtypes = [p, i, i, p, p, i, i, p, i, p, p]
+            lib.zz_commit_walk.argtypes = [p, i, p, p, i, i, p, p, p, p, p]
             for fn in (lib.zz_scan_candidates, lib.zz_propagate_matches,
                        lib.zz_parse_exits, lib.zz_parse_marks,
                        lib.zz_anchor_walk, lib.zz_crc32_rows,
-                       lib.zz_adler32_rows):
+                       lib.zz_adler32_rows, lib.zz_commit_walk):
                 fn.restype = ctypes.c_int
             _lib = lib
     return _lib
@@ -786,3 +790,142 @@ def adler32_rows_plain(data, ends, starts):
     x, ends, starts = _row_window(data, ends, starts)
     s_total, w_pad, seg = _adler_tree(x, ADLER_BLOCK)
     return _adler_finish(s_total, w_pad, seg, ends, starts)
+
+
+# ---------------------------------------------------------------------------
+# 6. commit_walk (device decode's per-bit path)
+# ---------------------------------------------------------------------------
+
+# Bits a row and rows a superrow of the commit sweeps, as csrc/kernels.h's
+# ZZ_COMMIT_ROW defines it (a test holds the two equal).
+COMMIT_ROW = 256
+_R = COMMIT_ROW
+_RR = _R * _R
+
+
+def commit_walk(step, start_bits, unit_valid, max_sup_span: int):
+    """Exact token-boundary commit of the per-bit path: the (nbits,) bool
+    mask of token starts each valid unit reaches from its start bit by
+    next[p] = p + step[p], in the reference's row and superrow sweeps
+    (zzflate_tpu/models/inflate_tpu.py _commit_walk, its quirks kept).
+
+    step: (nbits,) int32 or int64, nbits a multiple of COMMIT_ROW^2 (and
+    below 2^30 on the card), every step in [1, COMMIT_ROW] or above it (a
+    stop: _decode_bits gives [1, 48] and 257); start_bits: (U,) int32 or
+    int64, each valid one in [0, nbits); unit_valid: (U,) bool or int32;
+    max_sup_span >= 0. On the card a step below 1 stops the walk, where
+    the plain version follows the reference (csrc/kernels.h)."""
+    for nm, t in (("step", step), ("start_bits", start_bits),
+                  ("unit_valid", unit_valid)):
+        if t.dim() != 1:
+            raise ValueError(f"commit_walk: {nm} must be 1-D")
+    nbits = step.shape[0]
+    if nbits % _RR:
+        raise ValueError(f"commit_walk: nbits must be a multiple of {_RR}")
+    if unit_valid.shape != start_bits.shape:
+        raise ValueError("commit_walk: start_bits and unit_valid differ")
+    if max_sup_span < 0:
+        raise ValueError("commit_walk: max_sup_span must be >= 0")
+    if unit_valid.dtype != torch.bool:
+        unit_valid = unit_valid != 0
+    if not _route(step, start_bits, unit_valid):
+        return commit_walk_plain(step, start_bits, unit_valid, max_sup_span)
+    if nbits >= 1 << 30:
+        raise ValueError("commit_walk: nbits must be below 2^30")
+    for nm, t in (("step", step), ("start_bits", start_bits)):
+        if t.dtype not in (torch.int32, torch.int64):
+            raise TypeError(f"commit_walk: {nm} must be int32 or int64")
+    dev = step.device
+    # _decode_bits hands in int64: one cast, read once by each launch.
+    step = step.to(torch.int32).contiguous()
+    if step.data_ptr() % 16:
+        step = step.clone()
+    start = start_bits.to(torch.int32).contiguous()
+    valid = unit_valid.contiguous().view(torch.uint8)
+    u = start.shape[0]
+    mark = torch.empty((nbits,), dtype=torch.uint8, device=dev)
+    if nbits:
+        sup_exit = torch.empty((nbits // _R,), dtype=torch.int32, device=dev)
+        start_exit = torch.empty((max(u, 1),), dtype=torch.int32, device=dev)
+        ents = torch.empty((max(u * max_sup_span, 1),), dtype=torch.int32,
+                           device=dev)
+        with torch.cuda.device(dev):
+            rc = _load().zz_commit_walk(
+                step.data_ptr(), nbits, start.data_ptr(), valid.data_ptr(),
+                u, int(max_sup_span), sup_exit.data_ptr(),
+                start_exit.data_ptr(), ents.data_ptr(), mark.data_ptr(),
+                _stream(step))
+        _raise_rc("commit_walk", rc)
+        launches["commit_walk"] += 1
+    # The kernel writes 0 or 1 a byte: the mark == 1 mask, read as bool.
+    return mark.view(torch.bool)
+
+
+def commit_walk_plain(step, start_bits, unit_valid, max_sup_span):
+    """Plain torch version of commit_walk: the reference's five loops as
+    about 4 * _R + max_sup_span short torch steps.
+
+    step: (nbits,) per-bit token width (_HUGE stops the walk);
+    start_bits: (U,) absolute first-token bit per block. Returns the
+    (nbits,) bool committed mask. nbits must be a multiple of _R*_R."""
+    dev = step.device
+    step = step.long()
+    nbits = step.shape[0]
+    nrows = nbits // _R
+    nsup = nbits // _RR
+    sink = nbits
+
+    # P1: exit-of-row for every bit (reverse sweep, _R steps).
+    st_t = step.reshape(nrows, _R).T
+    row_base = torch.arange(nrows, device=dev) * _R
+    ex = torch.zeros((_R, nrows), dtype=torch.long, device=dev)
+    for j in range(_R - 1, -1, -1):
+        s = st_t[j]
+        land = j + s
+        hop = ex.gather(0, land.clamp(0, _R - 1)[None, :])[0]
+        val = torch.where(
+            s > _R, sink, torch.where(land >= _R, row_base + land, hop)
+        )
+        ex[j] = val.clamp(max=sink)
+    exit1 = ex.T.reshape(-1)
+
+    # P2a: exit-of-superrow for every bit (reverse sweep over rows).
+    e1s = exit1.reshape(nsup, _R, _R)
+    sup_end = (torch.arange(nsup, device=dev)[:, None] + 1) * _RR
+    e2 = torch.zeros((nsup, _R, _R), dtype=torch.long, device=dev)
+    e2f = e2.view(-1)
+    for j in range(_R - 1, -1, -1):
+        x1 = e1s[:, j, :]
+        hop = e2f[x1.clamp(0, nbits - 1)]
+        e2[:, j, :] = torch.where(x1 >= sup_end, x1, hop)
+    exit2 = e2.reshape(-1)
+
+    # P2b: per-block superrow chain (few steps, U lanes).
+    e = torch.where(unit_valid, start_bits.long(), sink)
+    ents = torch.full((max_sup_span, e.shape[0]), sink, dtype=torch.long,
+                      device=dev)
+    for k in range(max_sup_span):
+        ents[k] = e
+        e = torch.where(e >= sink, sink, exit2[e.clamp(0, nbits - 1)])
+
+    # P2c: expand superrow entries to row entries (walk exit1 in-sup).
+    pos = ents.reshape(-1)
+    rent = torch.full((nrows + 1,), sink, dtype=torch.long, device=dev)
+    for _ in range(_R):
+        r = torch.where(pos < sink, pos // _R, nrows)
+        rent.scatter_reduce_(0, r, pos, "amin")
+        nxt = exit1[pos.clamp(0, nbits - 1)]
+        same_sup = (nxt // _RR) == (pos // _RR)
+        pos = torch.where((pos < sink) & same_sup, nxt, sink)
+
+    # P3: mark committed token starts (every entered row, _R steps).
+    pos = rent[:nrows]
+    mark = torch.zeros((nbits + 1,), dtype=torch.long, device=dev)
+    for _ in range(_R):
+        active = pos < sink
+        mark.scatter_reduce_(0, pos.clamp(0, nbits), active.long(), "amax")
+        pc = pos.clamp(0, nbits - 1)
+        nxt = pos + step[pc]
+        row_end = (pc // _R + 1) * _R
+        pos = torch.where(active & (nxt < row_end), nxt, sink)
+    return mark[:nbits] == 1
