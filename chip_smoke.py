@@ -6,7 +6,7 @@
 Phases (any failure raises and exits nonzero; nothing is caught):
 
 1. card: the device name, nvidia-smi's name and power limit, the nvcc
-   build of the six kernel sources from zzflate_tpu_torch/csrc (one nvcc per
+   build of the seven kernel sources from zzflate_tpu_torch/csrc (one nvcc per
    source, all started together) and the host C compiler's build of the
    port's C runtime (zzflate_tpu_torch/native);
 2. kernels: at the main-path shape (16, 294912) each kernel is held
@@ -92,7 +92,25 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    (L2 flushed, median of 15), its bytes and operations bound and share,
    the serial depth, the device launches of a call against the plain
    version's, and the plain version's time; and the kernel alone on one
-   superrow with one unit (its serial depth's floor).
+   superrow with one unit (its serial depth's floor). The LZ tail
+   (csrc/resolve.cu): resolve_lz launches once a group on every run and
+   token_scatter once a group on the per-bit runs (never on the walk);
+   resolve_lz equals its plain version exactly (bytes, parents and the
+   doubling rounds, read from the card after the call) on every group of
+   the indexed, zlib, gzip and raw runs and the first and last groups of
+   both 64 MiB runs and the v2 run, token_scatter on the v2 group and the
+   64 MiB per-bit run's first and last, and both on the seeded cases of
+   corpus.resolve_inputs and scatter_inputs at a group's size (a distance-1
+   chain 2^20 deep and one as long as the group, tokens on prefix and
+   stored slots, two writes to one slot, offsets at and past the end).
+   Per real group: each kernel's time (L2 flushed, median of 15), its
+   bytes bound and share, the plain version's time, the rounds; for
+   token_scatter also the three scatter_reduce_ calls it replaced (its
+   library yardstick), each alone with the trash slot and filtered to the
+   committed tokens. One v2 group's _decode_all: its device launches and
+   time split into the commit kernels, token_scatter, resolve_lz's and
+   the rest, its wall time, and a run under
+   torch.cuda.set_sync_debug_mode("error") (as the walk path's resolve).
 
 7. parallel: a seeded 64 MiB corpus at L6 gzip, 256 KiB chunks (256
    chunks), through parallel.compress_sharded on make_mesh() (every
@@ -131,7 +149,7 @@ Phases (any failure raises and exits nonzero; nothing is caught):
 
 Every trace goes through utils.profiling.trace, which also writes it
 gzipped to chiprun_out/traces/. The second-to-last lines are the
-kernels JSON (the seven kernels, each with its launches by run under
+kernels JSON (the nine kernels, each with its launches by run under
 "launches_by_level" or "launches_by_run", the phase 7 paths among them,
 and phase 7's MB/s and partials under "parallel") and nvidia-smi's line;
 the last line is
@@ -209,6 +227,14 @@ COMMIT = ("commit_walk", "zzflate_tpu_torch/csrc/commit.cu",
 # the bound stays a lower one.
 COMMIT_OPS_BIT = 7
 COMMIT_OPS_MARK = 4
+# Device decode's LZ tail: no Pallas kernels, the reference's scatters in
+# _decode_all and its lax.while_loop.
+SCATTER = ("token_scatter", "zzflate_tpu_torch/csrc/resolve.cu",
+           "zzflate_tpu/models/inflate_tpu.py:628 (_decode_all's three "
+           ".at[tgt].max(mode=\"drop\"), :628-636)")
+RESOLVE = ("resolve_lz", "zzflate_tpu_torch/csrc/resolve.cu",
+           "zzflate_tpu/models/inflate_tpu.py:683 (_resolve_parent, its "
+           "lax.while_loop at :716) and :722 (_resolve_lz)")
 # The checksums over row ranges: no Pallas kernels, the reference's jitted
 # programs (vmapped by its encoder, run per group by its device decode).
 CHECKSUMS = {
@@ -276,81 +302,6 @@ def capture(kernels, calls: dict):
     finally:
         for name, fn in orig.items():
             setattr(kernels, name, fn)
-
-
-class DeviceTimer:
-    """Device time per call from CUDA events. The GPU first sleeps while
-    the host queues every rep, so host launch overhead is not timed; an
-    L2 flush precedes each rep, as the main path finds its inputs cold.
-    The flush reads a 128 MB buffer (more than the 50 MB L2), so it leaves
-    the L2 full of clean lines: the timed call pays no write-back of the
-    previous call's outputs."""
-
-    def __init__(self, torch):
-        self.torch = torch
-        self.buf = torch.zeros(128 << 20, dtype=torch.uint8, device="cuda")
-
-    def flush(self) -> None:
-        self.buf.max()
-
-    def kernel_ms(self, fn, reps: int = 15) -> float:
-        torch = self.torch
-        fn()  # warm-up
-        torch.cuda.synchronize()
-        ev = [(torch.cuda.Event(enable_timing=True),
-               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
-        torch.cuda._sleep(20_000_000)
-        for s, e in ev:
-            self.flush()
-            s.record()
-            fn()
-            e.record()
-        torch.cuda.synchronize()
-        return statistics.median(s.elapsed_time(e) for s, e in ev)
-
-    def phases_ms(self, phases, reps: int = 15) -> dict:
-        """Median device time of each launch of a call made of several
-        (name, launch) pairs, from events recorded between the launches;
-        as in kernel_ms, the L2 is flushed before each call."""
-        torch = self.torch
-
-        def call(ev):
-            ev[0].record()
-            for k, (name, launch) in enumerate(phases):
-                rc = launch()
-                if rc:
-                    raise RuntimeError(f"{name}: cudaError {rc}")
-                ev[k + 1].record()
-
-        call([torch.cuda.Event() for _ in range(len(phases) + 1)])
-        torch.cuda.synchronize()
-        evs = [[torch.cuda.Event(enable_timing=True)
-                for _ in range(len(phases) + 1)] for _ in range(reps)]
-        torch.cuda._sleep(20_000_000)
-        for ev in evs:
-            self.flush()
-            call(ev)
-        torch.cuda.synchronize()
-        return {name: statistics.median(ev[k].elapsed_time(ev[k + 1])
-                                        for ev in evs)
-                for k, (name, _) in enumerate(phases)}
-
-    def wall_ms(self, fn, reps: int = 3) -> float:
-        """Event time of a call that launches many small ops (the plain
-        versions): host gaps between its launches are part of its cost."""
-        torch = self.torch
-        fn()
-        out = []
-        for _ in range(reps):
-            self.flush()
-            s = torch.cuda.Event(enable_timing=True)
-            e = torch.cuda.Event(enable_timing=True)
-            s.record()
-            fn()
-            e.record()
-            e.synchronize()
-            out.append(s.elapsed_time(e))
-        return statistics.median(out)
 
 
 def max_abs_err(torch, a, b) -> int:
@@ -670,7 +621,7 @@ def launch_calls(profiling, fn):
     put on the card, counted from the host's runtime calls. The profiler
     may return no device records for a window this short (seen on the
     H100 for a call of two kernels), so device time comes from events
-    around the call (DeviceTimer.kernel_ms) instead."""
+    around the call (profiling.DeviceTimer.kernel_ms) instead."""
     import torch
 
     with profiling.trace(TRACE_DIR) as prof:
@@ -803,22 +754,6 @@ def phase_reference(torch, zt, data, corpus):
 # branch-free, so it issues the match's count for either kind.
 WALK_OPS_LITERAL = 30
 WALK_OPS_MATCH = 63
-
-
-def to_v2(blob: bytes, containers) -> bytes:
-    """The same body behind a legacy v2 'ZZ' subfield (no anchors): the
-    per-bit path."""
-    import struct
-
-    header_len, cb, _t, chunks = containers.parse_gzip_index(blob)
-    sub = bytearray(struct.pack("<BBII", 2, 0, cb, len(chunks)))
-    for seg_bytes, blocks, _anchors in chunks:
-        sub += struct.pack("<IH", seg_bytes, len(blocks))
-        for bit_off, out_off in blocks:
-            sub += struct.pack("<II", bit_off, out_off)
-    extra = b"ZZ" + struct.pack("<H", len(sub)) + bytes(sub)
-    return (b"\x1f\x8b\x08\x04\x00\x00\x00\x00\x00\xff"
-            + struct.pack("<H", len(extra)) + extra + blob[header_len:])
 
 
 @contextlib.contextmanager
@@ -1019,26 +954,6 @@ def commit_report(torch, kernels, profiling, timer, args, label) -> dict:
     return b
 
 
-def device_split(torch, profiling, fn, prefix: str):
-    """One call of fn under profiling.trace: its device launches, their
-    device time and the part of it in kernels whose name holds prefix, in
-    ms (None for the times when the profile holds no device records); the
-    eight largest device rows are logged."""
-    with profiling.trace(TRACE_DIR) as prof:
-        fn()
-        torch.cuda.synchronize()
-    ev = [e for e in prof.key_averages()
-          if str(e.device_type).endswith("CUDA")]
-    if not ev:
-        return 0, None, None
-    for e in sorted(ev, key=lambda e: -e.self_device_time_total)[:8]:
-        log(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x "
-            f"{e.key[:90]}")
-    return (sum(e.count for e in ev),
-            sum(e.self_device_time_total for e in ev) / 1e3,
-            sum(e.self_device_time_total for e in ev if prefix in e.key) / 1e3)
-
-
 def foreign_walk_calls(kernels, idv, blob: bytes, fmt: str, want: bytes):
     """Every anchor_walk call of one device decode of a foreign stream."""
     calls: list = []
@@ -1051,12 +966,14 @@ def foreign_walk_calls(kernels, idv, blob: bytes, fmt: str, want: bytes):
 def phase_decode(torch, kernels, zt, profiling, timer, data, corpus):
     """Device decode of the 8 MiB corpus (indexed, zlib, gzip, raw), the
     64 MiB data-loading runs, the walk kernel against its plain version,
-    and the per-bit path (a v2 index, and the 64 MiB indexed run) with
-    the commit kernel against its plain version."""
+    the per-bit path (a v2 index, and the 64 MiB indexed run) with the
+    commit kernel against its plain version, and the LZ tail's two
+    kernels against theirs."""
 
     from zzflate_tpu_torch.models import inflate_device as idv
     from zzflate_tpu_torch.ops import checksums as cs
     from zzflate_tpu_torch.utils import containers
+    from zzflate_tpu_torch.utils import lz_tail_bench as tail
 
     mb = len(data) / 1e6
     indexed = zt.compress(data, level=6, format="gzip",
@@ -1069,6 +986,8 @@ def phase_decode(torch, kernels, zt, profiling, timer, data, corpus):
         "raw": ("raw", co.compress(data) + co.flush()),
     }
     counts, rates, cks_counts, commit_counts = {}, {}, {}, {}
+    tail_counts = {}  # run -> launches of token_scatter and resolve_lz
+    tail_names = (SCATTER[0], RESOLVE[0])
     for name, (fmt, blob) in streams.items():
         def run():
             return zt.decompress(blob, format=fmt, engine="device")
@@ -1082,8 +1001,12 @@ def phase_decode(torch, kernels, zt, profiling, timer, data, corpus):
         launched = kernels.launches["anchor_walk"]
         cks_counts[name] = {k: kernels.launches[k] for k in CHECKSUMS}
         commit_counts[name] = kernels.launches["commit_walk"]
+        tail_counts[name] = {k: kernels.launches[k] for k in tail_names}
         if out != data:
             raise AssertionError(f"decode {name}: output differs from input")
+        if tail_counts[name] != {SCATTER[0]: 0, RESOLVE[0]: launched}:
+            raise AssertionError(f"decode {name}: LZ tail launches "
+                                 f"{tail_counts[name]}, walk {launched}")
         if commit_counts[name]:
             raise AssertionError(f"decode {name}: commit_walk launched on "
                                  "the walk path")
@@ -1107,7 +1030,8 @@ def phase_decode(torch, kernels, zt, profiling, timer, data, corpus):
             f"median {dt:.4f} s of {DECODE_REPS} (min {min(secs):.4f}, max "
             f"{max(secs):.4f}) = {mb / dt:.3f} MB/s of output; host C decoder "
             f"median {ht:.4f} s = {mb / ht:.3f} MB/s; anchor_walk launches "
-            f"{launched}; checksum kernel launches {cks_counts[name]}")
+            f"{launched}; checksum kernel launches {cks_counts[name]}; LZ "
+            f"tail kernel launches {tail_counts[name]}")
         with profiling.collect() as st:
             run()
         log(f"stages decode {name} ms (each device stage synchronises the "
@@ -1118,22 +1042,27 @@ def phase_decode(torch, kernels, zt, profiling, timer, data, corpus):
     trace(profiling, lambda: zt.decompress(indexed, format="gzip",
                                            engine="device"), "decode indexed")
 
-    rounds = []
-    orig_resolve = idv._resolve_parent
-
-    def rec_resolve(*a):
-        parent, r = orig_resolve(*a)
-        rounds.append(r)
-        return parent, r
-
-    idv._resolve_parent = rec_resolve
-    try:
-        for name in ("indexed", "zlib"):
-            fmt, blob = streams[name]
+    # Every group's LZ resolve of the four runs, against its plain version;
+    # the rounds are read from the card after each call.
+    resolve_groups, rounds, tail_err = {}, {}, 0
+    for name, (fmt, blob) in streams.items():
+        calls: dict = {}
+        undo = tail.recorder(kernels, calls)
+        try:
             zt.decompress(blob, format=fmt, engine="device")
-    finally:
-        idv._resolve_parent = orig_resolve
-    log(f"LZ resolve doubling rounds per group (indexed, then zlib): {rounds}")
+        finally:
+            undo()
+        resolve_groups[name] = calls[RESOLVE[0]]
+        rounds[name] = []
+        for a in calls[RESOLVE[0]]:
+            e, r, _ = tail.check_resolve(kernels, a)
+            tail_err = max(tail_err, e)
+            rounds[name].append(r)
+    if tail_err:
+        raise AssertionError("resolve_lz: kernel != plain on an 8 MiB group")
+    log(f"LZ resolve doubling rounds per group (the kernel's, read from the "
+        f"card; equal to the plain version's, bytes and parents equal): "
+        f"{rounds}")
 
     # Every group CRC of one indexed and one gzip decode, for phase 8.
     crc_groups = []
@@ -1203,6 +1132,7 @@ def phase_decode(torch, kernels, zt, profiling, timer, data, corpus):
     want_t = torch.frombuffer(bytearray(big), dtype=torch.uint8).cuda()
     big_mb = len(big) / 1e6
     big_commit = []  # the per-bit run's first and last groups' arguments
+    big_tail: dict = {}  # run -> its first and last LZ tail calls
     for name, blob, walk in (("indexed, per-bit path", big_idx, False),
                              ("stdlib gzip, anchor walk", big_gz, True)):
         def run_big():
@@ -1216,8 +1146,14 @@ def phase_decode(torch, kernels, zt, profiling, timer, data, corpus):
 
         key = f"64 MiB {name}, to_device"
         groups: list = []
-        with recording(idv, "_commit_walk", groups):
-            run_big()  # warm-up, recording every group's commit arguments
+        big_tail[key] = {}
+        undo = tail.recorder(kernels, big_tail[key], ends=True)
+        try:
+            with recording(idv, "_commit_walk", groups):
+                run_big()  # warm-up, recording every group's commit
+                # arguments and the first and last LZ tail calls
+        finally:
+            undo()
         if groups:
             big_commit = [groups[0], groups[-1]]
         commit_groups = len(groups)
@@ -1232,6 +1168,8 @@ def phase_decode(torch, kernels, zt, profiling, timer, data, corpus):
                 counts[key] = kernels.launches["anchor_walk"]
                 cks_counts[key] = {c: kernels.launches[c] for c in CHECKSUMS}
                 commit_counts[key] = kernels.launches["commit_walk"]
+                tail_counts[key] = {c: kernels.launches[c]
+                                    for c in tail_names}
             if (not arr.is_cuda or n != len(big)
                     or not torch.equal(arr, want_t)):
                 raise AssertionError(f"{key}: tensor differs from input")
@@ -1244,6 +1182,11 @@ def phase_decode(torch, kernels, zt, profiling, timer, data, corpus):
             raise AssertionError(f"{key}: commit_walk launches "
                                  f"{commit_counts[key]}, groups "
                                  f"{commit_groups}")
+        n_groups = counts[key] if walk else commit_groups
+        if tail_counts[key] != {SCATTER[0]: 0 if walk else n_groups,
+                                RESOLVE[0]: n_groups}:
+            raise AssertionError(f"{key}: LZ tail launches "
+                                 f"{tail_counts[key]}, groups {n_groups}")
         t0 = time.perf_counter()
         if zt.decompress(blob, format="gzip") != big:
             raise AssertionError(f"{key}: host decode differs")
@@ -1253,7 +1196,8 @@ def phase_decode(torch, kernels, zt, profiling, timer, data, corpus):
             f"{dt:.4f} s of {len(secs)} call(s) (min {min(secs):.4f}, max "
             f"{max(secs):.4f}) = {big_mb / dt:.3f} MB/s; a CUDA tensor equal "
             f"to the input; anchor_walk launches {counts[key]}; commit_walk "
-            f"launches {commit_counts[key]}; checksum "
+            f"launches {commit_counts[key]}; LZ tail kernel launches "
+            f"{tail_counts[key]}; checksum "
             f"kernel launches {cks_counts[key]}; host C "
             f"decoder to bytes {host_s:.4f} s = {big_mb / host_s:.3f} MB/s")
         rates[key] = (big_mb / dt, big_mb / host_s)
@@ -1272,7 +1216,7 @@ def phase_decode(torch, kernels, zt, profiling, timer, data, corpus):
     fcalls = foreign_walk_calls(kernels, idv, gz, fmt, data)
     if fcalls[0][5] != idv.FOREIGN_ANCHOR_TOKENS + 2:
         raise AssertionError("foreign walk: t_steps is not the spacing + 2")
-    checked, err, plain_ms = 0, 0, None
+    checked, walk_err, plain_ms = 0, 0, None
     for args in (calls[0], fcalls[0],
                  hostile_walk_input(torch, idv, calls[0], seed=3),
                  hostile_walk_input(torch, idv, fcalls[0], seed=4)):
@@ -1289,10 +1233,10 @@ def phase_decode(torch, kernels, zt, profiling, timer, data, corpus):
         torch.cuda.synchronize()
         if plain_ms is None:
             plain_ms = ev[0].elapsed_time(ev[1])
-        err = max(err, max_abs_err(torch, got, exp))
+        walk_err = max(walk_err, max_abs_err(torch, got, exp))
         checked += 1
-    if err:
-        raise AssertionError(f"anchor_walk: kernel != plain (err {err})")
+    if walk_err:
+        raise AssertionError(f"anchor_walk: kernel != plain (err {walk_err})")
     per_launch = [walk_launch_report(torch, kernels, timer, args,
                                      f"indexed group {k}")
                   for k, args in enumerate(calls)]
@@ -1301,7 +1245,7 @@ def phase_decode(torch, kernels, zt, profiling, timer, data, corpus):
                       for k, args in enumerate(fcalls)]
     first = per_launch[0]
     log(f"kernel anchor_walk: {checked} comparisons (indexed and gzip first "
-        f"groups, two hostile inputs), max abs err {err}; first indexed "
+        f"groups, two hostile inputs), max abs err {walk_err}; first indexed "
         f"group kernel {first['ms']:.4f} ms, plain {plain_ms:.4f} ms, bound "
         f"{first['bound_ms'] * 1e3:.2f} us ({first['bound_by']}), first lane "
         f"alone {first['one_lane_ms']:.4f} ms; each block of "
@@ -1309,12 +1253,17 @@ def phase_decode(torch, kernels, zt, profiling, timer, data, corpus):
         f"dynamic shared memory (csrc/kernels.h); library: none")
 
     pre = data[:V2_BYTES]
-    v2 = to_v2(zt.compress(pre, level=6, format="gzip",
-                           chunk_bytes=MAIN_CHUNK, indexed=True), containers)
-    v2_commit, v2_all = [], []
-    with recording(idv, "_commit_walk", v2_commit), \
-            recording(idv, "_decode_all", v2_all):
-        idv.decompress_indexed(v2)  # warm-up, recording every group
+    v2 = tail.to_v2(zt.compress(pre, level=6, format="gzip",
+                                chunk_bytes=MAIN_CHUNK, indexed=True),
+                    containers)
+    v2_commit, v2_all, v2_tail = [], [], {}
+    undo = tail.recorder(kernels, v2_tail, ends=True)
+    try:
+        with recording(idv, "_commit_walk", v2_commit), \
+                recording(idv, "_decode_all", v2_all):
+            idv.decompress_indexed(v2)  # warm-up, recording every group
+    finally:
+        undo()
     kernels.reset_launches()
     secs = []
     for k in range(DECODE_REPS):
@@ -1324,12 +1273,18 @@ def phase_decode(torch, kernels, zt, profiling, timer, data, corpus):
         secs.append(time.perf_counter() - t0)
         if k == 0:
             commit_counts["v2 1 MiB"] = kernels.launches["commit_walk"]
+            tail_counts["v2 1 MiB"] = {c: kernels.launches[c]
+                                       for c in tail_names}
             if kernels.launches["anchor_walk"]:
                 raise AssertionError("v2 index: the walk ran (per-bit path "
                                      "expected)")
     if commit_counts["v2 1 MiB"] != len(v2_commit):
         raise AssertionError(f"v2 index: commit_walk launches "
                              f"{commit_counts['v2 1 MiB']}, groups "
+                             f"{len(v2_commit)}")
+    if set(tail_counts["v2 1 MiB"].values()) != {len(v2_commit)}:
+        raise AssertionError(f"v2 index: LZ tail launches "
+                             f"{tail_counts['v2 1 MiB']}, groups "
                              f"{len(v2_commit)}")
     host = []
     for _ in range(DECODE_REPS):
@@ -1342,12 +1297,32 @@ def phase_decode(torch, kernels, zt, profiling, timer, data, corpus):
     rates["v2 1 MiB"] = (v2_mb / v2_s, v2_mb / v2_host)
     with profiling.collect() as st:
         idv.decompress_indexed(v2)
-    n_all, all_ms, commit_ms = device_split(
-        torch, profiling, lambda: idv._decode_all(*v2_all[0]), "commit_")
-    rest = ("not measured (no device records)" if all_ms is None else
-            f"{n_all} device launches, {all_ms:.3f} ms device time, of which "
-            f"the commit kernels {commit_ms:.3f} ms and the rest "
-            f"{all_ms - commit_ms:.3f} ms")
+    split = tail.device_split(torch, profiling,
+                              lambda: idv._decode_all(*v2_all[0]), TRACE_DIR,
+                              log=log)
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        idv._decode_all(*v2_all[0])
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    split["wall_ms"] = statistics.median(walls) * 1e3
+    # No host sync: the per-bit group, and the walk path's resolve.
+    tail.no_sync(torch, lambda: idv._decode_all(*v2_all[0]))
+    tail.no_sync(torch, lambda: idv._resolve_lz(
+        *resolve_groups["indexed"][0],
+        resolve_groups["indexed"][0][0].shape[0]))
+    rest = ("not measured (no device records)" if split["device_ms"] is None
+            else f"{split['launches']} device launches, "
+            f"{split['device_ms']:.3f} ms device time, of which the commit "
+            f"kernels {split['commit_ms']:.3f} ms ({split['commit_launches']} "
+            f"launches), token_scatter {split['scatter_ms']:.3f} ms "
+            f"({split['scatter_launches']}), resolve_lz's "
+            f"{split['resolve_ms']:.3f} ms ({split['resolve_launches']}) and "
+            f"the rest {split['rest_ms']:.3f} ms")
+    rest += (f"; wall {split['wall_ms']:.3f} ms a call (median of 3); no "
+             "host sync (set_sync_debug_mode error), nor in the walk "
+             "path's resolve")
     log(f"v2 index (per-bit path), {len(pre)} B in {len(v2_commit)} "
         f"group(s): device median {v2_s:.4f} s of {DECODE_REPS} (min "
         f"{min(secs):.4f}, max {max(secs):.4f}) = {v2_mb / v2_s:.3f} MB/s; "
@@ -1391,9 +1366,9 @@ def phase_decode(torch, kernels, zt, profiling, timer, data, corpus):
                       f"64 MiB per-bit group {k}")
         for k, a in zip(("first", "last"), big_commit)]
     del v2_commit, big_commit
+    big_key = "64 MiB indexed, per-bit path, to_device"
     main = commit_reports[-2]  # the 64 MiB per-bit run's first group
-    commit = {"launches": commit_counts["64 MiB indexed, per-bit path, "
-                                        "to_device"],
+    commit = {"launches": commit_counts[big_key],
               "launches_by_run": commit_counts, "max_abs_err": err,
               "ms": main["ms"], "plain_ms": main["plain_ms"],
               "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
@@ -1403,14 +1378,70 @@ def phase_decode(torch, kernels, zt, profiling, timer, data, corpus):
                   k: rates[k] for k in ("v2 1 MiB", "64 MiB indexed, "
                                         "per-bit path, to_device")}}
     walk = {"launches": counts["indexed"], "launches_by_run": counts,
-            "max_abs_err": err, "ms": first["ms"], "plain_ms": plain_ms,
+            "max_abs_err": walk_err, "ms": first["ms"], "plain_ms": plain_ms,
             "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
             "library_ms": None,
             "per_launch": per_launch, "foreign_per_launch": foreign_launch,
             "foreign_spacing": idv.FOREIGN_ANCHOR_TOKENS,
             "MBps_device_vs_host": rates}
+    scatter, resolve = lz_tail_phase(torch, kernels, corpus, tail, timer,
+                                     v2_tail, big_tail, resolve_groups)
+    scatter.update(launches=tail_counts[big_key][SCATTER[0]],
+                   launches_by_run={k: c[SCATTER[0]]
+                                    for k, c in tail_counts.items()},
+                   decode_all_v2_group=split)
+    resolve.update(launches=tail_counts["indexed"][RESOLVE[0]],
+                   launches_by_run={k: c[RESOLVE[0]]
+                                    for k, c in tail_counts.items()},
+                   rounds_8mib_groups=rounds)
     return walk, {"launches_by_run": cks_counts, "groups": crc_groups,
-                  "crc_4mib_group": crc_line}, commit
+                  "crc_4mib_group": crc_line}, commit, scatter, resolve
+
+
+def lz_tail_phase(torch, kernels, corpus, tail, timer, v2_tail, big_tail,
+                  resolve_groups):
+    """The LZ tail's kernels against their plain versions on the seeded
+    cases at a group's size, then on the real groups, each timed (with
+    the bound, the plain version, and for token_scatter the torch scatters
+    it replaced). Returns the kernels JSON entries of token_scatter and
+    resolve_lz (launches added by the caller)."""
+    seeded = tail.seeded_checks(torch, kernels, corpus)
+    if seeded["max_abs_err"]:
+        raise AssertionError("LZ tail: kernel != plain on a seeded case")
+    log(f"LZ tail kernels: exact on {seeded['cases']} seeded cases at "
+        f"{tail.GROUP} positions and bits (corpus.RESOLVE_CASES, "
+        f"SCATTER_CASES); their doubling rounds {seeded['rounds']}")
+    groups = [("v2 group 0", {k: c[0] for k, c in v2_tail.items()})]
+    groups += [(f"{run}, {end} group", {k: c[i] for k, c in calls.items()})
+               for run, calls in big_tail.items()
+               for i, end in enumerate(("first", "last"))]
+    groups += [(f"indexed group {k}", {RESOLVE[0]: a})
+               for k, a in enumerate(resolve_groups["indexed"])]
+    groups += [(f"{name} group 0", {RESOLVE[0]: resolve_groups[name][0]})
+               for name in ("zlib", "gzip", "raw")]
+    reports = []
+    for label, calls in groups:
+        reports.append(tail.tail_report(
+            torch, kernels, timer, label, calls.get(SCATTER[0]),
+            calls[RESOLVE[0]], log=log))
+    per_scatter = [dict(r[SCATTER[0]], group=r["group"]) for r in reports
+                   if SCATTER[0] in r]
+    per_resolve = [dict(r[RESOLVE[0]], group=r["group"]) for r in reports]
+    # The per-bit path's 64 MiB run's first group, and the walk path's
+    # first indexed group, stand for each kernel in the kernels line.
+    ms = next(r for r in per_scatter if r["group"].startswith("64 MiB"))
+    mr = next(r for r in per_resolve if r["group"] == "indexed group 0")
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by")
+    scatter = {"max_abs_err": 0, **{k: ms[k] for k in keys},
+               "library_ms": ms["library_ms"],
+               "library": "three torch scatter_reduce_(\"amax\") calls over "
+                          "every bit, the dropped ones at a trash slot",
+               "seeded_cases": len(corpus.SCATTER_CASES),
+               "per_launch": per_scatter}
+    resolve = {"max_abs_err": 0, **{k: mr[k] for k in keys},
+               "library_ms": None, "seeded_cases": len(corpus.RESOLVE_CASES),
+               "seeded_rounds": seeded["rounds"], "per_launch": per_resolve}
+    return scatter, resolve
 
 
 def trailer_crc(blob: bytes) -> int:
@@ -1812,7 +1843,7 @@ def main() -> int:
 
     name, smi = phase_card(torch, kernels, native)
     data = corpus.mixed_corpus(MAIN_BYTES, seed=0)
-    timer = DeviceTimer(torch)
+    timer = profiling.DeviceTimer()
     took("1 (card, builds, corpus)")
     results = phase_kernels(torch, kernels, zt, timer, data)
     took("2 (kernels)")
@@ -1823,8 +1854,8 @@ def main() -> int:
     took("4 (streaming)")
     phase_reference(torch, zt, data, corpus)
     took("5 (reference)")
-    walk, decode_cks, commit = phase_decode(torch, kernels, zt, profiling,
-                                            timer, data, corpus)
+    walk, decode_cks, commit, scatter, resolve = phase_decode(
+        torch, kernels, zt, profiling, timer, data, corpus)
     took("6 (device decode)")
     par_counts, par_rates, partials, batch = phase_parallel(
         torch, kernels, zt, profiling, timer, corpus)
@@ -1846,6 +1877,9 @@ def main() -> int:
           "replaces": WALK[2], **walk}] + [
         {"name": COMMIT[0], "route": "cuda", "source": COMMIT[1],
          "replaces": COMMIT[2], **commit}] + [
+        {"name": k[0], "route": "cuda", "source": k[1], "replaces": k[2],
+         **entry} for k, entry in ((SCATTER, scatter), (RESOLVE, resolve))
+    ] + [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "launches": (decode_cks["launches_by_run"]["indexed"][k]
                       if k == "crc32_rows"

@@ -28,10 +28,15 @@ import zzflate_tpu_torch as zt
 from zzflate_tpu_torch.models import inflate_device as idv
 from zzflate_tpu_torch.ops import kernels
 from zzflate_tpu_torch.utils import containers
+from zzflate_tpu_torch.utils import lz_tail_bench as tail
 from zzflate_tpu_torch.utils.corpus import (
     COMMIT_CASES,
+    RESOLVE_CASES,
+    SCATTER_CASES,
     commit_walk_inputs,
     mixed_corpus,
+    resolve_inputs,
+    scatter_inputs,
 )
 
 pytestmark = pytest.mark.cuda
@@ -640,6 +645,107 @@ def test_v2_decode_on_card_runs_the_commit_kernel(monkeypatch):
     for a in calls:
         assert torch.equal(kernels.commit_walk(*a),
                            kernels.commit_walk_plain(*a))
+
+
+# ---------------------------------------------------------------------------
+# token_scatter and resolve_lz: device decode's LZ tail (csrc/resolve.cu).
+# ---------------------------------------------------------------------------
+
+
+def _cuda(arrays):
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).cuda()
+                 for a in arrays)
+
+
+@pytest.mark.parametrize("case", RESOLVE_CASES)
+def test_resolve_lz_matches_plain_on_seeded_cases(case):
+    """Bytes, parents and the doubling rounds equal the plain version's
+    (the 2^20 chain takes 21 rounds); each call is one counted launch."""
+    _card()
+    args = _cuda(resolve_inputs(case, 1 << 21))
+    before = kernels.launches["resolve_lz"]
+    out = kernels.resolve_lz(*args)
+    assert out.dtype == torch.uint8 and out.is_cuda
+    err, rounds, e_rounds = tail.check_resolve(kernels, args)
+    assert err == 0 and rounds == e_rounds
+    if case == "chain_2e20":
+        assert rounds == 21
+    assert torch.equal(out, kernels.resolve_lz_plain(*args))
+    assert kernels.launches["resolve_lz"] == before + 3
+
+
+@pytest.mark.parametrize("n", [1, 4095, 4097, 3 * (1 << 22) + 5])
+def test_resolve_lz_on_ragged_sizes(n):
+    """A part tile, and more tiles than one carry chunk of 1 024."""
+    _card()
+    args = _cuda(resolve_inputs("prefix_and_stored", n))
+    err, rounds, e_rounds = tail.check_resolve(kernels, args)
+    assert err == 0 and rounds == e_rounds
+
+
+@pytest.mark.parametrize("case", SCATTER_CASES)
+def test_token_scatter_matches_plain_on_seeded_cases(case):
+    """From _decode_bits' int64 arrays and from int32 ones."""
+    _card()
+    base, ins = scatter_inputs(case, 1 << 20, 1 << 19)
+    args = _cuda(base + ins)
+    before = kernels.launches["token_scatter"]
+    assert tail.check_scatter(kernels, args) == 0
+    narrow = args[:3] + (args[3].int(),) + args[4:7] + (args[7].int(),
+                                                       args[8].int())
+    assert tail.check_scatter(kernels, narrow) == 0
+    assert kernels.launches["token_scatter"] == before + 2
+
+
+@pytest.mark.parametrize("case", ["v2", "indexed"])
+def test_lz_tail_kernels_on_real_groups(case):
+    """Every group's token_scatter (the per-bit path only) and resolve_lz
+    launch once and equal their plain versions."""
+    _card()
+    blob = zt.compress(DATA, level=6, format="gzip", chunk_bytes=4096,
+                       indexed=True)
+    if case == "v2":
+        blob = _v2(blob)
+    calls: dict = {}
+    kernels.reset_launches()
+    undo = tail.recorder(kernels, calls)
+    try:
+        assert idv.decompress_indexed(blob) == DATA
+    finally:
+        undo()
+    groups = len(calls["resolve_lz"])
+    assert groups >= 1
+    assert kernels.launches["resolve_lz"] == groups
+    assert kernels.launches["token_scatter"] == (groups if case == "v2"
+                                                 else 0)
+    for a in calls.get("token_scatter", []):
+        assert tail.check_scatter(kernels, a) == 0
+    for a in calls["resolve_lz"]:
+        assert tail.check_resolve(kernels, a)[0] == 0
+
+
+def test_decode_all_and_the_walk_resolve_make_no_host_sync(monkeypatch):
+    """Under set_sync_debug_mode("error") a synchronising call raises."""
+    _card()
+    blob = zt.compress(DATA, level=6, format="gzip", chunk_bytes=4096,
+                       indexed=True)
+    seen, calls = [], {}
+    orig = idv._decode_all
+
+    def rec(*a):
+        seen.append(a)
+        return orig(*a)
+
+    monkeypatch.setattr(idv, "_decode_all", rec)
+    assert idv.decompress_indexed(_v2(blob)) == DATA
+    tail.no_sync(torch, lambda: orig(*seen[0]))
+    undo = tail.recorder(kernels, calls)
+    try:
+        assert idv.decompress_indexed(blob) == DATA
+    finally:
+        undo()
+    a = calls["resolve_lz"][0]
+    tail.no_sync(torch, lambda: idv._resolve_lz(*a, a[0].shape[0]))
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
 // Plain C interface of the port's CUDA kernels: the matcher's three,
-// device decode's anchor walk and commit walk, and CRC-32 and Adler-32
-// over row ranges.
+// device decode's anchor walk, commit walk, token scatter and LZ resolve,
+// and CRC-32 and Adler-32 over row ranges.
 //
 // Every entry launches on the given stream without synchronising and
 // returns cudaGetLastError() as an int (0 = cudaSuccess). The matcher's
@@ -110,6 +110,57 @@ int zz_commit_walk(const int* step, int nbits, const int* start,
                    const unsigned char* valid, int n_units, int span,
                    int* sup_exit, int* start_exit, int* ents,
                    unsigned char* mark, void* stream);
+
+// Device decode's token scatter (the per-bit path): for every bit b below
+// nbits (< 2^31) with committed[b] and islit[b] or islen[b], and 0 <= off[b]
+// < n_out_pad, one int32 atomicMax each into litval[off] (islit ? sym : 0),
+// start_mark[off] (off) and dist_at[off] (islen ? mdist : 0); every other bit
+// writes nothing. The masks are bool bytes; off, sym and mdist are read as
+// _decode_bits hands them, int64 (one thread a bit reads them only at its
+// committed token, so a cast to int32 first would move more bytes than it
+// saves); sym and mdist must fit int32 (the decoder gives < 288 and <=
+// 32 768). One launch, one thread a bit.
+int zz_token_scatter(const long long* off, const unsigned char* committed,
+                     const unsigned char* islit, const unsigned char* islen,
+                     const long long* sym, const long long* mdist, int nbits,
+                     int* litval, int* start_mark, int* dist_at, int n_out_pad,
+                     void* stream);
+
+// Device decode's LZ resolve (both paths), the reference's _resolve_parent
+// and _resolve_lz exactly: seg = running max of start_mark; the first hop
+// parent = (dist > 0 && seg >= 0) ? seg - d1 + (i - seg) mod d1 : i, with
+// dist = dist_at[clip(seg)], d1 = max(dist, 1), in 64-bit arithmetic and
+// clipped to [0, n); then doubling rounds parent = parent[parent] while the
+// last round changed something, at most ZZ_RESOLVE_ROUNDS; out[i] =
+// litval[parent[i]] & 0xFF. n in [1, 2^30].
+//
+// The schedule: ZZ_RESOLVE_ROUNDS round launches queued back to back, none
+// synchronising the host; round r writes flags[r] = 1 if it changed any
+// position, and round r > 1 returns at once unless flags[r - 1] is set. So
+// every round the reference's while_loop takes is taken, in its order, from
+// two buffers (a round reads one and writes the other), and no other: the
+// parent and the rounds equal the plain version's for any input, the cap
+// included. Why the cap never binds on a decoder's arrays: they hold
+// start_mark[j] = -1 or j, so seg <= i, and the first hop lands before the
+// token's start: parent[i] < i, or parent[i] = i at a root. The parents form
+// a forest less than n deep, which doubling reaches in ceil(log2 n) + 1 <= 40
+// rounds for n < 2^39.
+//
+// Launches: tile maxima (one block of ZZ_RESOLVE_THREADS a tile of
+// ZZ_RESOLVE_TILE positions, each warp ZZ_RESOLVE_STEPS runs of 32; block 0
+// zeroes flags), the carry (one block), the first hop (one block a tile), the
+// ZZ_RESOLVE_ROUNDS rounds, and the gather. The caller allocates parent and
+// scratch (n int each: the two round buffers; parent holds the result),
+// tmax (ceil(n / ZZ_RESOLVE_TILE) int) and flags (ZZ_RESOLVE_ROUNDS + 1
+// int). litval and out are NULL, or neither is: without them only parent
+// and rounds are made. rounds (NULL or one int) receives the rounds taken.
+#define ZZ_RESOLVE_THREADS 256
+#define ZZ_RESOLVE_STEPS 16
+#define ZZ_RESOLVE_TILE (ZZ_RESOLVE_THREADS * ZZ_RESOLVE_STEPS)
+#define ZZ_RESOLVE_ROUNDS 40
+int zz_resolve_lz(const int* litval, const int* start_mark, const int* dist_at,
+                  int n, int* parent, int* scratch, int* tmax, int* flags,
+                  unsigned char* out, int* rounds, void* stream);
 
 #ifdef __cplusplus
 }

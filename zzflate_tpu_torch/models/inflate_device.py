@@ -19,19 +19,20 @@ an invalid window and may re-walk the head of the next interval
 
 **Speculative per-bit decode (v2 indexes: no anchors).** A candidate
 token is decoded at EVERY bit from (U, 2^15) tables built on the
-device, then ~1000 serial row sweeps (``_commit_walk``) find the true
-token starts from each block's indexed start bit. Legacy: the encoder
-writes v3.
+device, then the reference's serial row sweeps (``_commit_walk``,
+``ops/kernels.commit_walk``) find the true token starts from each
+block's indexed start bit, and ``ops/kernels.token_scatter`` writes the
+committed tokens into the output-space arrays. Legacy: the encoder
+writes v3, but its index drops the anchors past ~28 MiB.
 
 Shared machinery, whole-array torch ops on the decode device:
 
 - **Canonical tables** from ~700-byte descriptors per block: code
   lengths by a boundary sum, symbols by offset arithmetic.
-- **Parallel LZ resolution.** A running max finds each byte's covering
-  token;
-  the closed-form in-token hop s - d + ((i - s) mod d) collapses overlap
-  chains, and pointer doubling with a convergence test (at most 40
-  rounds) finishes nested chains.
+- **Parallel LZ resolution** (``ops/kernels.resolve_lz``). A running
+  max finds each byte's covering token; the closed-form in-token hop
+  s - d + ((i - s) mod d) collapses overlap chains, and pointer doubling
+  with a convergence test (at most 40 rounds) finishes nested chains.
 - **Groups.** Streams decode in groups of consecutive chunks of at most
   ``_WGROUP_OUT`` output bytes, each carrying the previous 32 KiB of
   output as a resolved prefix across the seam.
@@ -93,8 +94,6 @@ _GROUP_OUT = 2 << 20
 _WGROUP_BODY = 4 << 20
 _WGROUP_OUT = (4 << 20) - _W
 
-_SCAN_ROW = 2048  # row length of the two-level running max
-
 # Anchor spacing of foreign streams, in tokens. An indexed stream's is
 # the format's C.ANCHOR_TOKENS; a foreign stream's anchors come from the
 # host scan, so the decoder chooses: shorter lanes start every serial
@@ -146,21 +145,16 @@ def _d_attr() -> np.ndarray:
     return a
 
 
-def _cummax(x):
-    """Inclusive running max of a 1-D integer tensor (the values of
-    torch.cummax). torch scans a 1-D tensor as a single row, serially on
-    the card (12 ms at 2^22 on the H100); as rows of _SCAN_ROW scanned
-    in parallel, then a short scan of the row maxima carried into the
-    next rows, the values are the same."""
-    n = x.shape[0]
-    if n <= _SCAN_ROW:
-        return torch.cummax(x, 0).values
-    rows = -(-n // _SCAN_ROW)
-    pad = x.new_full((rows * _SCAN_ROW - n,), torch.iinfo(x.dtype).min)
-    m = torch.cummax(torch.cat([x, pad]).view(rows, _SCAN_ROW), 1).values
-    carry = torch.cummax(m[:, -1], 0).values
-    m[1:] = torch.maximum(m[1:], carry[:-1, None])
-    return m.view(-1)[:n]
+_cummax = kernels.cummax
+
+
+@functools.cache
+def _on_device(name: str, device: torch.device) -> torch.Tensor:
+    """The per-bit path's constant tables, uploaded once per device (an
+    upload from host memory would synchronise every group)."""
+    return torch.from_numpy(
+        {"brev15": _brev15, "ll_attr": _ll_attr, "d_attr": _d_attr}[name]()
+    ).to(device)
 
 
 # ---------------------------------------------------------------------------
@@ -348,7 +342,7 @@ def _build_luts(first, cnt, off, symtab, attr, nsym, sym_bits):
     1 + #{L : v >= hi_mono[L]} and its symbol index
     off[ln] + ((v - first[ln]<<(15-ln)) >> (15-ln))."""
     dev = first.device
-    c = torch.from_numpy(_brev15()).to(dev).long()[None, :]
+    c = _on_device("brev15", dev).long()[None, :]
     first, cnt, off = first.long(), cnt.long(), off.long()
     ln_r = torch.arange(16, device=dev)
     hi_mono = torch.cummax((first + cnt) << (15 - ln_r), dim=1).values
@@ -362,7 +356,9 @@ def _build_luts(first, cnt, off, symtab, attr, nsym, sym_bits):
         rel = (c - (first[:, L] << (15 - L))[:, None]) >> (15 - L)
         idx_sel = torch.where(lnc == L, off[:, L][:, None] + rel, idx_sel)
     sym = symtab.long().gather(1, idx_sel.clamp(0, nsym - 1))
-    a = torch.from_numpy(attr).to(dev).long()[sym]
+    if isinstance(attr, np.ndarray):
+        attr = torch.from_numpy(attr).to(dev)
+    a = attr.long()[sym]
     ent = sym | (lnc << sym_bits) | (a << (sym_bits + 4))
     return torch.where(valid, ent, 0)
 
@@ -440,9 +436,10 @@ def _decode_all(
     literals, so LZ distances reaching before this group's first byte
     land on real history."""
     dev = words.device
-    ll_lut = _build_luts(ll_first, ll_cnt, ll_off, ll_sym, _ll_attr(),
-                         _MAX_LL, 10)
-    d_lut = _build_luts(d_first, d_cnt, d_off, d_sym, _d_attr(), _MAX_D, 5)
+    ll_lut = _build_luts(ll_first, ll_cnt, ll_off, ll_sym,
+                         _on_device("ll_attr", dev), _MAX_LL, 10)
+    d_lut = _build_luts(d_first, d_cnt, d_off, d_sym,
+                        _on_device("d_attr", dev), _MAX_D, 5)
 
     win_lo, win_hi = _bit_windows(words)
 
@@ -466,21 +463,11 @@ def _decode_all(
     cum0 = g[sb] - lens[sb]
     off = out_bases.long()[uid] + (g - lens) - cum0[uid]
 
-    com_tok = committed & (islit | islen)
-    tgt = torch.where(com_tok & (off >= 0) & (off < n_out_pad), off,
-                      n_out_pad)
     litval, start_mark, dist_at = _stage_out(
         prefix, stored_runs, words, n_out_pad, n_stored
     )
-
-    def scatter_max(base, vals):
-        buf = torch.cat([base.long(), base.new_zeros(1).long()])
-        buf.scatter_reduce_(0, tgt, vals, "amax")
-        return buf[:n_out_pad]
-
-    litval = scatter_max(litval, torch.where(islit, sym, 0))
-    start_mark = scatter_max(start_mark, torch.where(com_tok, off, -1))
-    dist_at = scatter_max(dist_at, torch.where(islen, mdist, 0))
+    kernels.token_scatter(litval, start_mark, dist_at, off, committed, islit,
+                          islen, sym, mdist)
     return _resolve_lz(litval, start_mark, dist_at, n_out_pad)
 
 
@@ -532,37 +519,17 @@ def _stage_out(prefix, stored_runs, words, n_out_pad, n_stored):
 
 
 def _resolve_parent(start_mark, dist_at, n_out_pad):
-    """LZ source chase: covering token via cummax, then pointer doubling
-    with a convergence test. Returns (parent, rounds): every position's
-    ultimate literal source index, and the doubling rounds taken (at most
-    40, the reference's cap, so a hostile stream stops where it stops).
-
-    The first hop is the closed-form in-token source: a match starting
-    at s with distance d repeats its source with period d, so position
-    i's ultimate within-token source is s - d + ((i - s) mod d), one hop
-    that lands strictly before the token start. Overlapped copies
-    therefore collapse to depth 1; remaining chains are nested tokens."""
-    dev = start_mark.device
-    idx = torch.arange(n_out_pad, device=dev)
-    seg = _cummax(start_mark.long())
-    dist = dist_at.long()[seg.clamp(0, n_out_pad - 1)]
-    d1 = dist.clamp(min=1)
-    src = seg - d1 + (idx - seg) % d1
-    parent = torch.where((dist > 0) & (seg >= 0), src, idx)
-    parent = parent.clamp(0, n_out_pad - 1)
-    rounds = 0
-    changed = True
-    while changed and rounds < 40:
-        p2 = parent[parent]
-        changed = bool((p2 != parent).any())
-        parent = p2
-        rounds += 1
-    return parent, rounds
+    """LZ source chase of the (n_out_pad,) int32 arrays: (parent, rounds),
+    every position's ultimate literal source index and the doubling
+    rounds taken (ops/kernels.resolve_parent: the resolve_lz kernel of
+    csrc/resolve.cu on the card, its plain version on the CPU)."""
+    return kernels.resolve_parent(start_mark, dist_at)
 
 
 def _resolve_lz(litval, start_mark, dist_at, n_out_pad):
-    parent, _rounds = _resolve_parent(start_mark, dist_at, n_out_pad)
-    return litval[parent].to(torch.uint8)
+    """The (n_out_pad,) uint8 bytes of one group: ops/kernels.resolve_lz,
+    the chase and the byte gather (one call, no host sync on the card)."""
+    return kernels.resolve_lz(litval, start_mark, dist_at)
 
 
 def _walk_core(

@@ -1,10 +1,10 @@
 """The port's hand-written CUDA kernels, their plain torch versions, the
 nvcc/ctypes loader and the launch counters: the matcher's three
 (scan_candidates, propagate_matches, parse_rows), device decode's
-anchor walk and commit walk (the per-bit path of indexes without
-anchors), and the checksums over row ranges (crc32_rows, adler32_rows)
-that device decode's group CRC and the encode's per-chunk partials run
-on.
+anchor walk, commit walk and token scatter (the last two on the per-bit
+path of indexes without anchors) and LZ resolve (both paths), and the
+checksums over row ranges (crc32_rows, adler32_rows) that device
+decode's group CRC and the encode's per-chunk partials run on.
 
 The matcher's wrappers take the JAX package's layout with a batch
 dimension: (B, n) int32 tensors, one row per chunk. A CPU tensor goes to the plain
@@ -50,7 +50,7 @@ from zzflate_tpu_torch.ops.checksum_math import (
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD = Path(__file__).resolve().parent.parent / "_build"
 _SOURCES = ("scan.cu", "propagate.cu", "parse.cu", "walk.cu", "checksum.cu",
-            "commit.cu")
+            "commit.cu", "resolve.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -60,7 +60,7 @@ NVCC_FLAGS = (
 # nowhere else (plain-version calls do not count).
 launches = {"scan_candidates": 0, "propagate_matches": 0, "parse_rows": 0,
             "anchor_walk": 0, "crc32_rows": 0, "adler32_rows": 0,
-            "commit_walk": 0}
+            "commit_walk": 0, "token_scatter": 0, "resolve_lz": 0}
 
 
 # The walk's launch shape, as csrc/kernels.h defines it (a test holds the
@@ -163,10 +163,14 @@ def _load():
             lib.zz_crc32_rows.argtypes = [p, i, i, p, p, i, i, p, p, i, p, p]
             lib.zz_adler32_rows.argtypes = [p, i, i, p, p, i, i, p, i, p, p]
             lib.zz_commit_walk.argtypes = [p, i, p, p, i, i, p, p, p, p, p]
+            lib.zz_token_scatter.argtypes = [p, p, p, p, p, p, i, p, p, p, i,
+                                             p]
+            lib.zz_resolve_lz.argtypes = [p, p, p, i, p, p, p, p, p, p, p]
             for fn in (lib.zz_scan_candidates, lib.zz_propagate_matches,
                        lib.zz_parse_exits, lib.zz_parse_marks,
                        lib.zz_anchor_walk, lib.zz_crc32_rows,
-                       lib.zz_adler32_rows, lib.zz_commit_walk):
+                       lib.zz_adler32_rows, lib.zz_commit_walk,
+                       lib.zz_token_scatter, lib.zz_resolve_lz):
                 fn.restype = ctypes.c_int
             _lib = lib
     return _lib
@@ -929,3 +933,206 @@ def commit_walk_plain(step, start_bits, unit_valid, max_sup_span):
         row_end = (pc // _R + 1) * _R
         pos = torch.where(active & (nxt < row_end), nxt, sink)
     return mark[:nbits] == 1
+
+
+# ---------------------------------------------------------------------------
+# 7. token_scatter and resolve_lz (device decode's LZ tail)
+# ---------------------------------------------------------------------------
+
+# The resolve's launch shape and round cap, as csrc/kernels.h defines them
+# (a test holds the two equal): blocks of RESOLVE_THREADS threads scan
+# tiles of RESOLVE_TILE positions, each warp RESOLVE_STEPS runs of 32; at
+# most RESOLVE_ROUNDS doubling rounds, the reference's cap.
+RESOLVE_THREADS = 256
+RESOLVE_STEPS = 16
+RESOLVE_TILE = RESOLVE_THREADS * RESOLVE_STEPS
+RESOLVE_ROUNDS = 40
+_SCAN_ROW = 2048  # row length of cummax's two-level running max
+
+
+def cummax(x):
+    """Inclusive running max of a 1-D integer tensor (the values of
+    torch.cummax). torch scans a 1-D tensor as a single row, serially on
+    the card (12 ms at 2^22 on the H100); as rows of _SCAN_ROW scanned
+    in parallel, then a short scan of the row maxima carried into the
+    next rows, the values are the same."""
+    n = x.shape[0]
+    if n <= _SCAN_ROW:
+        return torch.cummax(x, 0).values
+    rows = -(-n // _SCAN_ROW)
+    pad = x.new_full((rows * _SCAN_ROW - n,), torch.iinfo(x.dtype).min)
+    m = torch.cummax(torch.cat([x, pad]).view(rows, _SCAN_ROW), 1).values
+    carry = torch.cummax(m[:, -1], 0).values
+    m[1:] = torch.maximum(m[1:], carry[:-1, None])
+    return m.view(-1)[:n]
+
+
+def token_scatter(litval, start_mark, dist_at, off, committed, islit, islen,
+                  sym, mdist):
+    """The per-bit path's committed tokens into the three output-space
+    arrays, in place: for every bit b with committed[b] & (islit[b] |
+    islen[b]) and 0 <= off[b] < n_out_pad, litval[off] = max(litval[off],
+    islit ? sym : 0), start_mark[off] = max(start_mark[off], off) and
+    dist_at[off] = max(dist_at[off], islen ? mdist : 0), each field maxed
+    on its own as the reference's .at[tgt].max(mode="drop") does
+    (zzflate_tpu/models/inflate_tpu.py:628-636). Other bits change
+    nothing. Returns (litval, start_mark, dist_at).
+
+    litval, start_mark, dist_at: (n_out_pad,) int32; off, sym, mdist:
+    (nbits,) int64 or int32, sym and mdist within int32; committed, islit,
+    islen: (nbits,) bool."""
+    for nm, t in (("litval", litval), ("start_mark", start_mark),
+                  ("dist_at", dist_at)):
+        _check(nm, t, 1)
+    if start_mark.shape != litval.shape or dist_at.shape != litval.shape:
+        raise ValueError("token_scatter: output arrays differ in shape")
+    ins = (("off", off), ("committed", committed), ("islit", islit),
+           ("islen", islen), ("sym", sym), ("mdist", mdist))
+    for nm, t in ins:
+        if t.dim() != 1 or t.shape != off.shape:
+            raise ValueError(f"token_scatter: {nm} must be 1-D like off")
+        want = ((torch.bool,) if nm in ("committed", "islit", "islen")
+                else (torch.int32, torch.int64))
+        if t.dtype not in want:
+            raise TypeError(f"token_scatter: {nm} must be {want}")
+    args = (litval, start_mark, dist_at, off, committed, islit, islen, sym,
+            mdist)
+    if not _route(*args):
+        return token_scatter_plain(*args)
+    nbits, n_out_pad = off.shape[0], litval.shape[0]
+    if nbits >= 1 << 31 or n_out_pad >= 1 << 31:
+        raise ValueError("token_scatter: nbits and n_out_pad must be "
+                         "below 2^31")
+    off, sym, mdist = (t.to(torch.int64).contiguous()
+                       for t in (off, sym, mdist))
+    committed, islit, islen = (t.contiguous().view(torch.uint8)
+                               for t in (committed, islit, islen))
+    if nbits and n_out_pad:
+        with torch.cuda.device(off.device):
+            rc = _load().zz_token_scatter(
+                off.data_ptr(), committed.data_ptr(), islit.data_ptr(),
+                islen.data_ptr(), sym.data_ptr(), mdist.data_ptr(), nbits,
+                litval.data_ptr(), start_mark.data_ptr(), dist_at.data_ptr(),
+                n_out_pad, _stream(off))
+        _raise_rc("token_scatter", rc)
+        launches["token_scatter"] += 1
+    return litval, start_mark, dist_at
+
+
+def token_scatter_plain(litval, start_mark, dist_at, off, committed, islit,
+                        islen, sym, mdist):
+    """Plain torch version of token_scatter: scatter_reduce_("amax") over
+    every bit, the dropped ones aimed at a trash slot past the end."""
+    n_out_pad = litval.shape[0]
+    off, sym, mdist = off.long(), sym.long(), mdist.long()
+    com_tok = committed & (islit | islen)
+    tgt = torch.where(com_tok & (off >= 0) & (off < n_out_pad), off,
+                      n_out_pad)
+
+    def scatter_max(base, vals):
+        buf = torch.cat([base.long(), base.new_zeros(1).long()])
+        buf.scatter_reduce_(0, tgt, vals, "amax")
+        return buf[:n_out_pad]
+
+    litval.copy_(scatter_max(litval, torch.where(islit, sym, 0)))
+    start_mark.copy_(scatter_max(start_mark, torch.where(com_tok, off, -1)))
+    dist_at.copy_(scatter_max(dist_at, torch.where(islen, mdist, 0)))
+    return litval, start_mark, dist_at
+
+
+def resolve_lz(litval, start_mark, dist_at):
+    """LZ resolve of one group (zzflate_tpu/models/inflate_tpu.py
+    _resolve_parent and _resolve_lz): every position's source chased to
+    its literal (resolve_parent), then the (n,) uint8 bytes
+    litval[parent] & 0xFF. litval, start_mark, dist_at: (n,) int32."""
+    for nm, t in (("litval", litval), ("start_mark", start_mark),
+                  ("dist_at", dist_at)):
+        _check(nm, t, 1)
+    if start_mark.shape != litval.shape or dist_at.shape != litval.shape:
+        raise ValueError("resolve_lz: arrays differ in shape")
+    if not _route(litval, start_mark, dist_at):
+        return resolve_lz_plain(litval, start_mark, dist_at)
+    return _resolve_launch(litval, start_mark, dist_at)[0]
+
+
+def resolve_parent(start_mark, dist_at):
+    """The resolve's source chase alone: (parent, rounds), every
+    position's ultimate literal source and the doubling rounds taken (the
+    reference's while_loop, capped at RESOLVE_ROUNDS). start_mark,
+    dist_at: (n,) int32. On the card the resolve_lz kernel runs without
+    its byte gather and returns parent as (n,) int32 and rounds as a (1,)
+    int32 tensor on the card (reading it synchronises); the plain version
+    returns int64 and an int."""
+    for nm, t in (("start_mark", start_mark), ("dist_at", dist_at)):
+        _check(nm, t, 1)
+    if dist_at.shape != start_mark.shape:
+        raise ValueError("resolve_parent: arrays differ in shape")
+    if not _route(start_mark, dist_at):
+        return resolve_parent_plain(start_mark, dist_at)
+    return _resolve_launch(None, start_mark, dist_at)[1:]
+
+
+def _resolve_launch(litval, start_mark, dist_at):
+    """The resolve_lz kernel: (out or None, parent, rounds)."""
+    n = start_mark.shape[0]
+    if n > 1 << 30:
+        raise ValueError("resolve_lz: at most 2^30 positions")
+    dev = start_mark.device
+    parent = torch.empty((n,), dtype=torch.int32, device=dev)
+    out = (None if litval is None
+           else torch.empty((n,), dtype=torch.uint8, device=dev))
+    if not n:
+        # The reference's loop takes one round of an empty array.
+        return out, parent, torch.ones((1,), dtype=torch.int32, device=dev)
+    scratch = torch.empty_like(parent)
+    tmax = torch.empty((-(-n // RESOLVE_TILE),), dtype=torch.int32,
+                       device=dev)
+    flags = torch.empty((RESOLVE_ROUNDS + 1,), dtype=torch.int32, device=dev)
+    rounds = torch.empty((1,), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = _load().zz_resolve_lz(
+            None if litval is None else litval.data_ptr(),
+            start_mark.data_ptr(), dist_at.data_ptr(), n, parent.data_ptr(),
+            scratch.data_ptr(), tmax.data_ptr(), flags.data_ptr(),
+            None if out is None else out.data_ptr(), rounds.data_ptr(),
+            _stream(start_mark))
+    _raise_rc("resolve_lz", rc)
+    launches["resolve_lz"] += 1
+    return out, parent, rounds
+
+
+def resolve_parent_plain(start_mark, dist_at):
+    """Plain torch version of resolve_parent: covering token via cummax,
+    then pointer doubling with a convergence test and a host sync a
+    round. Returns (parent, rounds): every position's ultimate literal
+    source index, and the doubling rounds taken (at most 40, the
+    reference's cap, so a hostile stream stops where it stops).
+
+    The first hop is the closed-form in-token source: a match starting
+    at s with distance d repeats its source with period d, so position
+    i's ultimate within-token source is s - d + ((i - s) mod d), one hop
+    that lands strictly before the token start. Overlapped copies
+    therefore collapse to depth 1; remaining chains are nested tokens."""
+    n_out_pad = start_mark.shape[0]
+    dev = start_mark.device
+    idx = torch.arange(n_out_pad, device=dev)
+    seg = cummax(start_mark.long())
+    dist = dist_at.long()[seg.clamp(0, n_out_pad - 1)]
+    d1 = dist.clamp(min=1)
+    src = seg - d1 + (idx - seg) % d1
+    parent = torch.where((dist > 0) & (seg >= 0), src, idx)
+    parent = parent.clamp(0, n_out_pad - 1)
+    rounds = 0
+    changed = True
+    while changed and rounds < RESOLVE_ROUNDS:
+        p2 = parent[parent]
+        changed = bool((p2 != parent).any())
+        parent = p2
+        rounds += 1
+    return parent, rounds
+
+
+def resolve_lz_plain(litval, start_mark, dist_at):
+    """Plain torch version of resolve_lz."""
+    parent, _rounds = resolve_parent_plain(start_mark, dist_at)
+    return litval[parent].to(torch.uint8)

@@ -123,3 +123,129 @@ def commit_walk_inputs(case: str, nbits: int, seed: int = 0):
     elif case == "dense_stops":
         start[:4] = start[0] // 256 * 256 + np.array([0, 8, 40, 100])
     return step, start.astype(np.int32), valid, span
+
+
+# The LZ tail's cases (ops/kernels.token_scatter and resolve_lz), each aimed
+# at one rule of the reference's scatters or its source chase.
+RESOLVE_CASES = ("chain_2e20", "full_chain", "prefix_and_stored",
+                 "dist_past_start", "forward_marks")
+SCATTER_CASES = ("random", "same_slot", "past_end", "prefix_and_stored")
+_W = 32768  # the prefix a group carries: output positions [0, _W)
+
+
+def _staged(rng, n: int):
+    """Output-space arrays as device decode stages them: the 32 KiB
+    prefix as self-resolved literals, two stored runs (self-resolved
+    bytes), and -1 / 0 elsewhere. Returns (litval, start_mark, dist_at),
+    int32, and the stored runs' slots."""
+    idx = np.arange(n)
+    litval = np.zeros(n, np.int32)
+    start_mark = np.full(n, -1, np.int32)
+    dist_at = np.zeros(n, np.int32)
+    w = min(_W, n)
+    litval[:w] = rng.integers(0, 256, w)
+    start_mark[:w] = idx[:w]
+    stored = np.zeros(n, bool)
+    for lo in (n // 5, n // 3):
+        stored[lo : lo + min(3000, n // 16)] = True
+    litval[stored] = rng.integers(0, 256, int(stored.sum()))
+    start_mark[stored] = idx[stored]
+    return litval, start_mark, dist_at, stored
+
+
+def resolve_inputs(case: str, n: int, seed: int = 0):
+    """(litval, start_mark, dist_at) of one case, (n,) int32 each.
+
+    chain_2e20: every position of [0, 2^20] a token of distance 1 (0 a
+    literal): a chain 2^20 deep, 21 doubling rounds; -1 past it (n >
+    2^20 + 1). full_chain: the same over all n positions. prefix_and_
+    stored: staged prefix and stored runs, then literal and match tokens
+    over the first half, some on prefix and stored slots, and -1 over the
+    second half (the padding past a group's output). dist_past_start:
+    matches whose distance reaches before position 0 (the first hop is
+    clipped to 0). forward_marks: outside the decoders' domain
+    (start_mark[j] anywhere up to 2n, not only -1 or j, and distances up
+    to 1 000 anywhere), so first hops point forward and some are clipped
+    to n - 1."""
+    rng = np.random.default_rng([seed, n, RESOLVE_CASES.index(case)])
+    idx = np.arange(n)
+    litval = rng.integers(0, 256, n).astype(np.int32)
+    if case in ("chain_2e20", "full_chain"):
+        end = n if case == "full_chain" else (1 << 20) + 1
+        start_mark = np.where(idx < end, idx, -1).astype(np.int32)
+        dist_at = np.where((idx > 0) & (idx < end), 1, 0).astype(np.int32)
+        return litval, start_mark, dist_at
+    if case == "forward_marks":
+        start_mark = np.where(rng.random(n) < 1e-4,
+                              rng.integers(0, 2 * n, n), -1).astype(np.int32)
+        dist_at = rng.integers(0, 1000, n).astype(np.int32)
+        return litval, start_mark, dist_at
+    litval, start_mark, dist_at, stored = _staged(rng, n)
+    half = n // 2 if case == "prefix_and_stored" else n
+    lo = min(_W, n) // 2 if case == "prefix_and_stored" else 0
+    pos = lo
+    while pos < half:
+        if rng.random() < 0.4:
+            litval[pos] = rng.integers(0, 256)
+            start_mark[pos] = pos
+            pos += 1
+            continue
+        ln = int(rng.integers(3, 259))
+        far = case == "dist_past_start" and rng.random() < 0.3
+        d = int(rng.integers(pos + 1, pos + 40000) if far
+                else rng.integers(1, min(32768, max(pos, 1)) + 1))
+        start_mark[pos] = pos
+        dist_at[pos] = d
+        pos += ln
+    start_mark[half:] = np.where(stored[half:], start_mark[half:], -1)
+    return litval, start_mark, dist_at
+
+
+def scatter_inputs(case: str, nbits: int, n_out_pad: int, seed: int = 0):
+    """The per-bit path's token scatter inputs of one case: the staged
+    (litval, start_mark, dist_at), (n_out_pad,) int32, and (off,
+    committed, islit, islen, sym, mdist) over nbits bits (int64 and bool,
+    as _decode_bits hands them).
+
+    random: a committed token every ~10 bits, uncommitted bits holding
+    junk (offsets anywhere, some past the end; symbols and distances of
+    any size within int32). same_slot: pairs of committed tokens on one
+    slot (two literals, two matches, a literal and a match). past_end:
+    committed tokens at n_out_pad - 1, n_out_pad and beyond. prefix_and_
+    stored: tokens on the staged prefix's and stored runs' slots. Every
+    offset is >= 0, as the decoder's are."""
+    rng = np.random.default_rng([seed, nbits, SCATTER_CASES.index(case)])
+    litval, start_mark, dist_at, stored = _staged(rng, n_out_pad)
+    off = rng.integers(0, 2 * n_out_pad, nbits)
+    committed = rng.random(nbits) < 0.1
+    islit = rng.random(nbits) < 0.55
+    islen = ~islit & (rng.random(nbits) < 0.9)
+    islen[rng.random(nbits) < 0.01] = True  # both kinds set: junk bits
+    sym = rng.integers(-(1 << 31), 1 << 31, nbits)
+    mdist = rng.integers(-(1 << 31), 1 << 31, nbits)
+    tok = np.flatnonzero(committed)
+    # Committed tokens: increasing offsets from the prefix's end, real
+    # literals (< 256) and distances (1..32 768).
+    off[tok] = _W + np.cumsum(rng.integers(1, 8, tok.size))
+    sym[tok] = rng.integers(0, 256, tok.size)
+    mdist[tok] = rng.integers(1, 32769, tok.size)
+    if case == "same_slot":
+        k = tok.size // 2
+        a, b = tok[0 : k : 2], tok[1 : k : 2]
+        m = min(a.size, b.size)
+        off[b[:m]] = off[a[:m]]
+        kind = np.arange(m) % 3
+        islit[a[:m]] = islit[b[:m]] = kind != 1  # lit+lit, match+match,
+        islen[a[:m]] = islen[b[:m]] = kind == 1  # lit+match
+        islen[b[:m][kind == 2]], islit[b[:m][kind == 2]] = True, False
+    elif case == "past_end":
+        t = tok[-200:]
+        off[t] = n_out_pad - 100 + np.arange(t.size)
+        off[tok[:3]] = [n_out_pad - 1, n_out_pad, 2 * n_out_pad]
+    elif case == "prefix_and_stored":
+        t = tok[: tok.size // 2]
+        slots = np.r_[np.arange(min(_W, n_out_pad)), np.flatnonzero(stored)]
+        off[t] = rng.choice(slots, t.size)
+    return ((litval, start_mark, dist_at),
+            (off.astype(np.int64), committed, islit, islen,
+             sym.astype(np.int64), mdist.astype(np.int64)))

@@ -1,7 +1,8 @@
 """Per-stage wall times of the encode pipeline, traces, and run reports.
 
 Port of ``zzflate_tpu/utils/profiling.py`` (``trace``, ``collect``,
-``maybe_stage``, ``StageTimer``, ``run_report``). Eager CUDA returns
+``maybe_stage``, ``StageTimer``, ``run_report``), and ``DeviceTimer``,
+the CUDA-event timing that chip_smoke.py and the bench scripts use. Eager CUDA returns
 before the device finishes, so a stage on CUDA devices synchronises
 each of them before it stops its timer. The synchronisation happens
 only while a collector is active; with none, ``maybe_stage`` costs
@@ -16,6 +17,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import statistics
 import threading
 import time
 
@@ -116,3 +118,74 @@ def run_report(op: str, bytes_in: int, bytes_out: int, seconds: float,
         rep["stages_ms"] = {k: round(v, 2) for k, v in stages.as_ms().items()}
     rep.update(extra)
     return json.dumps(rep)
+
+
+class DeviceTimer:
+    """Device time per call from CUDA events. The GPU first sleeps while
+    the host queues every rep, so host launch overhead is not timed; an
+    L2 flush precedes each rep, as the main path finds its inputs cold.
+    The flush reads a 128 MB buffer (more than the 50 MB L2), so it leaves
+    the L2 full of clean lines: the timed call pays no write-back of the
+    previous call's outputs."""
+
+    def __init__(self):
+        self.buf = torch.zeros(128 << 20, dtype=torch.uint8, device="cuda")
+
+    def flush(self) -> None:
+        self.buf.max()
+
+    def kernel_ms(self, fn, reps: int = 15) -> float:
+        fn()  # warm-up
+        torch.cuda.synchronize()
+        ev = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+        torch.cuda._sleep(20_000_000)
+        for s, e in ev:
+            self.flush()
+            s.record()
+            fn()
+            e.record()
+        torch.cuda.synchronize()
+        return statistics.median(s.elapsed_time(e) for s, e in ev)
+
+    def phases_ms(self, phases, reps: int = 15) -> dict:
+        """Median device time of each launch of a call made of several
+        (name, launch) pairs, from events recorded between the launches;
+        as in kernel_ms, the L2 is flushed before each call."""
+
+        def call(ev):
+            ev[0].record()
+            for k, (name, launch) in enumerate(phases):
+                rc = launch()
+                if rc:
+                    raise RuntimeError(f"{name}: cudaError {rc}")
+                ev[k + 1].record()
+
+        call([torch.cuda.Event() for _ in range(len(phases) + 1)])
+        torch.cuda.synchronize()
+        evs = [[torch.cuda.Event(enable_timing=True)
+                for _ in range(len(phases) + 1)] for _ in range(reps)]
+        torch.cuda._sleep(20_000_000)
+        for ev in evs:
+            self.flush()
+            call(ev)
+        torch.cuda.synchronize()
+        return {name: statistics.median(ev[k].elapsed_time(ev[k + 1])
+                                        for ev in evs)
+                for k, (name, _) in enumerate(phases)}
+
+    def wall_ms(self, fn, reps: int = 3) -> float:
+        """Event time of a call that launches many small ops (the plain
+        versions): host gaps between its launches are part of its cost."""
+        fn()
+        out = []
+        for _ in range(reps):
+            self.flush()
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            fn()
+            e.record()
+            e.synchronize()
+            out.append(s.elapsed_time(e))
+        return statistics.median(out)
