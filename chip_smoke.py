@@ -6,7 +6,7 @@
 Phases (any failure raises and exits nonzero; nothing is caught):
 
 1. card: the device name, nvidia-smi's name and power limit, the nvcc
-   build of the seven kernel sources from zzflate_tpu_torch/csrc (one nvcc per
+   build of the eight kernel sources from zzflate_tpu_torch/csrc (one nvcc per
    source, all started together) and the host C compiler's build of the
    port's C runtime (zzflate_tpu_torch/native);
 2. kernels: at the main-path shape (16, 294912) each kernel is held
@@ -107,9 +107,23 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    bytes bound and share, the plain version's time, the rounds; for
    token_scatter also the three scatter_reduce_ calls it replaced (its
    library yardstick), each alone with the trash slot and filtered to the
-   committed tokens. One v2 group's _decode_all: its device launches and
-   time split into the commit kernels, token_scatter, resolve_lz's and
-   the rest, its wall time, and a run under
+   committed tokens. The candidate decode (csrc/candidates.cu):
+   decode_candidates launches once a group on both per-bit runs and never
+   on a walk run or in an encode run, and equals its plain version exactly
+   (every output at every bit) on the seeded cases of
+   corpus.candidate_inputs at 65 536, 131 072 and 4 194 304 bits (random
+   words, the fixed code's litlen 286/287, an incomplete code with
+   distance symbols 30/31, EOBs on the last bits, starts unsorted,
+   repeated, at 0, at nbits - 1 and past the end, padding units, U = 1 and
+   1 024), on the v2 group and on the 64 MiB per-bit run's first and last
+   groups, each real group timed (L2 flushed, median of 15) with its bytes
+   and operations bound, share and the plain version's time. One v2
+   group's _decode_all: its device launches (at most 100) and time split
+   into the candidate kernels, the commit kernels, token_scatter,
+   resolve_lz's and the rest, and by stage (lz_tail_bench.stage_split:
+   the stages of one profiled call, each in a range of its own; either
+   profile without device records fails the phase), its wall time, and a
+   run under
    torch.cuda.set_sync_debug_mode("error") (as the walk path's resolve).
 
 7. parallel: a seeded 64 MiB corpus at L6 gzip, 256 KiB chunks (256
@@ -149,7 +163,7 @@ Phases (any failure raises and exits nonzero; nothing is caught):
 
 Every trace goes through utils.profiling.trace, which also writes it
 gzipped to chiprun_out/traces/. The second-to-last lines are the
-kernels JSON (the nine kernels, each with its launches by run under
+kernels JSON (the ten kernels, each with its launches by run under
 "launches_by_level" or "launches_by_run", the phase 7 paths among them,
 and phase 7's MB/s and partials under "parallel") and nvidia-smi's line;
 the last line is
@@ -232,6 +246,14 @@ COMMIT_OPS_MARK = 4
 SCATTER = ("token_scatter", "zzflate_tpu_torch/csrc/resolve.cu",
            "zzflate_tpu/models/inflate_tpu.py:628 (_decode_all's three "
            ".at[tgt].max(mode=\"drop\"), :628-636)")
+# Device decode's candidate tokens: no Pallas kernel, the candidate stage
+# of the reference's jitted _decode_all.
+CAND = ("decode_candidates", "zzflate_tpu_torch/csrc/candidates.cu",
+        "zzflate_tpu/models/inflate_tpu.py:593-612 (_decode_all's candidate "
+        "stage: _build_luts :281, _bit_windows :330, uid :603-608, "
+        "_decode_bits :353)")
+CAND_SIZES = (1 << 16, 1 << 17, 1 << 22)  # the seeded cases' sizes, bits
+DECODE_ALL_MAX_LAUNCHES = 100  # device launches of one per-bit group
 RESOLVE = ("resolve_lz", "zzflate_tpu_torch/csrc/resolve.cu",
            "zzflate_tpu/models/inflate_tpu.py:683 (_resolve_parent, its "
            "lax.while_loop at :716) and :722 (_resolve_lz)")
@@ -987,6 +1009,7 @@ def phase_decode(torch, kernels, zt, profiling, timer, data, corpus):
     }
     counts, rates, cks_counts, commit_counts = {}, {}, {}, {}
     tail_counts = {}  # run -> launches of token_scatter and resolve_lz
+    cand_counts = {}  # run -> launches of decode_candidates
     tail_names = (SCATTER[0], RESOLVE[0])
     for name, (fmt, blob) in streams.items():
         def run():
@@ -1002,14 +1025,16 @@ def phase_decode(torch, kernels, zt, profiling, timer, data, corpus):
         cks_counts[name] = {k: kernels.launches[k] for k in CHECKSUMS}
         commit_counts[name] = kernels.launches["commit_walk"]
         tail_counts[name] = {k: kernels.launches[k] for k in tail_names}
+        cand_counts[name] = kernels.launches[CAND[0]]
         if out != data:
             raise AssertionError(f"decode {name}: output differs from input")
         if tail_counts[name] != {SCATTER[0]: 0, RESOLVE[0]: launched}:
             raise AssertionError(f"decode {name}: LZ tail launches "
                                  f"{tail_counts[name]}, walk {launched}")
-        if commit_counts[name]:
-            raise AssertionError(f"decode {name}: commit_walk launched on "
-                                 "the walk path")
+        if commit_counts[name] or cand_counts[name]:
+            raise AssertionError(f"decode {name}: commit_walk or "
+                                 "decode_candidates launched on the walk "
+                                 "path")
         if launched == 0:
             raise AssertionError(f"decode {name}: anchor_walk never launched")
         if fmt == "gzip" and cks_counts[name]["crc32_rows"] == 0:
@@ -1168,6 +1193,7 @@ def phase_decode(torch, kernels, zt, profiling, timer, data, corpus):
                 counts[key] = kernels.launches["anchor_walk"]
                 cks_counts[key] = {c: kernels.launches[c] for c in CHECKSUMS}
                 commit_counts[key] = kernels.launches["commit_walk"]
+                cand_counts[key] = kernels.launches[CAND[0]]
                 tail_counts[key] = {c: kernels.launches[c]
                                     for c in tail_names}
             if (not arr.is_cuda or n != len(big)
@@ -1178,9 +1204,11 @@ def phase_decode(torch, kernels, zt, profiling, timer, data, corpus):
             raise AssertionError(f"{key}: anchor_walk launches {counts[key]}")
         if cks_counts[key]["crc32_rows"] == 0:
             raise AssertionError(f"{key}: crc32_rows never launched")
-        if commit_counts[key] != (0 if walk else commit_groups):
+        if (commit_counts[key] != (0 if walk else commit_groups)
+                or cand_counts[key] != commit_counts[key]):
             raise AssertionError(f"{key}: commit_walk launches "
-                                 f"{commit_counts[key]}, groups "
+                                 f"{commit_counts[key]}, decode_candidates "
+                                 f"{cand_counts[key]}, groups "
                                  f"{commit_groups}")
         n_groups = counts[key] if walk else commit_groups
         if tail_counts[key] != {SCATTER[0]: 0 if walk else n_groups,
@@ -1196,7 +1224,8 @@ def phase_decode(torch, kernels, zt, profiling, timer, data, corpus):
             f"{dt:.4f} s of {len(secs)} call(s) (min {min(secs):.4f}, max "
             f"{max(secs):.4f}) = {big_mb / dt:.3f} MB/s; a CUDA tensor equal "
             f"to the input; anchor_walk launches {counts[key]}; commit_walk "
-            f"launches {commit_counts[key]}; LZ tail kernel launches "
+            f"launches {commit_counts[key]}; decode_candidates launches "
+            f"{cand_counts[key]}; LZ tail kernel launches "
             f"{tail_counts[key]}; checksum "
             f"kernel launches {cks_counts[key]}; host C "
             f"decoder to bytes {host_s:.4f} s = {big_mb / host_s:.3f} MB/s")
@@ -1273,15 +1302,18 @@ def phase_decode(torch, kernels, zt, profiling, timer, data, corpus):
         secs.append(time.perf_counter() - t0)
         if k == 0:
             commit_counts["v2 1 MiB"] = kernels.launches["commit_walk"]
+            cand_counts["v2 1 MiB"] = kernels.launches[CAND[0]]
             tail_counts["v2 1 MiB"] = {c: kernels.launches[c]
                                        for c in tail_names}
             if kernels.launches["anchor_walk"]:
                 raise AssertionError("v2 index: the walk ran (per-bit path "
                                      "expected)")
-    if commit_counts["v2 1 MiB"] != len(v2_commit):
+    if not (commit_counts["v2 1 MiB"] == cand_counts["v2 1 MiB"]
+            == len(v2_commit)):
         raise AssertionError(f"v2 index: commit_walk launches "
-                             f"{commit_counts['v2 1 MiB']}, groups "
-                             f"{len(v2_commit)}")
+                             f"{commit_counts['v2 1 MiB']}, "
+                             f"decode_candidates {cand_counts['v2 1 MiB']}, "
+                             f"groups {len(v2_commit)}")
     if set(tail_counts["v2 1 MiB"].values()) != {len(v2_commit)}:
         raise AssertionError(f"v2 index: LZ tail launches "
                              f"{tail_counts['v2 1 MiB']}, groups "
@@ -1297,9 +1329,8 @@ def phase_decode(torch, kernels, zt, profiling, timer, data, corpus):
     rates["v2 1 MiB"] = (v2_mb / v2_s, v2_mb / v2_host)
     with profiling.collect() as st:
         idv.decompress_indexed(v2)
-    split = tail.device_split(torch, profiling,
-                              lambda: idv._decode_all(*v2_all[0]), TRACE_DIR,
-                              log=log)
+    split = tail.device_split(torch, lambda: idv._decode_all(*v2_all[0]),
+                              TRACE_DIR, log=log)
     walls = []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -1307,14 +1338,28 @@ def phase_decode(torch, kernels, zt, profiling, timer, data, corpus):
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     split["wall_ms"] = statistics.median(walls) * 1e3
+    stages = tail.stage_split(torch, idv, kernels, v2_all[0])
+    if split["device_ms"] is None or stages["device_ms"] is None:
+        raise AssertionError("v2 _decode_all: the profile holds no device "
+                             "records, so its launches cannot be checked")
+    log("v2 group 0's _decode_all by stage (one profiled call, each stage "
+        "in a range of its own): " + json.dumps(stages) + f"; the stages' "
+        f"{stages['launches']} device launches against the whole call's "
+        f"{split['launches']}")
+    if (split["launches"] > DECODE_ALL_MAX_LAUNCHES
+            or split["candidates_launches"] != 2):
+        raise AssertionError(f"v2 _decode_all: {split['launches']} device "
+                             f"launches, candidate kernels "
+                             f"{split['candidates_launches']}")
     # No host sync: the per-bit group, and the walk path's resolve.
     tail.no_sync(torch, lambda: idv._decode_all(*v2_all[0]))
     tail.no_sync(torch, lambda: idv._resolve_lz(
         *resolve_groups["indexed"][0],
         resolve_groups["indexed"][0][0].shape[0]))
-    rest = ("not measured (no device records)" if split["device_ms"] is None
-            else f"{split['launches']} device launches, "
-            f"{split['device_ms']:.3f} ms device time, of which the commit "
+    rest = (f"{split['launches']} device launches, "
+            f"{split['device_ms']:.3f} ms device time, of which the candidate "
+            f"kernels {split['candidates_ms']:.3f} ms "
+            f"({split['candidates_launches']} launches), the commit "
             f"kernels {split['commit_ms']:.3f} ms ({split['commit_launches']} "
             f"launches), token_scatter {split['scatter_ms']:.3f} ms "
             f"({split['scatter_launches']}), resolve_lz's "
@@ -1367,6 +1412,31 @@ def phase_decode(torch, kernels, zt, profiling, timer, data, corpus):
         for k, a in zip(("first", "last"), big_commit)]
     del v2_commit, big_commit
     big_key = "64 MiB indexed, per-bit path, to_device"
+
+    # The candidate kernel against its plain version: the seeded cases of
+    # corpus.candidate_inputs at CAND_SIZES, then the v2 group and the 64
+    # MiB per-bit run's first and last, each also timed.
+    seeded_cand = tail.candidate_checks(torch, kernels, corpus, CAND_SIZES)
+    if seeded_cand["max_abs_err"]:
+        raise AssertionError("decode_candidates: kernel != plain on a "
+                             "seeded case")
+    log(f"kernel decode_candidates: exact on {seeded_cand['inputs']} seeded "
+        f"inputs ({len(corpus.CANDIDATE_CASES)} cases x {len(CAND_SIZES)} "
+        f"sizes, U = 1 to 1 024)")
+    cand_reports = [tail.candidates_report(
+        kernels, timer, v2_tail[CAND[0]][0], "v2 group 0", log=log)]
+    cand_reports += [
+        tail.candidates_report(kernels, timer, a, f"64 MiB per-bit {end} "
+                               "group", log=log)
+        for a, end in zip(big_tail[big_key][CAND[0]], ("first", "last"))]
+    mc = cand_reports[1]  # the 64 MiB per-bit run's first group
+    cand = {"launches": cand_counts[big_key], "launches_by_run": cand_counts,
+            "max_abs_err": 0, **{k: mc[k] for k in ("ms", "plain_ms",
+                                                     "bound_ms", "bound_by",
+                                                     "share")},
+            "library_ms": None, "seeded_inputs": seeded_cand["inputs"],
+            "per_launch": cand_reports,
+            "decode_all_v2_group": {"whole": split, "by_stage": stages}}
     main = commit_reports[-2]  # the 64 MiB per-bit run's first group
     commit = {"launches": commit_counts[big_key],
               "launches_by_run": commit_counts, "max_abs_err": err,
@@ -1395,7 +1465,7 @@ def phase_decode(torch, kernels, zt, profiling, timer, data, corpus):
                                     for k, c in tail_counts.items()},
                    rounds_8mib_groups=rounds)
     return walk, {"launches_by_run": cks_counts, "groups": crc_groups,
-                  "crc_4mib_group": crc_line}, commit, scatter, resolve
+                  "crc_4mib_group": crc_line}, commit, cand, scatter, resolve
 
 
 def lz_tail_phase(torch, kernels, corpus, tail, timer, v2_tail, big_tail,
@@ -1854,8 +1924,12 @@ def main() -> int:
     took("4 (streaming)")
     phase_reference(torch, zt, data, corpus)
     took("5 (reference)")
-    walk, decode_cks, commit, scatter, resolve = phase_decode(
+    walk, decode_cks, commit, cand, scatter, resolve = phase_decode(
         torch, kernels, zt, profiling, timer, data, corpus)
+    cand["launches_by_run"].update(
+        {lv: c[CAND[0]] for lv, c in counts.items()})
+    if any(c[CAND[0]] for c in counts.values()):
+        raise AssertionError("decode_candidates launched in an encode run")
     took("6 (device decode)")
     par_counts, par_rates, partials, batch = phase_parallel(
         torch, kernels, zt, profiling, timer, corpus)
@@ -1875,8 +1949,8 @@ def main() -> int:
         for k, (src, rep) in KERNELS.items()
     ] + [{"name": WALK[0], "route": "cuda", "source": WALK[1],
           "replaces": WALK[2], **walk}] + [
-        {"name": COMMIT[0], "route": "cuda", "source": COMMIT[1],
-         "replaces": COMMIT[2], **commit}] + [
+        {"name": k[0], "route": "cuda", "source": k[1], "replaces": k[2],
+         **entry} for k, entry in ((CAND, cand), (COMMIT, commit))] + [
         {"name": k[0], "route": "cuda", "source": k[1], "replaces": k[2],
          **entry} for k, entry in ((SCATTER, scatter), (RESOLVE, resolve))
     ] + [

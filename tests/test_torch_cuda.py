@@ -30,9 +30,11 @@ from zzflate_tpu_torch.ops import kernels
 from zzflate_tpu_torch.utils import containers
 from zzflate_tpu_torch.utils import lz_tail_bench as tail
 from zzflate_tpu_torch.utils.corpus import (
+    CANDIDATE_CASES,
     COMMIT_CASES,
     RESOLVE_CASES,
     SCATTER_CASES,
+    candidate_inputs,
     commit_walk_inputs,
     mixed_corpus,
     resolve_inputs,
@@ -648,6 +650,88 @@ def test_v2_decode_on_card_runs_the_commit_kernel(monkeypatch):
 
 
 # ---------------------------------------------------------------------------
+# decode_candidates: the per-bit path's candidate tokens (csrc/candidates.cu).
+# ---------------------------------------------------------------------------
+
+
+def _candidate_args(inputs, nbits):
+    words, ll, d, start, valid = inputs
+    c = lambda a: torch.from_numpy(a).cuda()  # noqa: E731
+    return (c(words), tuple(map(c, ll)), tuple(map(c, d)), c(start),
+            c(valid), nbits)
+
+
+@pytest.mark.parametrize("nbits", [1 << 16, 1 << 17, 1 << 22],
+                         ids=["64K", "128K", "group"])
+@pytest.mark.parametrize("case", CANDIDATE_CASES)
+def test_decode_candidates_matches_plain_on_seeded_cases(case, nbits):
+    """Every output equals the plain version's at every bit, at the CPU
+    tests' two sizes and a decode group's 4 194 304 bits; one counted
+    launch a call."""
+    _card()
+    args = _candidate_args(candidate_inputs(case, nbits), nbits)
+    before = kernels.launches["decode_candidates"]
+    assert tail.check_candidates(kernels, args) == 0
+    assert kernels.launches["decode_candidates"] == before + 1
+
+
+def _v2_candidate_calls(blob, want):
+    """Every decode_candidates call of one device decode of a v2 stream
+    on the card, whose bytes must be `want`; the launches counted."""
+    calls: dict = {}
+    kernels.reset_launches()
+    undo = tail.recorder(kernels, calls)
+    try:
+        assert idv.decompress_indexed(blob) == want
+    finally:
+        undo()
+    torch.cuda.synchronize()
+    got = calls["decode_candidates"]
+    assert kernels.launches["decode_candidates"] == len(got) >= 1
+    assert kernels.launches["anchor_walk"] == 0
+    return got
+
+
+def test_decode_candidates_on_a_v2_decode(monkeypatch):
+    """A v2 stream decodes on the card through decode_candidates, once a
+    group (two groups here), each call equal to the plain version; one
+    _decode_all makes at most 100 device launches (the plain chain alone
+    made ~440)."""
+    _card()
+    monkeypatch.setattr(idv, "_GROUP_OUT", 1 << 15)  # 8 chunks a group
+    data = mixed_corpus(60000, seed=5)
+    blob = _v2(zt.compress(data, level=6, format="gzip", chunk_bytes=4096,
+                           indexed=True))
+    seen = []
+    orig = idv._decode_all
+
+    def rec(*a):
+        seen.append(a)
+        return orig(*a)
+
+    monkeypatch.setattr(idv, "_decode_all", rec)
+    calls = _v2_candidate_calls(blob, data)
+    assert len(calls) == len(seen) >= 2
+    for a in calls:
+        assert tail.check_candidates(kernels, a) == 0
+    split = tail.stage_split(torch, idv, kernels, seen[0])
+    assert split["candidates_launches"] == 2
+    assert split["launches"] <= 100
+
+
+def test_decode_candidates_at_4k_chunks():
+    """Hundreds of units a group: 2 MiB at 4 KiB chunks as a v2 stream."""
+    _card()
+    data = mixed_corpus(2 << 20, seed=11)
+    blob = _v2(zt.compress(data, level=6, format="gzip", chunk_bytes=4096,
+                           indexed=True))
+    calls = _v2_candidate_calls(blob, data)
+    assert max(int(a[4].sum()) for a in calls) >= 200
+    for a in calls:
+        assert tail.check_candidates(kernels, a) == 0
+
+
+# ---------------------------------------------------------------------------
 # token_scatter and resolve_lz: device decode's LZ tail (csrc/resolve.cu).
 # ---------------------------------------------------------------------------
 
@@ -685,16 +769,19 @@ def test_resolve_lz_on_ragged_sizes(n):
 
 @pytest.mark.parametrize("case", SCATTER_CASES)
 def test_token_scatter_matches_plain_on_seeded_cases(case):
-    """From _decode_bits' int64 arrays and from int32 ones."""
+    """From the decoder's arrays (off int64, sym and mdist int32), from
+    all int32 and from all int64 ones."""
     _card()
     base, ins = scatter_inputs(case, 1 << 20, 1 << 19)
     args = _cuda(base + ins)
+    assert args[7].dtype == args[8].dtype == torch.int32
     before = kernels.launches["token_scatter"]
     assert tail.check_scatter(kernels, args) == 0
-    narrow = args[:3] + (args[3].int(),) + args[4:7] + (args[7].int(),
-                                                       args[8].int())
+    narrow = args[:3] + (args[3].int(),) + args[4:]
     assert tail.check_scatter(kernels, narrow) == 0
-    assert kernels.launches["token_scatter"] == before + 2
+    wide = args[:7] + (args[7].long(), args[8].long())
+    assert tail.check_scatter(kernels, wide) == 0
+    assert kernels.launches["token_scatter"] == before + 3
 
 
 @pytest.mark.parametrize("case", ["v2", "indexed"])

@@ -78,15 +78,17 @@ def _ref_scatter(litval, start_mark, dist_at, off, committed, islit, islen,
 def _scatter_mirror(litval, start_mark, dist_at, off, committed, islit,
                     islen, sym, mdist):
     """One thread a bit: a committed token inside [0, n) makes three int32
-    maxima on its slot; every other bit writes nothing."""
+    maxima on its slot, reading off as int64 and sym and mdist as int32
+    (as decode_candidates writes them); every other bit writes nothing."""
+    assert off.dtype == np.int64 and sym.dtype == mdist.dtype == np.int32
     n = litval.shape[0]
     lv, sm, da = (a.astype(np.int32).copy()
                   for a in (litval, start_mark, dist_at))
     ok = committed & (islit | islen) & (off >= 0) & (off < n)
     o = off[ok]
-    np.maximum.at(lv, o, np.where(islit[ok], sym[ok].astype(np.int32), 0))
+    np.maximum.at(lv, o, np.where(islit[ok], sym[ok], 0))
     np.maximum.at(sm, o, o.astype(np.int32))
-    np.maximum.at(da, o, np.where(islen[ok], mdist[ok].astype(np.int32), 0))
+    np.maximum.at(da, o, np.where(islen[ok], mdist[ok], 0))
     return lv, sm, da
 
 
@@ -271,6 +273,7 @@ def test_token_scatter_on_the_v2_group_matches_reference(groups):
     args = groups["v2 scatter"]
     base, ins = args[:3], args[3:]
     assert ins[0].dtype == np.int64 and ins[1].dtype == bool
+    assert ins[4].dtype == ins[5].dtype == np.int32  # decode_candidates
     lv, sm, da = _check_scatter(base, ins)
     # The scatter's result is what the resolve then took.
     for g, r in zip((lv, sm, da), groups["v2"]):

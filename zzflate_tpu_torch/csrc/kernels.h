@@ -1,6 +1,6 @@
 // Plain C interface of the port's CUDA kernels: the matcher's three,
-// device decode's anchor walk, commit walk, token scatter and LZ resolve,
-// and CRC-32 and Adler-32 over row ranges.
+// device decode's anchor walk, candidate decode, commit walk, token scatter
+// and LZ resolve, and CRC-32 and Adler-32 over row ranges.
 //
 // Every entry launches on the given stream without synchronising and
 // returns cudaGetLastError() as an int (0 = cudaSuccess). The matcher's
@@ -89,6 +89,36 @@ int zz_adler32_rows(const unsigned char* data, int batch, int n,
                     const int* ends, const int* starts, int end0, int start0,
                     unsigned* part, int nblk, long long* out, void* stream);
 
+// Device decode's candidate tokens (the per-bit path): for every bit b below
+// nbits, the owning unit uid[b] = max{u : valid[u], max(start[u], 0) <= b,
+// start[u] < nbits} (else 0) and the token that would start at b in that
+// unit's Huffman tables, by the reference's LUT arithmetic (_build_luts and
+// _decode_bits) evaluated in closed form: step (its width, or 257 at an EOB
+// or an invalid window), outlen, sym, mdist (int32 each) and islit, islen
+// (bytes, 0 or 1), each written once. words: nw = nbits / 32 + 2 u32; nbits
+// a multiple of 32 below 2^30; per unit (n_units >= 1) the canonical rows
+// *_first, *_cnt, *_off (16 int each) and ll_sym (288 entries in [0, 288)),
+// d_sym (32 in [0, 32)); ll_attr (288) and d_attr (32): the symbols'
+// attribute tables; valid: n_units bytes. Scratch the caller allocates: hi
+// (n_units * 32 int, the units' clipped code-length bounds). Two launches:
+// one thread a (unit, table), then one block of ZZ_CAND_THREADS a tile of
+// ZZ_CAND_THREADS * ZZ_CAND_BITS bits, each thread ZZ_CAND_BITS consecutive
+// bits, writing 16 B of each int32 output (4 B of each byte output) at once:
+// the outputs 16-byte aligned.
+#define ZZ_CAND_THREADS 256
+#define ZZ_CAND_BITS 4
+int zz_decode_candidates(const unsigned* words, int nbits,
+                         const int* ll_first, const int* ll_cnt,
+                         const int* ll_off, const int* ll_sym,
+                         const int* d_first, const int* d_cnt,
+                         const int* d_off, const int* d_sym,
+                         const int* ll_attr, const int* d_attr,
+                         const int* start, const unsigned char* valid,
+                         int n_units, int* hi, int* uid, int* step,
+                         int* outlen, int* sym, int* mdist,
+                         unsigned char* islit, unsigned char* islen,
+                         void* stream);
+
 // Device decode's commit walk (the per-bit path): mark[p] = 1 at every
 // token start p that a valid unit reaches from its start bit by
 // next[p] = p + step[p] in the reference's row (ZZ_COMMIT_ROW bits) and
@@ -115,14 +145,13 @@ int zz_commit_walk(const int* step, int nbits, const int* start,
 // nbits (< 2^31) with committed[b] and islit[b] or islen[b], and 0 <= off[b]
 // < n_out_pad, one int32 atomicMax each into litval[off] (islit ? sym : 0),
 // start_mark[off] (off) and dist_at[off] (islen ? mdist : 0); every other bit
-// writes nothing. The masks are bool bytes; off, sym and mdist are read as
-// _decode_bits hands them, int64 (one thread a bit reads them only at its
-// committed token, so a cast to int32 first would move more bytes than it
-// saves); sym and mdist must fit int32 (the decoder gives < 288 and <=
-// 32 768). One launch, one thread a bit.
+// writes nothing. The masks are bool bytes; off is int64 (the offsets'
+// cumsum), sym and mdist int32 as decode_candidates writes them (one thread
+// a bit reads them only at its committed token). One launch, one thread a
+// bit.
 int zz_token_scatter(const long long* off, const unsigned char* committed,
                      const unsigned char* islit, const unsigned char* islen,
-                     const long long* sym, const long long* mdist, int nbits,
+                     const int* sym, const int* mdist, int nbits,
                      int* litval, int* start_mark, int* dist_at, int n_out_pad,
                      void* stream);
 

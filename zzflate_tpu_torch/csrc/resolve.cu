@@ -21,8 +21,8 @@
 //   bit) and, at the committed tokens only, their two kind flags, offset,
 //   literal or distance, and the three entries read and written: ~8 MB,
 //   ~2.5 us for a real group (chip_smoke.py counts it from the run's data).
-//   Read whole, the six arrays as _decode_bits hands them are 27 B a bit,
-//   113 MB, 34 us.
+//   Read whole, the six arrays as the decode hands them (off int64, sym and
+//   mdist int32, three masks) are 19 B a bit, 80 MB, 24 us.
 //   resolve_lz at n_out_pad = 4 194 304: one pass reads start_mark, dist_at
 //   and litval (12 B a position) and writes the bytes (1 B): 54.5 MB, 16.3
 //   us; each doubling round moves another ~12 B a position.
@@ -84,8 +84,8 @@ token_scatter_kernel(const long long* __restrict__ off,
                      const unsigned char* __restrict__ committed,
                      const unsigned char* __restrict__ islit,
                      const unsigned char* __restrict__ islen,
-                     const long long* __restrict__ sym,
-                     const long long* __restrict__ mdist, int nbits,
+                     const int* __restrict__ sym,
+                     const int* __restrict__ mdist, int nbits,
                      int* __restrict__ litval, int* __restrict__ start_mark,
                      int* __restrict__ dist_at, int n_out_pad) {
   const int b = blockIdx.x * kScatterThreads + threadIdx.x;
@@ -95,9 +95,9 @@ token_scatter_kernel(const long long* __restrict__ off,
   if (!lit && !len) return;
   const long long o = off[b];
   if (o < 0 || o >= n_out_pad) return;
-  atomicMax(litval + o, lit ? static_cast<int>(sym[b]) : 0);
+  atomicMax(litval + o, lit ? sym[b] : 0);
   atomicMax(start_mark + o, static_cast<int>(o));
-  atomicMax(dist_at + o, len ? static_cast<int>(mdist[b]) : 0);
+  atomicMax(dist_at + o, len ? mdist[b] : 0);
 }
 
 __device__ __forceinline__ int warp_max(int v) {
@@ -234,8 +234,7 @@ extern "C" int zz_token_scatter(const long long* off,
                                 const unsigned char* committed,
                                 const unsigned char* islit,
                                 const unsigned char* islen,
-                                const long long* sym, const long long* mdist,
-                                int nbits, int* litval, int* start_mark,
+                                const int* sym, const int* mdist, int nbits, int* litval, int* start_mark,
                                 int* dist_at, int n_out_pad, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   token_scatter_kernel<<<(nbits + kScatterThreads - 1) / kScatterThreads,

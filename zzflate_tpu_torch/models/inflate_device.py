@@ -18,11 +18,13 @@ an invalid window and may re-walk the head of the next interval
 (identical values, harmless under max).
 
 **Speculative per-bit decode (v2 indexes: no anchors).** A candidate
-token is decoded at EVERY bit from (U, 2^15) tables built on the
-device, then the reference's serial row sweeps (``_commit_walk``,
-``ops/kernels.commit_walk``) find the true token starts from each
-block's indexed start bit, and ``ops/kernels.token_scatter`` writes the
-committed tokens into the output-space arrays. Legacy: the encoder
+token is decoded at EVERY bit, in the block that owns it
+(``ops/kernels.decode_candidates``: the reference's (U, 2^15) table
+arithmetic in closed form), then the reference's serial row sweeps
+(``_commit_walk``, ``ops/kernels.commit_walk``) find the true token
+starts from each block's indexed start bit, and
+``ops/kernels.token_scatter`` writes the committed tokens into the
+output-space arrays. Legacy: the encoder
 writes v3, but its index drops the anchors past ~28 MiB.
 
 Shared machinery, whole-array torch ops on the decode device:
@@ -48,7 +50,6 @@ chunk or block larger than a group.
 """
 from __future__ import annotations
 
-import functools
 import struct
 
 import numpy as np
@@ -65,19 +66,22 @@ from zzflate_tpu_torch.models.inflate import (
 )
 from zzflate_tpu_torch.ops import checksums as cs
 from zzflate_tpu_torch.ops import kernels
-from zzflate_tpu_torch.ops.canonical import (
-    _HUGE,
+from zzflate_tpu_torch.ops.canonical import (  # noqa: F401 (the tests')
     _M32,
     _MAX_D,
     _MAX_LL,
+    _bit_windows,
+    _brev15,
+    _build_luts,
     _canon_unit_tables,
-    _extract,
-    _shl32,
+    _d_attr,
+    _decode_bits,
+    _ll_attr,
+    _on_device,
 )
 from zzflate_tpu_torch.utils import containers
 from zzflate_tpu_torch.utils.profiling import maybe_stage
 
-_LUT_BITS = 15
 _R = kernels.COMMIT_ROW       # row size in bits for the commit sweeps
 _RR = _R * _R                 # superrow size
 # A step of _HUGE (> _R) means "EOB / invalid: stop" (ops/canonical).
@@ -108,53 +112,7 @@ FOREIGN_ANCHOR_TOKENS = 64
 # ---------------------------------------------------------------------------
 
 
-@functools.cache
-def _brev15() -> np.ndarray:
-    """brev15[w] = 15-bit reversal of w: the MSB-first code value whose
-    LSB-first stream bits are w's low bits."""
-    w = np.arange(1 << _LUT_BITS, dtype=np.uint32)
-    r = np.zeros_like(w)
-    for i in range(_LUT_BITS):
-        r |= ((w >> i) & 1) << (_LUT_BITS - 1 - i)
-    return r.astype(np.int32)
-
-
-@functools.cache
-def _ll_attr() -> np.ndarray:
-    """Per-litlen-symbol attributes: lext(3b) | lbase<<3 (9b) |
-    eob<<12 | islen<<13 | bad<<14 (RFC 1951 3.2.5)."""
-    a = np.zeros(_MAX_LL, np.int32)
-    a[256] = 1 << 12
-    for s in range(257, 286):
-        a[s] = (
-            int(C.LENGTH_EXTRA[s - 257])
-            | (int(C.LENGTH_BASE[s - 257]) << 3)
-            | (1 << 13)
-        )
-    a[286] = a[287] = 1 << 14  # reserved symbols: corrupt if used
-    return a
-
-
-@functools.cache
-def _d_attr() -> np.ndarray:
-    """Per-distance-symbol attributes: dext(4b) | dbase<<4 (15b).
-    Symbols 30/31 keep attr 0 (dbase 0 marks them corrupt if decoded)."""
-    a = np.zeros(_MAX_D, np.int32)
-    for s in range(30):
-        a[s] = int(C.DIST_EXTRA[s]) | (int(C.DIST_BASE[s]) << 4)
-    return a
-
-
 _cummax = kernels.cummax
-
-
-@functools.cache
-def _on_device(name: str, device: torch.device) -> torch.Tensor:
-    """The per-bit path's constant tables, uploaded once per device (an
-    upload from host memory would synchronise every group)."""
-    return torch.from_numpy(
-        {"brev15": _brev15, "ll_attr": _ll_attr, "d_attr": _d_attr}[name]()
-    ).to(device)
 
 
 # ---------------------------------------------------------------------------
@@ -330,86 +288,8 @@ def _lane_bucket(n: int) -> int:
 
 
 # ---------------------------------------------------------------------------
-# Per-bit path (v2 indexes): LUTs, windows, candidate tokens, commit.
+# Per-bit path (v2 indexes): candidate tokens, commit, offsets, scatter.
 # ---------------------------------------------------------------------------
-
-
-def _build_luts(first, cnt, off, symtab, attr, nsym, sym_bits):
-    """(U,16)x3 + (U,nsym) descriptors -> (U, 2^15) packed LUT.
-
-    Entry: sym(sym_bits) | nb<<sym_bits (4b) | attr<<(sym_bits+4);
-    0 = invalid window. Canonical closed form: a window's code length is
-    1 + #{L : v >= hi_mono[L]} and its symbol index
-    off[ln] + ((v - first[ln]<<(15-ln)) >> (15-ln))."""
-    dev = first.device
-    c = _on_device("brev15", dev).long()[None, :]
-    first, cnt, off = first.long(), cnt.long(), off.long()
-    ln_r = torch.arange(16, device=dev)
-    hi_mono = torch.cummax((first + cnt) << (15 - ln_r), dim=1).values
-    ln_sel = 1 + sum(
-        (c >= hi_mono[:, L][:, None]).long() for L in range(1, 16)
-    )
-    valid = ln_sel <= 15
-    lnc = ln_sel.clamp(1, 15)
-    idx_sel = torch.zeros_like(lnc)
-    for L in range(1, 16):
-        rel = (c - (first[:, L] << (15 - L))[:, None]) >> (15 - L)
-        idx_sel = torch.where(lnc == L, off[:, L][:, None] + rel, idx_sel)
-    sym = symtab.long().gather(1, idx_sel.clamp(0, nsym - 1))
-    if isinstance(attr, np.ndarray):
-        attr = torch.from_numpy(attr).to(dev)
-    a = attr.long()[sym]
-    ent = sym | (lnc << sym_bits) | (a << (sym_bits + 4))
-    return torch.where(valid, ent, 0)
-
-
-def _bit_windows(words):
-    """48+-bit windows for every bit position: for bit p = 32w + s,
-    win_lo = bits p..p+31, win_hi = bits p+32..p+63 (int64 u32)."""
-    w = words.long() & _M32
-    s = torch.arange(32, device=w.device)[None, :]
-    w0, w1, w2 = w[:-2, None], w[1:-1, None], w[2:, None]
-    inv = 31 - s
-    lo = (w0 >> s) | _shl32(_shl32(w1, inv), 1)
-    hi = (w1 >> s) | _shl32(_shl32(w2, inv), 1)
-    return lo.reshape(-1), hi.reshape(-1)
-
-
-def _decode_bits(win_lo, win_hi, uid, ll_lut, d_lut):
-    """Candidate token at every bit: (step, outlen, lit, mdist, islit,
-    islen, iseob)."""
-    lut_mask = (1 << _LUT_BITS) - 1
-    flat_ll = ll_lut.reshape(-1)
-    flat_d = d_lut.reshape(-1)
-    base = uid << _LUT_BITS
-
-    e = flat_ll[base + (win_lo & lut_mask)]
-    sym = e & 0x3FF
-    nb = (e >> 10) & 15
-    a = e >> 14
-    lext = a & 7
-    lbase = (a >> 3) & 511
-    valid = (nb > 0) & ((a & (1 << 14)) == 0)
-    iseob = (a & (1 << 12)) != 0
-    islen = (a & (1 << 13)) != 0
-    mlen = lbase + _extract(win_lo, win_hi, nb, lext)
-
-    off2 = nb + lext
-    w2 = _extract(win_lo, win_hi, off2, _LUT_BITS)
-    de = flat_d[base + w2]
-    dnb = (de >> 5) & 15
-    da = de >> 9
-    dext = da & 15
-    dbase = (da >> 4) & 32767
-    dvalid = (dnb > 0) & (dbase > 0)  # dbase 0 = reserved symbol 30/31
-    mdist = dbase + _extract(win_lo, win_hi, off2 + dnb, dext)
-
-    invalid = ~valid | (islen & ~dvalid)
-    width = torch.where(islen, off2 + dnb + dext, nb)
-    step = torch.where(invalid | iseob, _HUGE, width)
-    islit = valid & ~iseob & ~islen
-    outlen = torch.where(islit, 1, torch.where(islen & ~invalid, mlen, 0))
-    return step, outlen, sym, mdist, islit, islen & ~invalid, iseob & valid
 
 
 def _commit_walk(step, start_bits, unit_valid, max_sup_span):
@@ -428,47 +308,37 @@ def _decode_all(
     start_bits, out_bases, unit_valid, prefix, stored_runs,
     nbits, n_out_pad, max_sup_span, n_stored,
 ):
-    """Per-bit decode of one group: LUT build -> per-bit decode -> commit
-    -> token scatter -> LZ resolve -> bytes.
+    """Per-bit decode of one group: candidate tokens at every bit
+    (ops/kernels.decode_candidates) -> commit -> token scatter -> LZ
+    resolve -> bytes.
 
     `prefix` is the previous 32 KiB of decoded output (zeros for the
     first group); it occupies output positions [0, _W) as self-resolved
     literals, so LZ distances reaching before this group's first byte
     land on real history."""
-    dev = words.device
-    ll_lut = _build_luts(ll_first, ll_cnt, ll_off, ll_sym,
-                         _on_device("ll_attr", dev), _MAX_LL, 10)
-    d_lut = _build_luts(d_first, d_cnt, d_off, d_sym,
-                        _on_device("d_attr", dev), _MAX_D, 5)
-
-    win_lo, win_hi = _bit_windows(words)
-
-    # Per-bit owning block: scatter block ids at their start bits, cummax.
-    u = start_bits.shape[0]
-    tgt = torch.where(unit_valid, start_bits.long(), nbits)
-    uid0 = torch.zeros((nbits + 1,), dtype=torch.long, device=dev)
-    uid0.scatter_reduce_(0, tgt.clamp(0, nbits),
-                         torch.arange(u, device=dev), "amax")
-    uid = _cummax(uid0[:nbits])
-
-    step, outlen, sym, mdist, islit, islen, _eob = _decode_bits(
-        win_lo, win_hi, uid, ll_lut, d_lut
-    )
+    uid, step, outlen, sym, mdist, islit, islen = kernels.decode_candidates(
+        words, (ll_first, ll_cnt, ll_off, ll_sym),
+        (d_first, d_cnt, d_off, d_sym), start_bits, unit_valid, nbits)
     committed = _commit_walk(step, start_bits, unit_valid, max_sup_span)
-
-    # Per-block output offsets: global cumsum minus the block's prefix.
-    lens = torch.where(committed, outlen, 0)
-    g = torch.cumsum(lens, 0)
-    sb = start_bits.long().clamp(0, nbits - 1)
-    cum0 = g[sb] - lens[sb]
-    off = out_bases.long()[uid] + (g - lens) - cum0[uid]
-
+    off = _offsets(committed, uid, outlen, start_bits, out_bases, nbits)
     litval, start_mark, dist_at = _stage_out(
         prefix, stored_runs, words, n_out_pad, n_stored
     )
     kernels.token_scatter(litval, start_mark, dist_at, off, committed, islit,
                           islen, sym, mdist)
     return _resolve_lz(litval, start_mark, dist_at, n_out_pad)
+
+
+def _offsets(committed, uid, outlen, start_bits, out_bases, nbits):
+    """Every bit's output offset, int64 (nbits,): the block's output base
+    plus the committed tokens' lengths before the bit in its block (the
+    global cumsum minus the block's prefix)."""
+    lens = torch.where(committed, outlen, 0)
+    g = torch.cumsum(lens, 0)
+    sb = start_bits.long().clamp(0, nbits - 1)
+    cum0 = g[sb] - lens[sb]
+    return (out_bases.long().index_select(0, uid) + (g - lens)
+            - cum0.index_select(0, uid))
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,11 @@
 """The port's hand-written CUDA kernels, their plain torch versions, the
 nvcc/ctypes loader and the launch counters: the matcher's three
 (scan_candidates, propagate_matches, parse_rows), device decode's
-anchor walk, commit walk and token scatter (the last two on the per-bit
-path of indexes without anchors) and LZ resolve (both paths), and the
-checksums over row ranges (crc32_rows, adler32_rows) that device
-decode's group CRC and the encode's per-chunk partials run on.
+anchor walk, candidate decode, commit walk and token scatter (the last
+three on the per-bit path of indexes without anchors) and LZ resolve
+(both paths), and the checksums over row ranges (crc32_rows,
+adler32_rows) that device decode's group CRC and the encode's per-chunk
+partials run on.
 
 The matcher's wrappers take the JAX package's layout with a batch
 dimension: (B, n) int32 tensors, one row per chunk. A CPU tensor goes to the plain
@@ -38,8 +39,12 @@ from zzflate_tpu_torch.ops.canonical import (
     _M32,
     _MAX_D,
     _MAX_LL,
+    _bit_windows,
+    _build_luts,
     _canon_lane_tables,
+    _decode_bits,
     _decode_bits_canon,
+    _on_device,
 )
 from zzflate_tpu_torch.ops.checksum_math import (
     ADLER_MOD,
@@ -50,7 +55,7 @@ from zzflate_tpu_torch.ops.checksum_math import (
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD = Path(__file__).resolve().parent.parent / "_build"
 _SOURCES = ("scan.cu", "propagate.cu", "parse.cu", "walk.cu", "checksum.cu",
-            "commit.cu", "resolve.cu")
+            "commit.cu", "resolve.cu", "candidates.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -60,7 +65,8 @@ NVCC_FLAGS = (
 # nowhere else (plain-version calls do not count).
 launches = {"scan_candidates": 0, "propagate_matches": 0, "parse_rows": 0,
             "anchor_walk": 0, "crc32_rows": 0, "adler32_rows": 0,
-            "commit_walk": 0, "token_scatter": 0, "resolve_lz": 0}
+            "commit_walk": 0, "token_scatter": 0, "resolve_lz": 0,
+            "decode_candidates": 0}
 
 
 # The walk's launch shape, as csrc/kernels.h defines it (a test holds the
@@ -166,11 +172,14 @@ def _load():
             lib.zz_token_scatter.argtypes = [p, p, p, p, p, p, i, p, p, p, i,
                                              p]
             lib.zz_resolve_lz.argtypes = [p, p, p, i, p, p, p, p, p, p, p]
+            lib.zz_decode_candidates.argtypes = [p, i] + [p] * 12 + [i] + (
+                [p] * 9)
             for fn in (lib.zz_scan_candidates, lib.zz_propagate_matches,
                        lib.zz_parse_exits, lib.zz_parse_marks,
                        lib.zz_anchor_walk, lib.zz_crc32_rows,
                        lib.zz_adler32_rows, lib.zz_commit_walk,
-                       lib.zz_token_scatter, lib.zz_resolve_lz):
+                       lib.zz_token_scatter, lib.zz_resolve_lz,
+                       lib.zz_decode_candidates):
                 fn.restype = ctypes.c_int
             _lib = lib
     return _lib
@@ -815,7 +824,7 @@ def commit_walk(step, start_bits, unit_valid, max_sup_span: int):
 
     step: (nbits,) int32 or int64, nbits a multiple of COMMIT_ROW^2 (and
     below 2^30 on the card), every step in [1, COMMIT_ROW] or above it (a
-    stop: _decode_bits gives [1, 48] and 257); start_bits: (U,) int32 or
+    stop: the decoder gives [1, 48] and 257); start_bits: (U,) int32 or
     int64, each valid one in [0, nbits); unit_valid: (U,) bool or int32;
     max_sup_span >= 0. On the card a step below 1 stops the walk, where
     the plain version follows the reference (csrc/kernels.h)."""
@@ -840,7 +849,8 @@ def commit_walk(step, start_bits, unit_valid, max_sup_span: int):
         if t.dtype not in (torch.int32, torch.int64):
             raise TypeError(f"commit_walk: {nm} must be int32 or int64")
     dev = step.device
-    # _decode_bits hands in int64: one cast, read once by each launch.
+    # decode_candidates hands in int32 (a no-op); an int64 step is cast
+    # once, read by each launch.
     step = step.to(torch.int32).contiguous()
     if step.data_ptr() % 16:
         step = step.clone()
@@ -979,8 +989,9 @@ def token_scatter(litval, start_mark, dist_at, off, committed, islit, islen,
     nothing. Returns (litval, start_mark, dist_at).
 
     litval, start_mark, dist_at: (n_out_pad,) int32; off, sym, mdist:
-    (nbits,) int64 or int32, sym and mdist within int32; committed, islit,
-    islen: (nbits,) bool."""
+    (nbits,) int64 or int32, sym and mdist within int32 (the kernel reads
+    off as int64 and sym and mdist as int32, as the decoder hands them);
+    committed, islit, islen: (nbits,) bool."""
     for nm, t in (("litval", litval), ("start_mark", start_mark),
                   ("dist_at", dist_at)):
         _check(nm, t, 1)
@@ -1003,8 +1014,8 @@ def token_scatter(litval, start_mark, dist_at, off, committed, islit, islen,
     if nbits >= 1 << 31 or n_out_pad >= 1 << 31:
         raise ValueError("token_scatter: nbits and n_out_pad must be "
                          "below 2^31")
-    off, sym, mdist = (t.to(torch.int64).contiguous()
-                       for t in (off, sym, mdist))
+    off = off.to(torch.int64).contiguous()
+    sym, mdist = (t.to(torch.int32).contiguous() for t in (sym, mdist))
     committed, islit, islen = (t.contiguous().view(torch.uint8)
                                for t in (committed, islit, islen))
     if nbits and n_out_pad:
@@ -1136,3 +1147,117 @@ def resolve_lz_plain(litval, start_mark, dist_at):
     """Plain torch version of resolve_lz."""
     parent, _rounds = resolve_parent_plain(start_mark, dist_at)
     return litval[parent].to(torch.uint8)
+
+
+# ---------------------------------------------------------------------------
+# 8. decode_candidates (device decode's per-bit path)
+# ---------------------------------------------------------------------------
+
+# The candidate kernel's launch shape, as csrc/kernels.h defines it (a test
+# holds the two equal): blocks of CAND_THREADS threads, each thread
+# CAND_BITS consecutive bits.
+CAND_THREADS = 256
+CAND_BITS = 4
+_LUT_UNITS = 64  # units a LUT build of the plain version takes at once
+
+
+def decode_candidates(words, ll, d, start_bits, unit_valid, nbits: int):
+    """The per-bit path's candidate token at every bit of a group
+    (zzflate_tpu/models/inflate_tpu.py _decode_all :593-612: _build_luts,
+    _bit_windows, the owning-unit scatter and scan, _decode_bits). Returns
+    (uid, step, outlen, sym, mdist, islit, islen): five (nbits,) int32 and
+    two (nbits,) bool. uid[b] = max{u : unit_valid[u], start_bits[u] <= b}
+    (a start below 0 counts as 0, one at or past nbits is dropped), else
+    0; the rest is the token that would start at b in unit uid[b]'s
+    tables: step its width, or _HUGE (257) at an EOB or an invalid window;
+    sym and mdist as the reference's LUT path computes them at every bit.
+
+    words: (nbits / 32 + 2,) int32 carrying u32 bits, nbits a multiple of
+    32; ll = (first, cnt, off, sym) of (U, 16) x3 and (U, 288) int32, d the
+    same with (U, 32); start_bits: (U,) int32 or int64; unit_valid: (U,)
+    bool; U >= 1. The tables' symbols lie in [0, 288) and [0, 32), as the
+    host plan makes them; outside them the plain version raises."""
+    if words.dim() != 1:
+        raise ValueError("decode_candidates: words must be 1-D")
+    if nbits < 0 or nbits % 32 or words.shape[0] != nbits // 32 + 2:
+        raise ValueError("decode_candidates: nbits must be a multiple of 32 "
+                         "and words hold nbits / 32 + 2 entries")
+    u = start_bits.shape[0]
+    if start_bits.dim() != 1 or u < 1 or unit_valid.shape != start_bits.shape:
+        raise ValueError("decode_candidates: start_bits and unit_valid must "
+                         "be (U,) with U >= 1")
+    if unit_valid.dtype != torch.bool:
+        raise TypeError("decode_candidates: unit_valid must be bool")
+    if len(ll) != 4 or len(d) != 4:
+        raise ValueError("decode_candidates: ll and d are (first, cnt, off, "
+                         "sym)")
+    for (nm, rows), width in zip((("ll", ll), ("d", d)), (_MAX_LL, _MAX_D)):
+        for k, t in enumerate(rows):
+            want = (u, 16 if k < 3 else width)
+            if tuple(t.shape) != want:
+                raise ValueError(f"decode_candidates: {nm}[{k}] must be "
+                                 f"{want}, got {tuple(t.shape)}")
+    if not _route(words, *ll, *d, start_bits, unit_valid):
+        return decode_candidates_plain(words, ll, d, start_bits, unit_valid,
+                                       nbits)
+    if nbits >= 1 << 30:
+        raise ValueError("decode_candidates: nbits must be below 2^30")
+    _check("words", words, 1)
+    for nm, rows in (("ll", ll), ("d", d)):
+        for t in rows:
+            _check(nm, t, 2)
+    if start_bits.dtype not in (torch.int32, torch.int64):
+        raise TypeError("decode_candidates: start_bits must be int32 or "
+                        "int64")
+    dev = words.device
+    start = start_bits.to(torch.int32).contiguous()
+    valid = unit_valid.contiguous().view(torch.uint8)
+    hi = torch.empty((u * 32,), dtype=torch.int32, device=dev)
+    outs = [torch.empty((nbits,), dtype=torch.int32, device=dev)
+            for _ in range(5)]
+    flags = [torch.empty((nbits,), dtype=torch.uint8, device=dev)
+             for _ in range(2)]
+    if nbits:
+        with torch.cuda.device(dev):
+            rc = _load().zz_decode_candidates(
+                words.data_ptr(), nbits, *(t.data_ptr() for t in ll + d),
+                _on_device("ll_attr", dev).data_ptr(),
+                _on_device("d_attr", dev).data_ptr(), start.data_ptr(),
+                valid.data_ptr(), u, hi.data_ptr(),
+                *(t.data_ptr() for t in outs + flags), _stream(words))
+        _raise_rc("decode_candidates", rc)
+        launches["decode_candidates"] += 1
+    # The kernel writes 0 or 1 a byte: the flags read as bool.
+    return (*outs, *(f.view(torch.bool) for f in flags))
+
+
+def decode_candidates_plain(words, ll, d, start_bits, unit_valid,
+                            nbits: int):
+    """Plain torch version of decode_candidates: the reference's chain as
+    int64 torch ops (two (U, 2^15) LUTs, built _LUT_UNITS units at a time
+    to bound the temporaries; the bit windows, the owning unit, the LUT
+    decode), cast to the kernel's types at the end."""
+    dev = words.device
+
+    def luts(rows, attr, nsym, sym_bits):
+        return torch.cat([
+            _build_luts(*(t[k:k + _LUT_UNITS] for t in rows), attr, nsym,
+                        sym_bits)
+            for k in range(0, rows[0].shape[0], _LUT_UNITS)])
+
+    ll_lut = luts(ll, _on_device("ll_attr", dev), _MAX_LL, 10)
+    d_lut = luts(d, _on_device("d_attr", dev), _MAX_D, 5)
+    win_lo, win_hi = _bit_windows(words)
+    # The owning unit (inflate_tpu.py:603-608): unit ids scattered with max
+    # at their start bits (an invalid unit or a start at or past nbits
+    # dropped), then a running max.
+    tgt = torch.where(unit_valid, start_bits.long(), nbits)
+    uid0 = torch.zeros((nbits + 1,), dtype=torch.long, device=dev)
+    uid0.scatter_reduce_(0, tgt.clamp(0, nbits),
+                         torch.arange(start_bits.shape[0], device=dev),
+                         "amax")
+    uid = cummax(uid0[:nbits])
+    step, outlen, sym, mdist, islit, islen, _eob = _decode_bits(
+        win_lo, win_hi, uid, ll_lut, d_lut)
+    return (uid.int(), step.int(), outlen.int(), sym.int(), mdist.int(),
+            islit, islen)

@@ -3,9 +3,10 @@
 Thirds of text-like prose, XML-like records and structured binary, all
 drawn from ``numpy.random.default_rng(seed).bytes`` (the raw PCG64
 stream) and fixed tables, so the same (nbytes, seed) gives the same bytes
-on every machine with the same PCG64. Also the commit walk's seeded
-synthetic inputs (``commit_walk_inputs``), which the tests and
-chip_smoke.py share.
+on every machine with the same PCG64. Also the seeded synthetic inputs of
+device decode's per-bit kernels (``candidate_inputs``,
+``commit_walk_inputs``, ``resolve_inputs``, ``scatter_inputs``), which
+the tests and chip_smoke.py share.
 """
 from __future__ import annotations
 
@@ -204,8 +205,9 @@ def resolve_inputs(case: str, n: int, seed: int = 0):
 def scatter_inputs(case: str, nbits: int, n_out_pad: int, seed: int = 0):
     """The per-bit path's token scatter inputs of one case: the staged
     (litval, start_mark, dist_at), (n_out_pad,) int32, and (off,
-    committed, islit, islen, sym, mdist) over nbits bits (int64 and bool,
-    as _decode_bits hands them).
+    committed, islit, islen, sym, mdist) over nbits bits (off int64 from
+    the offsets' cumsum, the masks bool, sym and mdist int32 as
+    decode_candidates hands them).
 
     random: a committed token every ~10 bits, uncommitted bits holding
     junk (offsets anywhere, some past the end; symbols and distances of
@@ -248,4 +250,128 @@ def scatter_inputs(case: str, nbits: int, n_out_pad: int, seed: int = 0):
         off[t] = rng.choice(slots, t.size)
     return ((litval, start_mark, dist_at),
             (off.astype(np.int64), committed, islit, islen,
-             sym.astype(np.int64), mdist.astype(np.int64)))
+             sym.astype(np.int32), mdist.astype(np.int32)))
+
+
+# The candidate decode's cases (ops/kernels.decode_candidates), each aimed
+# at a branch of the reference's LUT decode or of the owning unit.
+CANDIDATE_CASES = ("random", "fixed_code", "incomplete_code", "eob_at_end",
+                   "starts", "one_unit", "many_units")
+
+
+def _random_lengths(rng, nsym: int, nleaves: int) -> np.ndarray:
+    """Code lengths of a random complete prefix code of nleaves symbols
+    (at most 15 bits): leaves split at random, half the time the deepest
+    one, so long codes occur; the symbols drawn at random."""
+    depths = [0]
+    while len(depths) < nleaves:
+        ok = [i for i, dd in enumerate(depths) if dd < 15]
+        i = max(ok, key=depths.__getitem__) if rng.random() < 0.5 else \
+            ok[int(rng.integers(len(ok)))]
+        dd = depths.pop(i)
+        depths += [dd + 1, dd + 1]
+    lengths = np.zeros(nsym, np.int32)
+    lengths[rng.choice(nsym, nleaves, replace=False)] = depths
+    return lengths
+
+
+def _code_rows(kind: str, rng):
+    """(ll lengths, d lengths) of one unit's codes. random: complete codes
+    over every symbol (litlen 286 and 287, distances 30 and 31 among
+    them); fixed: BTYPE 1 (litlen 286 and 287 reachable, distance codes 30
+    and 31 past its tree); incomplete: litlen 'A' = 00, EOB = 01, length 3
+    = 100, and 101, 11x past the tree; distance 0 = 0, 30 = 10, 31 = 110,
+    and 111 past the tree."""
+    from zzflate_tpu_torch import constants as C
+
+    if kind == "fixed":
+        return C.fixed_litlen_lengths(), C.fixed_dist_lengths()
+    if kind == "incomplete":
+        ll = np.zeros(288, np.int32)
+        ll[[65, 256, 257]] = [2, 2, 3]
+        d = np.zeros(32, np.int32)
+        d[[0, 30, 31]] = [1, 2, 3]
+        return ll, d
+    ll = _random_lengths(rng, 288, int(rng.integers(2, 289)))
+    if not ll[256]:  # every litlen code holds an EOB
+        k = rng.choice(np.flatnonzero(ll))
+        ll[256], ll[k] = ll[k], 0
+    return ll, _random_lengths(rng, 32, int(rng.integers(1, 33)))
+
+
+def _plant(bits: np.ndarray, at: int, code: int, length: int) -> None:
+    """Write an MSB-first canonical code into the stream, LSB first."""
+    for i in range(length):
+        bits[at + i] = (code >> (length - 1 - i)) & 1
+
+
+def candidate_inputs(case: str, nbits: int, seed: int = 0):
+    """(words, ll, d, start_bits, unit_valid) of one case at nbits (a
+    multiple of 1 024): words (nbits / 32 + 2,) int32 carrying u32 bits;
+    ll = (first, cnt, off, sym) as (U, 16) x3 and (U, 288) int32, d the
+    same with (U, 32), the host plan's canonical rows of each unit's codes
+    (zero rows for a padding unit); start_bits (U,) int32; unit_valid (U,)
+    bool. The words are random bits, so most windows of a complete code
+    decode to some token and most of an incomplete one fall past it.
+
+    random: 8 units of random, fixed and incomplete codes, starts unsorted,
+    one repeated, a padding unit (invalid, start 0), a valid unit past the
+    end (dropped) and no start before bit 100 (unit 0 owns those bits).
+    fixed_code, incomplete_code: 2 and 3 units of one code. eob_at_end:
+    EOB codes planted in the last bits and on the last one, whose windows
+    run into the two words past the group. starts: 16 units at bit 0, at
+    nbits - 1, repeated, at nbits and past it, padding units between.
+    one_unit: U = 1. many_units: U = 1 024, some padding, some past the
+    end, some repeated."""
+    from zzflate_tpu_torch import constants as C
+    from zzflate_tpu_torch.models.inflate import CanonicalDecoder
+    from zzflate_tpu_torch.models.inflate_device import _canon_desc
+
+    rng = np.random.default_rng([seed, nbits, CANDIDATE_CASES.index(case)])
+    u = {"random": 8, "fixed_code": 2, "incomplete_code": 3,
+         "eob_at_end": 4, "starts": 16, "one_unit": 1,
+         "many_units": 1024}[case]
+    kinds = {"fixed_code": ["fixed"], "incomplete_code": ["incomplete"]}.get(
+        case, ["random", "random", "fixed", "incomplete"])
+    pool = [_code_rows(k, rng) for k in kinds]
+    start = rng.integers(100, nbits, u)
+    valid = np.ones(u, bool)
+    if case == "random":
+        start[5] = start[2]
+        start[3], valid[3] = 0, False
+        start[7] = nbits + 5
+    elif case == "starts":
+        start[:6] = [0, nbits - 1, nbits - 1, nbits, nbits + 12345,
+                     (1 << 31) - 1]
+        start[6:9] = start[9]
+        start[10:13], valid[10:13] = 0, False
+    elif case == "eob_at_end":
+        start[0] = 0
+        start[-1] = nbits - 300
+    elif case == "one_unit":
+        start[0] = 100
+    elif case == "many_units":
+        start[900:1000], valid[900:1000] = 0, False
+        start[1000:1010] = nbits + rng.integers(0, 1000, 10)
+        start[100:200] = start[200:300]
+    which = rng.integers(0, len(pool), u)
+    rows = []
+    for k, tab in ((0, 288), (1, 32)):
+        out = [np.zeros((u, 16), np.int32) for _ in range(3)]
+        out.append(np.zeros((u, tab), np.int32))
+        for j in range(u):
+            if not valid[j]:
+                continue  # a padding unit keeps zero rows, as staged
+            for dst, src in zip(out, _canon_desc(
+                    CanonicalDecoder(list(pool[which[j]][k])), tab)):
+                dst[j] = src
+        rows.append(tuple(out))
+    bits = (rng.random(nbits + 64) < 0.5).astype(np.uint8)
+    if case == "eob_at_end":
+        # The last bits' owner: the highest unit started before them.
+        ll_len = pool[which[-1]][0]
+        code = int(C.canonical_codes(ll_len)[256])
+        for at in (nbits - 40, nbits - 9, nbits - 1):
+            _plant(bits, at, code, int(ll_len[256]))
+    words = np.packbits(bits, bitorder="little").view("<u4").view(np.int32)
+    return (words.copy(), rows[0], rows[1], start.astype(np.int32), valid)

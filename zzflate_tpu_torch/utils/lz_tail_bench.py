@@ -1,26 +1,32 @@
-"""Device decode's LZ tail (``ops/kernels.token_scatter`` and
-``resolve_lz``, ``csrc/resolve.cu``) on one checkout of the port: checked
-against the plain versions, then timed.
+"""Device decode's per-bit kernels after the commit walk's
+(``ops/kernels.decode_candidates``, ``csrc/candidates.cu``; ``token_scatter``
+and ``resolve_lz``, ``csrc/resolve.cu``) on one checkout of the port:
+checked against the plain versions, then timed; and one per-bit group's
+``_decode_all`` split by stage.
 
-On the card: the seeded cases of ``utils/corpus.resolve_inputs`` and
-``scatter_inputs`` at a group's size (4 194 304 positions and bits); the
-per-bit path's group, a 1 MiB v2 index of the seeded 8 MiB corpus's
-prefix (one 4 194 304-bit group), with its ``_decode_all`` arguments and
-the arguments of its token_scatter and resolve_lz calls; and the walk
-path's groups of the 8 MiB corpus as the port's indexed L6 gzip. Each
+On the card: the seeded cases of ``utils/corpus.candidate_inputs``,
+``resolve_inputs`` and ``scatter_inputs`` at a group's size (4 194 304
+bits and positions); the per-bit path's group, a 1 MiB v2 index of the
+seeded 8 MiB corpus's prefix (one 4 194 304-bit group), with its
+``_decode_all`` arguments and the arguments of its kernel calls; and the
+walk path's groups of the 8 MiB corpus as the port's indexed L6 gzip. Each
 kernel is held exactly against its plain version; then timed with CUDA
-events (median of 15, the L2 flushed before each) beside its bytes bound
-(3.35 TB/s), the plain version and, for token_scatter, the three torch
-``scatter_reduce_("amax")`` calls it replaced, each also timed alone with
-the trash slot and with the uncommitted bits filtered out. One
-``_decode_all`` is traced (device time by kernel, launches) and run under
-``torch.cuda.set_sync_debug_mode("error")``. Prints JSON lines:
+events (median of 15, the L2 flushed before each) beside its bound (3.35
+TB/s; 16.7e12 integer op/s), the plain version and, for token_scatter, the
+three torch ``scatter_reduce_("amax")`` calls it replaced, each also timed
+alone with the trash slot and with the uncommitted bits filtered out. One
+``_decode_all`` is traced whole (device time by kernel, launches), split
+by stage (``stage_split``: the candidates, the commit, the offsets,
+``_stage_out``, the scatter and the resolve, as ``_decode_all`` calls
+them) and run under ``torch.cuda.set_sync_debug_mode("error")``. Prints
+JSON lines:
 
     python zzflate_tpu_torch/utils/lz_tail_bench.py [--root OTHER_CHECKOUT]
 
 ``--root`` imports the package from that checkout's root (default: the
-one holding this file). Needs a CUDA device. ``chip_smoke.py`` phase 6
-uses the helpers here.
+one holding this file), so a parent checkout is checked and timed by this
+file in the same call. Needs a CUDA device. ``chip_smoke.py`` phase 6 uses
+the helpers here.
 """
 from __future__ import annotations
 
@@ -33,8 +39,26 @@ import sys
 import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
+# H100 SXM 32-bit integer rate: 132 SMs x 64 integer lanes x 1.98 GHz.
+INT_OPS_PER_S = 132 * 64 * 1.98e9
 GROUP = 1 << 22  # positions of a group's output space, bits of its body
 V2_BYTES = 1 << 20
+# decode_candidates' bytes a bit: uid, step, outlen, sym and mdist written
+# as int32, islit and islen as bytes (the words, 4 B for 32 bits, and the
+# units' rows are read once from memory and are left out).
+CAND_BYTES_BIT = 22
+# The 32-bit integer operations the function needs, in the reference's
+# table form (each valid unit's two 2^15-entry tables built once, then one
+# lookup a table a bit), not the compare ladder csrc/candidates.cu spends
+# to evaluate a table entry per bit. A bit: the 64-bit window (word index
+# and shift 2, two funnel shifts 2: 4), the owning unit's running max (1),
+# the litlen lookup's index (2), its fields and flags (12), the length's
+# extract (4), the distance window's offset and extract (3), its lookup's
+# index (2), fields and flags (9) and extract (5), and the outputs (17):
+# 59. A table entry: its symbol, length and attribute composed and stored
+# (4). Loads are not counted.
+CAND_OPS_BIT = 59
+CAND_OPS_ENTRY = 4
 
 
 def to_v2(blob: bytes, containers) -> bytes:
@@ -52,11 +76,13 @@ def to_v2(blob: bytes, containers) -> bytes:
 
 
 def recorder(kernels, calls: dict, ends: bool = False):
-    """Install wrappers on kernels.token_scatter and resolve_lz that keep
-    each call's arguments (token_scatter's three arrays cloned before it
-    updates them) in calls[name], or with ends only the first and the
-    last call's; returns the function that removes them."""
-    orig = {k: getattr(kernels, k) for k in ("token_scatter", "resolve_lz")}
+    """Install wrappers on kernels.token_scatter, resolve_lz and
+    decode_candidates that keep each call's arguments (token_scatter's
+    three arrays cloned before it updates them) in calls[name], or with
+    ends only the first and the last call's; returns the function that
+    removes them."""
+    names = ("token_scatter", "resolve_lz", "decode_candidates")
+    orig = {k: getattr(kernels, k) for k in names}
 
     def keep(name, args):
         got = calls.setdefault(name, [])
@@ -73,7 +99,12 @@ def recorder(kernels, calls: dict, ends: bool = False):
         keep("resolve_lz", a)
         return orig["resolve_lz"](*a)
 
+    def candidates(*a):
+        keep("decode_candidates", a)
+        return orig["decode_candidates"](*a)
+
     kernels.token_scatter, kernels.resolve_lz = scatter, resolve
+    kernels.decode_candidates = candidates
 
     def undo():
         for k, fn in orig.items():
@@ -116,9 +147,9 @@ def scatter_bound(args) -> dict:
     """Least time of one token_scatter call, from this call's data: the
     committed mask read once (1 B a bit); at the committed bits their two
     kind flags; at the committed tokens the offset (8 B) and the literal
-    or distance (8 B each kind set); at the tokens kept (offset in range)
+    or distance (4 B each kind set); at the tokens kept (offset in range)
     the three int32 entries read and written. Beside it, the six arrays
-    read whole as _decode_bits hands them (27 B a bit)."""
+    read whole as the decode hands them (19 B a bit)."""
     off, committed, islit, islen = args[3:7]
     n = args[0].shape[0]
     nbits = off.shape[0]
@@ -128,10 +159,10 @@ def scatter_bound(args) -> dict:
     tok = lit | ln
     kept = tok & (off >= 0) & (off < n)
     ntok = int(tok.sum().item())
-    nbytes = (nbits + 2 * com + 8 * ntok + 8 * int(lit.sum().item())
-              + 8 * int(ln.sum().item()) + 24 * int(kept.sum().item()))
+    nbytes = (nbits + 2 * com + 8 * ntok + 4 * int(lit.sum().item())
+              + 4 * int(ln.sum().item()) + 24 * int(kept.sum().item()))
     t = nbytes / HBM_BYTES_PER_S * 1e3
-    whole = nbits * 27 + int(kept.sum().item()) * 24
+    whole = nbits * 19 + int(kept.sum().item()) * 24
     return {"bound_ms": t, "bound_by": "bytes", "bound_bytes": nbytes,
             "whole_read_ms": whole / HBM_BYTES_PER_S * 1e3, "nbits": nbits,
             "committed": com, "tokens": ntok,
@@ -248,29 +279,183 @@ def seeded_checks(torch, kernels, corpus, n: int = GROUP) -> dict:
             "cases": len(corpus.RESOLVE_CASES) + len(corpus.SCATTER_CASES)}
 
 
-def device_split(torch, profiling, fn, logdir: str, log=print) -> dict:
-    """One call of fn under the profiler: its device launches and device
-    time, split into the commit kernels, token_scatter, resolve_lz's and
-    the rest (None when the profile holds no device records)."""
-    with profiling.trace(logdir) as prof:
-        fn()
-        torch.cuda.synchronize()
-    ev = [e for e in prof.key_averages()
-          if str(e.device_type).endswith("CUDA")]
+def check_candidates(kernels, args) -> int:
+    """decode_candidates against its plain version on one call's
+    arguments: the largest difference of the seven outputs (0 = exact)."""
+    got = kernels.decode_candidates(*args)
+    exp = kernels.decode_candidates_plain(*args)
+    return max(max_err(g, e) for g, e in zip(got, exp))
+
+
+def candidates_bound(nbits: int, units: int) -> dict:
+    """Least time of one decode_candidates call over nbits bits and units
+    valid units: the larger of its outputs' bytes over the memory rate and
+    the operations the function needs over the integer rate
+    (CAND_BYTES_BIT; CAND_OPS_BIT a bit, CAND_OPS_ENTRY a table entry)."""
+    t_bytes = nbits * CAND_BYTES_BIT / HBM_BYTES_PER_S * 1e3
+    ops = nbits * CAND_OPS_BIT + units * 2 * (1 << 15) * CAND_OPS_ENTRY
+    t_ops = ops / INT_OPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes_ms": t_bytes, "ops_ms": t_ops, "nbits": nbits}
+
+
+def candidates_report(kernels, timer, args, label: str, log=print) -> dict:
+    """One real decode_candidates call: held exactly against its plain
+    version, timed (kernel and plain), bounded; printed and returned."""
+    if check_candidates(kernels, args):
+        raise AssertionError(f"decode_candidates {label}: kernel != plain")
+    ms = timer.kernel_ms(lambda: kernels.decode_candidates(*args))
+    plain = timer.wall_ms(lambda: kernels.decode_candidates_plain(*args),
+                          reps=1)
+    units = int(args[4].sum().item())
+    b = candidates_bound(args[-1], units)
+    log(f"  decode_candidates {label}: {b['nbits']} bits, {units} units: "
+        f"kernel {ms:.4f} ms, bound {b['bound_ms'] * 1e3:.2f} us "
+        f"({b['bound_by']}; bytes {b['bytes_ms'] * 1e3:.2f} us, ops "
+        f"{b['ops_ms'] * 1e3:.2f} us), share {b['bound_ms'] / ms:.4f}; "
+        f"plain {plain:.3f} ms; equal")
+    return {**b, "group": label, "units": units, "ms": ms,
+            "share": b["bound_ms"] / ms, "plain_ms": plain}
+
+
+def candidate_checks(torch, kernels, corpus, sizes=(GROUP,)) -> dict:
+    """decode_candidates against its plain version on every seeded case
+    at each size: the largest difference and the inputs checked."""
+    err, n = 0, 0
+    for case in corpus.CANDIDATE_CASES:
+        for nbits in sizes:
+            words, ll, d, start, valid = corpus.candidate_inputs(case, nbits)
+            c = lambda a: torch.from_numpy(a).cuda()  # noqa: E731
+            args = (c(words), tuple(map(c, ll)), tuple(map(c, d)), c(start),
+                    c(valid), nbits)
+            err = max(err, check_candidates(kernels, args))
+            n += 1
+    return {"max_abs_err": err, "inputs": n}
+
+
+def _is_device(e) -> bool:
+    """A kernel, copy or fill on the card, not the profiler's own spans on
+    the device timeline (its step, and the record_function ranges)."""
+    return (str(e.device_type).endswith("CUDA")
+            and not e.key.startswith(("ProfilerStep", "stage:")))
+
+
+def _profiled(torch, fn, logdir=None, raw=False) -> list:
+    """The device events of one fn() call as (key, count, device us)
+    averages; with raw, every event of the call as (name, on the device,
+    start us, duration us), host ranges included. Profiled as the second
+    of two steps of one profiler: CUPTI can miss the first launches of a
+    session, so the first step only warms it up. Its Chrome trace goes to
+    logdir when one is given. Plain tuples: no profiler object outlives
+    the session."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    events: list = []
+
+    def ready(prof):  # the profiler drops the step's events after this
+        if raw:
+            events.extend((e.name, str(e.device_type).endswith("CUDA"),
+                           e.time_range.start, e.time_range.elapsed_us())
+                          for e in prof.events())
+        else:
+            events.extend((e.key, e.count, e.self_device_time_total)
+                          for e in prof.key_averages() if _is_device(e))
+        if logdir is not None:
+            os.makedirs(logdir, exist_ok=True)
+            prof.export_chrome_trace(os.path.join(
+                logdir, f"trace_{os.getpid()}_{time.time_ns()}.json.gz"))
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=ready) as prof:
+        for _ in range(2):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    return events
+
+
+# _decode_all's stages, in its order: (name, "kernels" or "idv", the
+# function it calls).
+STAGES = (("candidates", "kernels", "decode_candidates"),
+          ("commit", "idv", "_commit_walk"), ("offsets", "idv", "_offsets"),
+          ("stage_out", "idv", "_stage_out"),
+          ("token_scatter", "kernels", "token_scatter"),
+          ("resolve_lz", "idv", "_resolve_lz"))
+
+
+def stage_split(torch, idv, kernels, args) -> dict:
+    """One group's _decode_all(*args) by stage: each function of STAGES is
+    wrapped, while the call runs, in a record_function range that ends
+    with a synchronise, and the call is profiled as one step (after a warm
+    one, which a max-scatter repeats harmlessly); each device event goes
+    to the stage whose range it starts in. Returns {"stages": {name:
+    {launches, device_ms}}, "candidates_launches", "candidates_ms",
+    "launches", "device_ms"} (every device_ms None when the profile holds
+    no device records)."""
+    mods = {"kernels": kernels, "idv": idv}
+    orig = {(mod, fn): getattr(mods[mod], fn) for _n, mod, fn in STAGES}
+
+    def staged(name, fn):
+        def run(*a, **kw):
+            with torch.profiler.record_function(f"stage:{name}"):
+                out = fn(*a, **kw)
+                torch.cuda.synchronize()
+            return out
+        return run
+
+    for name, mod, fn in STAGES:
+        setattr(mods[mod], fn, staged(name, orig[(mod, fn)]))
+    try:
+        events = _profiled(torch, lambda: idv._decode_all(*args), raw=True)
+    finally:
+        for (mod, fn), f in orig.items():
+            setattr(mods[mod], fn, f)
+    starts = sorted((t, name[len("stage:"):])
+                    for name, on_card, t, _us in events
+                    if name.startswith("stage:") and not on_card)
+    rows = {name: {"launches": 0, "device_ms": 0.0} for name, _m, _f in STAGES}
+    device = [(t, us) for name, on_card, t, us in events if on_card
+              and not name.startswith(("ProfilerStep", "stage:"))]
+    for t0, us in device:
+        owner = starts[0][1]
+        for t, name in starts:
+            if t <= t0:
+                owner = name
+        rows[owner]["launches"] += 1
+        rows[owner]["device_ms"] += us / 1e3
+    if not device:
+        for row in rows.values():
+            row["device_ms"] = None
+    return {"stages": rows,
+            "candidates_launches": rows["candidates"]["launches"],
+            "candidates_ms": rows["candidates"]["device_ms"],
+            "launches": sum(r["launches"] for r in rows.values()),
+            "device_ms": (sum(r["device_ms"] for r in rows.values())
+                          if device else None)}
+
+
+def device_split(torch, fn, logdir: str, log=print) -> dict:
+    """One call of fn under the profiler (_profiled): its device launches
+    and device time, split into the candidate kernels, the commit kernels,
+    token_scatter, resolve_lz's and the rest (None when the profile holds
+    no device records)."""
+    ev = _profiled(torch, fn, logdir)
     if not ev:
         return {"launches": 0, "device_ms": None}
-    top = sorted(ev, key=lambda e: -e.self_device_time_total)
-    for e in top[:8] + [e for e in top[8:] if "scatter" in e.key]:
-        log(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x "
-            f"{e.key[:90]}")
-    parts = {"commit": "commit_", "scatter": "token_scatter",
-             "resolve": "resolve_"}
-    out = {"launches": sum(e.count for e in ev),
-           "device_ms": sum(e.self_device_time_total for e in ev) / 1e3}
-    for name, key in parts.items():
-        out[f"{name}_ms"] = sum(e.self_device_time_total for e in ev
-                                if key in e.key) / 1e3
-        out[f"{name}_launches"] = sum(e.count for e in ev if key in e.key)
+    top = sorted(ev, key=lambda e: -e[2])
+    for key, count, us in top[:8] + [e for e in top[8:] if "scatter" in e[0]]:
+        log(f"  {us / 1e3:9.3f} ms {count:6d}x {key[:90]}")
+    parts = {"candidates": ("candidates_kernel", "unit_bounds_kernel"),
+             "commit": ("commit_",), "scatter": ("token_scatter",),
+             "resolve": ("resolve_",)}
+    out = {"launches": sum(count for _k, count, _us in ev),
+           "device_ms": sum(us for _k, _c, us in ev) / 1e3}
+    for name, keys in parts.items():
+        mine = [e for e in ev if any(k in e[0] for k in keys)]
+        out[f"{name}_ms"] = sum(us for _k, _c, us in mine) / 1e3
+        out[f"{name}_launches"] = sum(count for _k, count, _us in mine)
     out["rest_ms"] = out["device_ms"] - sum(out[f"{p}_ms"] for p in parts)
     return out
 
@@ -318,6 +503,10 @@ def main(argv=None) -> int:
     print(json.dumps({"seeded": seeded}), flush=True)
     if seeded["max_abs_err"]:
         raise AssertionError("seeded cases: kernel != plain")
+    cand = candidate_checks(torch, kernels, corpus)
+    print(json.dumps({"seeded_candidates": cand}), flush=True)
+    if cand["max_abs_err"]:
+        raise AssertionError("decode_candidates: kernel != plain")
 
     data = corpus.mixed_corpus(8 << 20, seed=0)
     pre = data[:V2_BYTES]
@@ -341,9 +530,13 @@ def main(argv=None) -> int:
         undo()
     rep = tail_report(torch, kernels, timer, "v2 group 0",
                       calls["token_scatter"][0], calls["resolve_lz"][0])
+    rep["decode_candidates"] = candidates_report(
+        kernels, timer, calls["decode_candidates"][0], "v2 group 0")
     print(json.dumps(rep), flush=True)
-    split = device_split(torch, profiling,
-                         lambda: idv._decode_all(*all_args[0]), logdir)
+    print(json.dumps({"_decode_all v2 group 0 by stage": stage_split(
+        torch, idv, kernels, all_args[0])}), flush=True)
+    split = device_split(torch, lambda: idv._decode_all(*all_args[0]),
+                         logdir)
     no_sync(torch, lambda: idv._decode_all(*all_args[0]))
     secs = []
     for _ in range(3):
