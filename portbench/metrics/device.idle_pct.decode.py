@@ -1,0 +1,7 @@
+"""device.idle_pct.decode: percent of the profiled calls' span in which no
+kernel or copy ran on the card."""
+from portbench.readers import idle_pct
+
+
+def read(rec):
+    return idle_pct(rec)
