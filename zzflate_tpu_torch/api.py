@@ -26,6 +26,7 @@ from zzflate_tpu_torch.config import CodecConfig
 from zzflate_tpu_torch.encode_pipeline import encode_segments
 from zzflate_tpu_torch.models import inflate
 from zzflate_tpu_torch.utils import containers
+from zzflate_tpu_torch.utils.profiling import maybe_stage
 
 
 def compress_bound(n: int, format: str = "zlib") -> int:
@@ -88,6 +89,12 @@ def _stream_checksums(enc: dict, n: int, chunk_bytes: int) -> tuple[int, int]:
             containers.combine_crc(list(zip(enc["crc"], lens))))
 
 
+def _host_check(fn, data: bytes) -> int:
+    """fn(data), a container checksum pass over the input on the host."""
+    with maybe_stage("frame_checksum"):
+        return fn(data)
+
+
 def _frame(data: bytes, config: CodecConfig, dictionary, payload: bytes,
            index: dict | None = None, seekable: bool = False,
            cks: tuple[int, int] | None = None) -> bytes:
@@ -99,7 +106,8 @@ def _frame(data: bytes, config: CodecConfig, dictionary, payload: bytes,
         return payload
     if config.format == "zlib":
         dictid = _zlib.adler32(dictionary) if dictionary is not None else None
-        adler = cks[0] if cks is not None else _zlib.adler32(data)
+        adler = cks[0] if cks is not None else _host_check(_zlib.adler32,
+                                                           data)
         return (
             containers.zlib_header(config.level, dictid, config.window_bits)
             + payload
@@ -114,7 +122,7 @@ def _frame(data: bytes, config: CodecConfig, dictionary, payload: bytes,
         )
     else:
         hdr = containers.gzip_header()
-    crc = cks[1] if cks is not None else _zlib.crc32(data)
+    crc = cks[1] if cks is not None else _host_check(_zlib.crc32, data)
     return hdr + payload + containers.gzip_trailer(crc, len(data))
 
 
@@ -125,28 +133,31 @@ def _compress_on(data: bytes, config: CodecConfig, dictionary,
     device, or a mesh: encode_segments), framed. card_checksums takes the
     trailer from the devices' per-chunk partials instead of a host pass
     over `data`."""
-    index = cks = None
-    if config.level == 0:
-        payload = containers.stored_segment(data, final=True)
-    else:
+    index = cks = enc = None
+    if config.level != 0:
         enc = encode_segments(
             data, config, dictionary, devices, with_anchors=indexed,
             halo=not seekable, with_checksums=card_checksums,
         )
-        payload = b"".join(enc["segments"])
-        if card_checksums:
-            cks = _stream_checksums(enc, len(data), config.chunk_bytes)
-        if indexed:
-            index = enc
+    with maybe_stage("frame"):
+        if enc is None:
+            payload = containers.stored_segment(data, final=True)
         else:
-            # Whole-stream stored fallback: per-chunk sync-flush framing
-            # adds ~5 bytes/chunk, so incompressible inputs could
-            # otherwise exceed compress_bound. Indexed streams keep their
-            # per-chunk layout.
-            stored_whole = containers.stored_segment(data, final=True)
-            if len(stored_whole) < len(payload):
-                payload = stored_whole
-    return _frame(data, config, dictionary, payload, index, seekable, cks)
+            payload = b"".join(enc["segments"])
+            if card_checksums:
+                cks = _stream_checksums(enc, len(data), config.chunk_bytes)
+            if indexed:
+                index = enc
+            else:
+                # Whole-stream stored fallback: per-chunk sync-flush
+                # framing adds ~5 bytes/chunk, so incompressible inputs
+                # could otherwise exceed compress_bound. Indexed streams
+                # keep their per-chunk layout.
+                stored_whole = containers.stored_segment(data, final=True)
+                if len(stored_whole) < len(payload):
+                    payload = stored_whole
+        return _frame(data, config, dictionary, payload, index, seekable,
+                      cks)
 
 
 def compress(

@@ -269,7 +269,8 @@ def _plan_and_emit(ctx: _Ctx, sl, parts):
                 )
                 plans[r0:r1] = sub
                 ana = dict(ana, **override)
-        tables = interop.plan_stack(plans[r0:r1], dev)
+        with maybe_stage("plan_upload"):
+            tables = interop.plan_stack(plans[r0:r1], dev)
         tok_slots = budget if ntok <= budget else 0
         with maybe_stage("emit_dispatch", dev):
             res = deflate_encoder.emit_chunks_batch(

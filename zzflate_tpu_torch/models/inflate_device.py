@@ -188,44 +188,45 @@ def _plan_units(body: bytes, chunks, out_starts, out_sizes):
     out of the uploaded words. Offsets (bit and output) are relative to
     the given body/out space. unit_ranges[i] is the [lo, hi) slice of
     `units` from chunk i (empty for stored-fallback chunks)."""
-    units = []
-    stored_runs: list[tuple[int, int, int]] = []
-    unit_ranges: list[tuple[int, int]] = []
-    pos = 0
-    for i, (sz, blocks, _anchors) in enumerate(chunks):
-        seg = body[pos : pos + sz]
-        seg_bit0 = pos * 8
-        seg_byte0 = pos
-        pos += sz
-        ulo = len(units)
-        br = BitReader(seg, 0)
-        br.bits(1)
-        if br.bits(2) == 0:
-            stored_runs.extend(
-                _stored_runs(seg, out_starts[i], out_sizes[i], seg_byte0)
-            )
-            unit_ranges.append((ulo, ulo))
-            continue
-        for bit_off, out_off in blocks:
-            b = BitReader(seg, bit_off)
-            b.bits(1)
-            btype = b.bits(2)
-            if btype == 1:
-                lld, dd = _FixedDecs.get()
-            elif btype == 2:
-                lld, dd = _read_dynamic_tables(b)
-            else:
-                raise ValueError("corrupt indexed segment: bad BTYPE")
-            units.append(
-                _Unit(
-                    seg_bit0 + b.bitpos,
-                    out_starts[i] + out_off,
-                    _canon_desc(lld, _MAX_LL),
-                    _canon_desc(dd, _MAX_D),
+    with maybe_stage("decode_units"):
+        units = []
+        stored_runs: list[tuple[int, int, int]] = []
+        unit_ranges: list[tuple[int, int]] = []
+        pos = 0
+        for i, (sz, blocks, _anchors) in enumerate(chunks):
+            seg = body[pos : pos + sz]
+            seg_bit0 = pos * 8
+            seg_byte0 = pos
+            pos += sz
+            ulo = len(units)
+            br = BitReader(seg, 0)
+            br.bits(1)
+            if br.bits(2) == 0:
+                stored_runs.extend(
+                    _stored_runs(seg, out_starts[i], out_sizes[i], seg_byte0)
                 )
-            )
-        unit_ranges.append((ulo, len(units)))
-    return units, stored_runs, unit_ranges
+                unit_ranges.append((ulo, ulo))
+                continue
+            for bit_off, out_off in blocks:
+                b = BitReader(seg, bit_off)
+                b.bits(1)
+                btype = b.bits(2)
+                if btype == 1:
+                    lld, dd = _FixedDecs.get()
+                elif btype == 2:
+                    lld, dd = _read_dynamic_tables(b)
+                else:
+                    raise ValueError("corrupt indexed segment: bad BTYPE")
+                units.append(
+                    _Unit(
+                        seg_bit0 + b.bitpos,
+                        out_starts[i] + out_off,
+                        _canon_desc(lld, _MAX_LL),
+                        _canon_desc(dd, _MAX_D),
+                    )
+                )
+            unit_ranges.append((ulo, len(units)))
+        return units, stored_runs, unit_ranges
 
 
 def _stored_runs(seg: bytes, out_base: int, out_bytes: int,
@@ -464,35 +465,40 @@ def _stage_arrays(gbody: bytes, nw: int, u_pad: int, units, n_stored: int,
     """Numpy inputs of one group, padded to the shared shapes: the body
     as nw u32 words (carried as int32 bits), the units' canonical
     descriptors, block starts, stored runs and (walk path) lanes."""
-    wbytes = gbody + b"\x00" * (nw * 4 - len(gbody))
-    a = {"words": np.frombuffer(wbytes[: nw * 4], "<u4").view(np.int32).copy()}
-    for name, width in (("ll_first", 16), ("ll_cnt", 16), ("ll_off", 16),
-                        ("ll_sym", _MAX_LL), ("d_first", 16), ("d_cnt", 16),
-                        ("d_off", 16), ("d_sym", _MAX_D)):
-        a[name] = np.zeros((u_pad, width), np.int32)
-    a["start_bits"] = np.zeros(u_pad, np.int32)
-    a["out_bases"] = np.zeros(u_pad, np.int32)
-    a["unit_valid"] = np.zeros(u_pad, bool)
-    for j, un in enumerate(units):
-        a["ll_first"][j], a["ll_cnt"][j], a["ll_off"][j], a["ll_sym"][j] = un.ll
-        a["d_first"][j], a["d_cnt"][j], a["d_off"][j], a["d_sym"][j] = un.d
-        a["start_bits"][j] = un.bit
-        a["out_bases"][j] = un.out_base
-        a["unit_valid"][j] = True
-    if n_stored:
-        sr = np.zeros((n_stored, 3), np.int32)
-        sr[:, 0] = n_out_pad  # padding rows: out of range, len 0
-        for j, run in enumerate(sruns):
-            sr[j] = run
-    else:
-        sr = np.zeros((1, 3), np.int32)
-    a["sr"] = sr
-    if l_pad is not None:
-        for k, name in enumerate(("lane_bit", "lane_out", "lane_uid",
-                                  "lane_valid")):
-            a[name] = np.zeros(l_pad, np.int32)
-            a[name][: lanes.shape[1]] = lanes[k]
-    return a
+    with maybe_stage("decode_pack"):
+        wbytes = gbody + b"\x00" * (nw * 4 - len(gbody))
+        words = np.frombuffer(wbytes[: nw * 4], "<u4").view(np.int32)
+        a = {"words": words.copy()}
+        for name, width in (("ll_first", 16), ("ll_cnt", 16),
+                            ("ll_off", 16), ("ll_sym", _MAX_LL),
+                            ("d_first", 16), ("d_cnt", 16), ("d_off", 16),
+                            ("d_sym", _MAX_D)):
+            a[name] = np.zeros((u_pad, width), np.int32)
+        a["start_bits"] = np.zeros(u_pad, np.int32)
+        a["out_bases"] = np.zeros(u_pad, np.int32)
+        a["unit_valid"] = np.zeros(u_pad, bool)
+        for j, un in enumerate(units):
+            (a["ll_first"][j], a["ll_cnt"][j], a["ll_off"][j],
+             a["ll_sym"][j]) = un.ll
+            (a["d_first"][j], a["d_cnt"][j], a["d_off"][j],
+             a["d_sym"][j]) = un.d
+            a["start_bits"][j] = un.bit
+            a["out_bases"][j] = un.out_base
+            a["unit_valid"][j] = True
+        if n_stored:
+            sr = np.zeros((n_stored, 3), np.int32)
+            sr[:, 0] = n_out_pad  # padding rows: out of range, len 0
+            for j, run in enumerate(sruns):
+                sr[j] = run
+        else:
+            sr = np.zeros((1, 3), np.int32)
+        a["sr"] = sr
+        if l_pad is not None:
+            for k, name in enumerate(("lane_bit", "lane_out", "lane_uid",
+                                      "lane_valid")):
+                a[name] = np.zeros(l_pad, np.int32)
+                a[name][: lanes.shape[1]] = lanes[k]
+        return a
 
 
 def _upload(arrs: dict, dev: torch.device) -> dict:
@@ -501,10 +507,11 @@ def _upload(arrs: dict, dev: torch.device) -> dict:
 
 
 def _check_crc(group_crc, group_out, crc_expect: int) -> None:
-    crc = 0
-    vals = torch.stack(group_crc).cpu().tolist() if group_crc else []
-    for v, (_buf, go) in zip(vals, group_out):
-        crc = cs.crc32_combine(crc, int(v), go)
+    with maybe_stage("decode_verify"):
+        crc = 0
+        vals = torch.stack(group_crc).cpu().tolist() if group_crc else []
+        for v, (_buf, go) in zip(vals, group_out):
+            crc = cs.crc32_combine(crc, int(v), go)
     if crc != crc_expect:
         raise ValueError("crc32 mismatch (device inflate)")
 
@@ -536,74 +543,78 @@ def decompress_indexed(data: bytes, verify: bool = True,
     verify=True. device=None means CUDA (RuntimeError without a card)."""
     dev = _resolve_device(device)
     with maybe_stage("decode_plan"):
-        parsed = containers.parse_gzip_index(data)
-        if parsed is None:
-            return None
-        header_len, chunk_bytes, anchor_tokens, chunks = parsed
-        # The indexed member's extent comes from the index itself: a valid
-        # stream may append further gzip members after it (RFC 1952).
-        member_len = header_len + sum(sz for sz, _b, _a in chunks) + 8
-        if member_len > len(data):
-            return None  # index inconsistent with buffer; fall back
-        (crc_expect, isize) = struct.unpack(
-            "<II", data[member_len - 8 : member_len]
-        )
-        tail = data[member_len:]
-        if tail[:2] != b"\x1f\x8b":
-            tail = b""  # trailing garbage is tolerated (gzip(1) behavior)
-        nchunks = len(chunks)
-        total_out = isize
-        # Validate the (untrusted) index before any of it sizes a buffer:
-        # a lying 'ZZ' subfield must raise ValueError.
-        if not 1024 <= chunk_bytes <= (1 << 27):
-            raise ValueError("ZZ index: implausible chunk_bytes")
-        if isize > nchunks * chunk_bytes:
-            raise ValueError("ZZ index: isize exceeds indexed chunk capacity")
-        for sz, blocks, anchors in chunks:
-            if sz > len(data) or len(blocks) > max(1, chunk_bytes // 1024):
-                raise ValueError("ZZ index: implausible segment record")
-            if len(anchors) > max(1, chunk_bytes // 64):
-                raise ValueError("ZZ index: implausible anchor count")
-            for bit_off, out_off in blocks + anchors:
-                if bit_off >= 8 * max(sz, 1) or out_off > chunk_bytes:
-                    raise ValueError("ZZ index: block offsets out of range")
-        # Anchor-walk decode requires the writer's spacing guarantee; an
-        # absurd T from a hostile index must not size a walk.
-        use_walk = 0 < anchor_tokens <= 4096
+        with maybe_stage("decode_index"):
+            parsed = containers.parse_gzip_index(data)
+            if parsed is None:
+                return None
+            header_len, chunk_bytes, anchor_tokens, chunks = parsed
+            # The indexed member's extent comes from the index itself: a valid
+            # stream may append further gzip members after it (RFC 1952).
+            member_len = header_len + sum(sz for sz, _b, _a in chunks) + 8
+            if member_len > len(data):
+                return None  # index inconsistent with buffer; fall back
+            (crc_expect, isize) = struct.unpack(
+                "<II", data[member_len - 8 : member_len]
+            )
+            tail = data[member_len:]
+            if tail[:2] != b"\x1f\x8b":
+                tail = b""  # trailing garbage is tolerated (gzip(1) behavior)
+            nchunks = len(chunks)
+            total_out = isize
+            # Validate the (untrusted) index before any of it sizes a buffer:
+            # a lying 'ZZ' subfield must raise ValueError.
+            if not 1024 <= chunk_bytes <= (1 << 27):
+                raise ValueError("ZZ index: implausible chunk_bytes")
+            if isize > nchunks * chunk_bytes:
+                raise ValueError(
+                    "ZZ index: isize exceeds indexed chunk capacity")
+            for sz, blocks, anchors in chunks:
+                if sz > len(data) or len(blocks) > max(1, chunk_bytes // 1024):
+                    raise ValueError("ZZ index: implausible segment record")
+                if len(anchors) > max(1, chunk_bytes // 64):
+                    raise ValueError("ZZ index: implausible anchor count")
+                for bit_off, out_off in blocks + anchors:
+                    if bit_off >= 8 * max(sz, 1) or out_off > chunk_bytes:
+                        raise ValueError(
+                            "ZZ index: block offsets out of range")
+            # Anchor-walk decode requires the writer's spacing guarantee; an
+            # absurd T from a hostile index must not size a walk.
+            use_walk = 0 < anchor_tokens <= 4096
 
-        if total_out > (1 << 30) or member_len - header_len - 8 > (1 << 30):
-            return None  # host-memory sanity cap; native fallback
+            if (total_out > (1 << 30)
+                    or member_len - header_len - 8 > (1 << 30)):
+                return None  # host-memory sanity cap; native fallback
 
-        out_sizes = [
-            min(chunk_bytes, max(0, total_out - i * chunk_bytes))
-            for i in range(nchunks)
-        ]
-        out_starts = [i * chunk_bytes for i in range(nchunks)]
-        body = data[header_len : member_len - 8]
+            out_sizes = [
+                min(chunk_bytes, max(0, total_out - i * chunk_bytes))
+                for i in range(nchunks)
+            ]
+            out_starts = [i * chunk_bytes for i in range(nchunks)]
+            body = data[header_len : member_len - 8]
 
-        # Partition chunks into groups bounded by body and output.
-        if use_walk:
-            body_cap = _WGROUP_BODY
-            out_cap = max(_WGROUP_OUT, chunk_bytes)
-        else:
-            body_cap = _GROUP_BODY
-            out_cap = max(_GROUP_OUT, chunk_bytes)
-        if any(sz > body_cap for sz, _b, _a in chunks):
-            return None  # one chunk exceeds a group; native fallback
-        cpos = [0]
-        for sz, _b, _a in chunks:
-            cpos.append(cpos[-1] + sz)
-        groups: list[tuple[int, int]] = []
-        lo = 0
-        for i in range(nchunks):
-            if (
-                cpos[i + 1] - cpos[lo] > body_cap
-                or (i + 1 - lo) * chunk_bytes > out_cap
-            ) and i > lo:
-                groups.append((lo, i))
-                lo = i
-        if lo < nchunks:
-            groups.append((lo, nchunks))
+            # Partition chunks into groups bounded by body and output.
+            if use_walk:
+                body_cap = _WGROUP_BODY
+                out_cap = max(_WGROUP_OUT, chunk_bytes)
+            else:
+                body_cap = _GROUP_BODY
+                out_cap = max(_GROUP_OUT, chunk_bytes)
+            if any(sz > body_cap for sz, _b, _a in chunks):
+                return None  # one chunk exceeds a group; native fallback
+            cpos = [0]
+            for sz, _b, _a in chunks:
+                cpos.append(cpos[-1] + sz)
+            groups: list[tuple[int, int]] = []
+            lo = 0
+            for i in range(nchunks):
+                if (
+                    cpos[i + 1] - cpos[lo] > body_cap
+                    or (i + 1 - lo) * chunk_bytes > out_cap
+                ) and i > lo:
+                    groups.append((lo, i))
+                    lo = i
+            if lo < nchunks:
+                groups.append((lo, nchunks))
 
         # Host walk of every group's block headers (tiny descriptors).
         plans = []

@@ -11,6 +11,7 @@ import heapq
 import numpy as np
 
 from zzflate_tpu_torch import constants as C
+from zzflate_tpu_torch.utils.profiling import maybe_stage
 
 HDR_SLOTS = 672
 
@@ -176,7 +177,8 @@ def build_chunk_plan(
     hdr_vals/hdr_nbits (SB,HDR_SLOTS), eob_v/eob_nb (SB,), and "groups".
     """
     sb = freq_ll.shape[0]
-    groups = plan_block_groups(freq_ll, freq_d)
+    with maybe_stage("host_plan_blocks"):
+        groups = plan_block_groups(freq_ll, freq_d)
     out = {
         "ll_len": np.zeros((sb, 288), np.int32),
         "ll_code": np.zeros((sb, 288), np.uint32),
@@ -246,45 +248,47 @@ def build_tables(
     hdr_bits = 3
     body_dyn = body_fix
     if not fixed_only:
-        ll_len_dyn = code_lengths(freq_ll, C.MAX_CODE_BITS)
-        d_len_dyn = code_lengths(freq_d, C.MAX_CODE_BITS)
+        with maybe_stage("host_plan_lengths"):
+            ll_len_dyn = code_lengths(freq_ll, C.MAX_CODE_BITS)
+            d_len_dyn = code_lengths(freq_d, C.MAX_CODE_BITS)
         body_dyn = int(
             (freq_ll * ll_len_dyn).sum() + (freq_d * d_len_dyn).sum()
         )
-        hlit = max(257, int(np.max(np.nonzero(ll_len_dyn[:286])[0])) + 1)
-        hdist = max(1, int(np.max(np.nonzero(d_len_dyn[:30])[0])) + 1)
-        combined = np.concatenate([ll_len_dyn[:hlit], d_len_dyn[:hdist]])
-        rle = cl_rle(combined)
-        freq_cl = np.zeros(19, np.int64)
-        for s, _, _ in rle:
-            freq_cl[s] += 1
-        cl_len = code_lengths(freq_cl, C.MAX_CL_CODE_BITS)
-        cl_code = canonical_codes_lsb(cl_len)
-        perm = cl_len[C.CL_ORDER]
-        nz = np.nonzero(perm)[0]
-        hclen = max(4, (int(nz[-1]) + 1) if nz.size else 4)
+        with maybe_stage("host_plan_header"):
+            hlit = max(257, int(np.max(np.nonzero(ll_len_dyn[:286])[0])) + 1)
+            hdist = max(1, int(np.max(np.nonzero(d_len_dyn[:30])[0])) + 1)
+            combined = np.concatenate([ll_len_dyn[:hlit], d_len_dyn[:hdist]])
+            rle = cl_rle(combined)
+            freq_cl = np.zeros(19, np.int64)
+            for s, _, _ in rle:
+                freq_cl[s] += 1
+            cl_len = code_lengths(freq_cl, C.MAX_CL_CODE_BITS)
+            cl_code = canonical_codes_lsb(cl_len)
+            perm = cl_len[C.CL_ORDER]
+            nz = np.nonzero(perm)[0]
+            hclen = max(4, (int(nz[-1]) + 1) if nz.size else 4)
 
-        hdr_dyn_bits = (
-            3 + 14 + 3 * hclen
-            + sum(int(cl_len[s]) + eb for s, _, eb in rle)
-        )
-        if hdr_dyn_bits + body_dyn < 3 + body_fix:
-            use_dyn = True
-            ll_len, d_len = ll_len_dyn, d_len_dyn
-            hdr_bits = hdr_dyn_bits
-            f = [(bfinal, 1), (2, 2),
-                 (hlit - 257, 5), (hdist - 1, 5), (hclen - 4, 4)]
-            for i in range(hclen):
-                f.append((int(perm[i]), 3))
-            for s, ev, eb in rle:
-                f.append((int(cl_code[s]), int(cl_len[s])))
-                if eb:
-                    f.append((ev, eb))
-            if len(f) > HDR_SLOTS:
-                raise ValueError(f"dynamic header needs {len(f)} fields")
-            for i, (v, b) in enumerate(f):
-                hdr_vals[i] = v
-                hdr_nbits[i] = b
+            hdr_dyn_bits = (
+                3 + 14 + 3 * hclen
+                + sum(int(cl_len[s]) + eb for s, _, eb in rle)
+            )
+            if hdr_dyn_bits + body_dyn < 3 + body_fix:
+                use_dyn = True
+                ll_len, d_len = ll_len_dyn, d_len_dyn
+                hdr_bits = hdr_dyn_bits
+                f = [(bfinal, 1), (2, 2),
+                     (hlit - 257, 5), (hdist - 1, 5), (hclen - 4, 4)]
+                for i in range(hclen):
+                    f.append((int(perm[i]), 3))
+                for s, ev, eb in rle:
+                    f.append((int(cl_code[s]), int(cl_len[s])))
+                    if eb:
+                        f.append((ev, eb))
+                if len(f) > HDR_SLOTS:
+                    raise ValueError(f"dynamic header needs {len(f)} fields")
+                for i, (v, b) in enumerate(f):
+                    hdr_vals[i] = v
+                    hdr_nbits[i] = b
     if not use_dyn:
         hdr_vals[0] = bfinal
         hdr_nbits[0] = 1

@@ -1,12 +1,15 @@
-"""Per-stage wall times of the encode pipeline, traces, and run reports.
+"""Per-stage wall times of the encode pipeline and device decode, and
+traces.
 
 Port of ``zzflate_tpu/utils/profiling.py`` (``trace``, ``collect``,
-``maybe_stage``, ``StageTimer``, ``run_report``), and ``DeviceTimer``,
-the CUDA-event timing that chip_smoke.py and the bench scripts use. Eager CUDA returns
+``maybe_stage``, ``StageTimer``), and ``DeviceTimer``, the CUDA-event
+timing that chip_smoke.py and the bench scripts use. Eager CUDA returns
 before the device finishes, so a stage on CUDA devices synchronises
 each of them before it stops its timer. The synchronisation happens
-only while a collector is active; with none, ``maybe_stage`` costs
-nothing.
+only while a collector is active. While a torch.profiler session runs,
+each stage is also a ``"stage:" + name`` range on the profiler's clock,
+with or without a collector; with neither, ``maybe_stage`` returns one
+shared null context.
 
     with profiling.collect() as t:
         zzflate_tpu_torch.compress(data)
@@ -15,7 +18,6 @@ nothing.
 from __future__ import annotations
 
 import contextlib
-import json
 import os
 import statistics
 import threading
@@ -24,6 +26,15 @@ import time
 import torch
 
 _current: "StageTimer | None" = None
+_NULL = contextlib.nullcontext()
+STAGE_PREFIX = "stage:"  # of a stage's range in a profile
+
+
+def _profile_range(name: str):
+    """The stage's profiler range while a profiler runs, else _NULL."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(STAGE_PREFIX + name)
+    return _NULL
 
 
 @contextlib.contextmanager
@@ -55,16 +66,14 @@ def collect():
         _current = prev
 
 
-@contextlib.contextmanager
 def maybe_stage(name: str, device=None):
-    """Record a stage on the active collector, if any. `device` is a
+    """A context that records a stage on the active collector, if any,
+    else opens its profiler range while a profiler runs. `device` is a
     torch.device or a list of them (a mesh may name one twice)."""
     t = _current
-    if t is None:
-        yield
-    else:
-        with t.stage(name, device):
-            yield
+    if t is not None:
+        return t.stage(name, device)
+    return _profile_range(name)
 
 
 def _cuda_devices(device) -> list[torch.device]:
@@ -84,9 +93,10 @@ class StageTimer:
     @contextlib.contextmanager
     def stage(self, name: str, device=None):
         t0 = time.perf_counter()
-        yield
-        for d in _cuda_devices(device):
-            torch.cuda.synchronize(d)
+        with _profile_range(name):
+            yield
+            for d in _cuda_devices(device):
+                torch.cuda.synchronize(d)
         dt = time.perf_counter() - t0
         with self._lock:
             self.stages[name] = self.stages.get(name, 0.0) + dt
@@ -94,30 +104,6 @@ class StageTimer:
     def as_ms(self) -> dict[str, float]:
         with self._lock:
             return {k: v * 1e3 for k, v in self.stages.items()}
-
-
-def run_report(op: str, bytes_in: int, bytes_out: int, seconds: float,
-               stages: StageTimer | None = None, **extra) -> str:
-    """One run as a JSON line with the reference's keys: op, device,
-    n_devices, bytes in and out, ratio, seconds, MBps, stages_ms."""
-    if torch.cuda.is_available():
-        device, n_devices = torch.cuda.get_device_name(), torch.cuda.device_count()
-    else:
-        device, n_devices = "cpu", 1
-    rep = {
-        "op": op,
-        "device": device,
-        "n_devices": n_devices,
-        "bytes_in": bytes_in,
-        "bytes_out": bytes_out,
-        "ratio": round(bytes_in / max(1, bytes_out), 4),
-        "seconds": round(seconds, 4),
-        "MBps": round(bytes_in / 1e6 / max(seconds, 1e-9), 2),
-    }
-    if stages is not None:
-        rep["stages_ms"] = {k: round(v, 2) for k, v in stages.as_ms().items()}
-    rep.update(extra)
-    return json.dumps(rep)
 
 
 class DeviceTimer:
