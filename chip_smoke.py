@@ -6,7 +6,7 @@
 Phases (any failure raises and exits nonzero; nothing is caught):
 
 1. card: the device name, nvidia-smi's name and power limit, the nvcc
-   build of the eight kernel sources from zzflate_tpu_torch/csrc (one nvcc per
+   build of the nine kernel sources from zzflate_tpu_torch/csrc (one nvcc per
    source, all started together) and the host C compiler's build of the
    port's C runtime (zzflate_tpu_torch/native);
 2. kernels: at the main-path shape (16, 294912) each kernel is held
@@ -21,13 +21,24 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    (parse_rows also per launch: exits, marks; scan_candidates and
    propagate_matches on each of their real launches, with the bound and
    the share of it), the plain version, the bound, and for
-   propagate_matches a library yardstick;
+   propagate_matches a library yardstick. optimal_dp (the level 7-9
+   optimal parse's DP; no plain version, its oracle is the host C DP):
+   every launch of the L7, L8 and L9 calls, each row's choices walked as
+   the C DP walks its own and held exactly to native.optimal_parse on the
+   same matches and pass-1 code lengths, every position outside a row's
+   range 0; its device time on each level's last launch with the bytes
+   bound, the share and ns a step (a row is a chain of dependent steps,
+   which the bytes bound does not see); then, on the main path's first L9
+   batch, the card's override (the kernel, parse_rows, the histograms,
+   the freqs copy and the re-plan) equal to the C DP path's and both
+   timed on the host clock;
 3. main path: compress() on a seeded 8 MiB corpus at level 6 gzip,
-   level 1 zlib and level 9 gzip (the C optimal parse on the host) with
-   256 KiB chunks; each output must decode to the input with stdlib zlib
-   and with the port's own decompress(), and every kernel must have
-   launched in each level's run (counts reset just before its first
-   timed call, read just after). The median time of MAIN_REPS calls,
+   level 1 zlib and level 9 gzip (the optimal parse's DP on the card)
+   with 256 KiB chunks; each output must decode to the input with stdlib
+   zlib and with the port's own decompress(), every matcher kernel must
+   have launched in each level's run and optimal_dp once a batch at L9
+   and never at L6 or L1 (counts reset just before its first timed call,
+   read just after). The median time of MAIN_REPS calls,
    MB/s, size against zlib levels 6 and 9, stage times (a separate run)
    and a torch.profiler trace (another run: device time by kernel, the
    card's idle share) are printed;
@@ -163,7 +174,7 @@ Phases (any failure raises and exits nonzero; nothing is caught):
 
 Every trace goes through utils.profiling.trace, which also writes it
 gzipped to chiprun_out/traces/. The second-to-last lines are the
-kernels JSON (the ten kernels, each with its launches by run under
+kernels JSON (the eleven kernels, each with its launches by run under
 "launches_by_level" or "launches_by_run", the phase 7 paths among them,
 and phase 7's MB/s and partials under "parallel") and nvidia-smi's line;
 the last line is
@@ -195,6 +206,7 @@ STREAM_REPS = 3  # timed streamed runs
 # Phase 2 also takes L7's and L8's launches: their scans run K=20 and 24.
 KERNEL_RUNS = MAIN_RUNS + ((7, "gzip"), (8, "gzip"))
 BATCH = 16  # chunks per device batch on the main path
+MAIN_BATCHES = -(-MAIN_BYTES // (MAIN_CHUNK * BATCH))  # batches of a call
 REF_INPUT_BYTES = 1 << 16
 REF_INPUT_SEED = 7
 REF_SHA256_L6_4K = "5fb898053468dc47e80f13c50044f253ad40d6dc18c3b0f6b6d19f4149f7f15e"
@@ -227,6 +239,14 @@ KERNELS = {
     "parse_rows": ("zzflate_tpu_torch/csrc/parse.cu",
                    "zzflate_tpu/ops/pallas_kernels.py:267"),
 }
+# The level 7-9 optimal parse's DP: no Pallas kernel, the reference's
+# host C DP.
+OPTIMAL = ("optimal_dp", "zzflate_tpu_torch/csrc/optimal.cu",
+           "zzt_optimal_parse, zzflate_native.c:762 (the host C DP, called "
+           "from zzflate_tpu/encode_policy.py optimal_override)")
+OPT_LEVELS = (7, 8, 9)
+OPT_BYTES_POS = 13  # a parsed position: data, mlen, mdist read, choice written
+OVERRIDE_REPS = 3  # host-clock calls of each override
 # Device decode's kernel: no Pallas kernel, the reference's lax.fori_loop.
 WALK = ("anchor_walk", "zzflate_tpu_torch/csrc/walk.cu",
         "zzflate_tpu/models/inflate_tpu.py:727 (_walk_core, lax.fori_loop)")
@@ -309,7 +329,7 @@ def stream_script(comp, data: bytes, piece: int) -> list[bytes]:
 @contextlib.contextmanager
 def capture(kernels, calls: dict):
     """Record every kernel wrapper's arguments while the body runs."""
-    orig = {name: getattr(kernels, name) for name in KERNELS}
+    orig = {name: getattr(kernels, name) for name in (*KERNELS, OPTIMAL[0])}
 
     def make(name):
         def wrapped(*args):
@@ -317,7 +337,7 @@ def capture(kernels, calls: dict):
             return orig[name](*args)
         return wrapped
 
-    for name in KERNELS:
+    for name in orig:
         setattr(kernels, name, make(name))
     try:
         yield
@@ -472,7 +492,148 @@ def phase_kernels(torch, kernels, zt, timer, data):
             f"{plain_ms:.4f} ms, bound {bound_ms * 1e3:.2f} us ({bound_by})"
             + (f", library {library_ms:.4f} ms" if library_ms else "")
             + extra)
+    results[OPTIMAL[0]] = optimal_report(torch, kernels, timer,
+                                         real[OPTIMAL[0]], data, n)
     return results
+
+
+def dp_walk(choice, start: int, end: int):
+    """A row's DP choices ((n,) numpy, optimal_dp's) walked from start to
+    end as the C DP walks its own: (committed, take, sel_len) as
+    native.optimal_parse returns them."""
+    import numpy as np
+
+    ch = choice.tolist()
+    pos = []
+    i, end = int(start), int(end)
+    while i < end:
+        pos.append(i)
+        i += ch[i] if ch[i] >= 3 else 1
+    pos = np.asarray(pos, np.int64)
+    com = np.zeros(len(ch), np.uint8)
+    take = np.zeros_like(com)
+    sel = np.zeros(len(ch), np.int32)
+    com[pos] = 1
+    m = pos[choice[pos] >= 3]
+    take[m] = 1
+    sel[m] = choice[m]
+    return com, take, sel
+
+
+def optimal_report(torch, kernels, timer, real, data, n: int) -> dict:
+    """optimal_dp on the main path's launches: held to the C DP, timed
+    beside its bytes bound, and the card's override beside the C path's
+    on the first L9 batch (host clock)."""
+    import types
+
+    import numpy as np
+
+    from zzflate_tpu_torch import encode_policy, native
+    from zzflate_tpu_torch.config import LEVELS
+    from zzflate_tpu_torch.encode_pipeline import build_chunk_batch
+    from zzflate_tpu_torch.models import deflate_encoder as enc
+    from zzflate_tpu_torch.ops import huffman_host
+
+    name = OPTIMAL[0]
+    levels = sorted({lv for lv, _ in real})
+    if levels != list(OPT_LEVELS) or len(real) != 3 * MAIN_BATCHES:
+        raise AssertionError(f"{name}: launches by level {levels}, "
+                             f"{len(real)} in all")
+    rows_checked = 0
+    t0 = time.perf_counter()
+    for level, args in real:
+        if tuple(args[0].shape) != (BATCH, n):
+            raise AssertionError(f"{name}: shape {tuple(args[0].shape)}")
+        choice = kernels.optimal_dp(*args).cpu().numpy()
+        d, ml, md, st, en, ln, bd = (a.cpu().numpy() for a in args)
+        for j in range(BATCH):
+            if choice[j, : max(st[j], 0)].any() or choice[j, en[j]:].any():
+                raise AssertionError(f"{name} L{level} row {j}: a choice "
+                                     "outside its range")
+            got = dp_walk(choice[j], st[j], en[j])
+            exp = native.optimal_parse(d[j], ml[j], md[j], st[j], en[j],
+                                       ln[j, :, :288], ln[j, :, 288:], bd)
+            for g, e, what in zip(got, exp, ("committed", "take",
+                                             "sel_len")):
+                if not np.array_equal(g, e):
+                    raise AssertionError(
+                        f"{name} L{level} row {j}: {what} != the C DP's")
+            rows_checked += 1
+    check_s = time.perf_counter() - t0
+    per_level = []
+    for level in OPT_LEVELS:
+        args = [a for lv, a in real if lv == level][-1]
+        ms = timer.kernel_ms(lambda: kernels.optimal_dp(*args))
+        npos = (args[4] - args[3]).clamp(min=0)
+        b_ms = int(npos.sum()) * OPT_BYTES_POS / HBM_BYTES_PER_S * 1e3
+        ns_step = ms * 1e6 / int(npos.max())
+        per_level.append({"level": level, "ms": ms, "bound_ms": b_ms,
+                          "bound_by": "bytes", "share": b_ms / ms,
+                          "ns_per_step": ns_step})
+        log(f"  {name} L{level} {tuple(args[0].shape)}: {ms:.4f} ms, bound "
+            f"{b_ms * 1e3:.2f} us (bytes), share {b_ms / ms:.4f}; "
+            f"{ns_step:.1f} ns a step over {int(npos.max())} steps")
+
+    # The main path's first L9 batch, analysed as the pipeline does.
+    buf, vends, wstarts, nchunks = build_chunk_batch(
+        data[: BATCH * MAIN_CHUNK], MAIN_CHUNK, None)
+    starts = np.full(nchunks, 32768, np.int32)
+    rows = [torch.as_tensor(a).cuda() for a in (buf, starts, vends, wstarts)]
+    ana = enc.analyze_chunks_batch(*rows, LEVELS[9])
+    freqs = ana["freqs"].cpu().numpy()
+    host = {k: ana[k].cpu() for k in ("dcode", "mdist", "mm_packed")}
+    ctx = types.SimpleNamespace(nchunks=nchunks + 1, fixed_only=False,
+                                stream_final=True)
+
+    def pass1():
+        return [huffman_host.build_chunk_plan(
+            freqs[j, :, :288], freqs[j, :, 288:], bfinal=0)
+            for j in range(nchunks)]
+
+    def card(plans):
+        return encode_policy.optimal_override_card(ctx, plans, ana,
+                                                   tuple(rows[:3]), 0)
+
+    def c_dp(plans):
+        return encode_policy.optimal_override(
+            ctx, plans, host, host["mm_packed"].numpy(), buf, vends, 0)
+
+    def wall_ms(fn):
+        """Median host-clock ms of fn on fresh pass-1 plans (built
+        outside the timed span), the card synced on both sides."""
+        out = []
+        for _ in range(OVERRIDE_REPS):
+            plans = pass1()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = fn(plans)
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t) * 1e3)
+        return statistics.median(out), res, plans
+
+    card_ms, (got, ntok), plans = wall_ms(card)
+    c_ms, (exp, exp_ntok), exp_plans = wall_ms(c_dp)
+    if ntok != exp_ntok:
+        raise AssertionError(f"override L9: ntok {ntok} != {exp_ntok}")
+    for k, e in exp.items():
+        if not torch.equal(got[k].cpu(), e):
+            raise AssertionError(f"override L9: {k} != the C DP path's")
+    for p, e in zip(plans, exp_plans):
+        for k in e:
+            same = (p[k] == e[k] if k == "groups"
+                    else np.array_equal(p[k], e[k]))
+            if not same:
+                raise AssertionError(f"override L9: plan {k} differs")
+    log(f"kernel {name}: {rows_checked} rows of {len(real)} launches "
+        f"(L7, L8, L9) equal to the C DP's parse ({check_s:.1f} s); L9 "
+        f"batch override: card {card_ms:.2f} ms, C DP path {c_ms:.2f} ms "
+        f"(host arrays; median of {OVERRIDE_REPS}), equal; {ntok} tokens "
+        "in the longest row")
+    last = per_level[-1]
+    return {"rows_checked": rows_checked, "ms": last["ms"],
+            "bound_ms": last["bound_ms"], "bound_by": "bytes",
+            "per_level": per_level, "card_override_ms": card_ms,
+            "c_override_ms": c_ms}
 
 
 def launch_line(timer, kernels, name, kfn, level, args) -> dict:
@@ -587,6 +748,10 @@ def phase_main(torch, kernels, zt, profiling, data):
         idle = [k for k in KERNELS if launched[k] == 0]
         if idle:
             raise AssertionError(f"L{level}: kernels never launched: {idle}")
+        want = MAIN_BATCHES if level in OPT_LEVELS else 0
+        if launched[OPTIMAL[0]] != want:
+            raise AssertionError(f"L{level}: {OPTIMAL[0]} launched "
+                                 f"{launched[OPTIMAL[0]]} times, not {want}")
         for _ in range(MAIN_REPS - 1):
             t0 = time.perf_counter()
             if run() != out:
@@ -1947,6 +2112,11 @@ def main() -> int:
                 for p, c in par_counts.items()}},
          **results[k]}
         for k, (src, rep) in KERNELS.items()
+    ] + [{"name": OPTIMAL[0], "route": "cuda", "source": OPTIMAL[1],
+          "replaces": OPTIMAL[2], "launches": counts["L9"][OPTIMAL[0]],
+          "launches_by_level": {lv: c[OPTIMAL[0]]
+                                for lv, c in counts.items()},
+          **results[OPTIMAL[0]]}
     ] + [{"name": WALK[0], "route": "cuda", "source": WALK[1],
           "replaces": WALK[2], **walk}] + [
         {"name": k[0], "route": "cuda", "source": k[1], "replaces": k[2],

@@ -18,6 +18,7 @@ import socket
 import struct
 import subprocess
 import sys
+import types
 import zlib
 
 import numpy as np
@@ -25,18 +26,26 @@ import pytest
 import torch
 
 import zzflate_tpu_torch as zt
+from zzflate_tpu_torch import encode_policy, native
+from zzflate_tpu_torch.config import LEVELS
+from zzflate_tpu_torch.encode_pipeline import build_chunk_batch
+from zzflate_tpu_torch.models import deflate_encoder as enc
 from zzflate_tpu_torch.models import inflate_device as idv
-from zzflate_tpu_torch.ops import kernels
+from zzflate_tpu_torch.ops import huffman_host, kernels
 from zzflate_tpu_torch.utils import containers
 from zzflate_tpu_torch.utils import lz_tail_bench as tail
 from zzflate_tpu_torch.utils.corpus import (
     CANDIDATE_CASES,
     COMMIT_CASES,
+    OPTIMAL_CASES,
+    OPTIMAL_OVERRIDE_CASES,
     RESOLVE_CASES,
     SCATTER_CASES,
     candidate_inputs,
     commit_walk_inputs,
     mixed_corpus,
+    optimal_batch_data,
+    optimal_dp_inputs,
     resolve_inputs,
     scatter_inputs,
 )
@@ -1103,3 +1112,109 @@ def test_multihost_two_processes_on_card_equal_one_process(tmp_path):
     for _, o, _ in runs:
         launched = json.loads(o.strip().splitlines()[-1])
         assert all(launched[k] > 0 for k in MAIN + CKS), launched
+
+
+# ---------------------------------------------------------------------------
+# The level 7-9 optimal parse: optimal_dp and the card's override.
+# ---------------------------------------------------------------------------
+
+
+def _c_dp_rows(choice, args):
+    """Each row's choice walked as the C DP walks its own, beside the C
+    DP's (committed, take, sel_len)."""
+    import chip_smoke
+
+    data, mlen, mdist, starts, ends, lengths, bounds = args
+    for j in range(data.shape[0]):
+        got = chip_smoke.dp_walk(choice[j], int(starts[j]), int(ends[j]))
+        exp = native.optimal_parse(
+            data[j], mlen[j], mdist[j], starts[j], ends[j],
+            lengths[j, :, :288], lengths[j, :, 288:], bounds)
+        yield j, got, exp
+
+
+@pytest.mark.parametrize("n", [3000, 300000])
+@pytest.mark.parametrize("case", OPTIMAL_CASES)
+def test_optimal_dp_matches_the_c_dp(case, n):
+    """Padded, short and whole rows, ties, absent symbols and lengths past
+    a row's end: the kernel's choices walk to the C DP's tokens, and every
+    position outside a row's range reads 0. One counted launch a call."""
+    _card()
+    args = optimal_dp_inputs(case, n=n)
+    before = kernels.launches["optimal_dp"]
+    choice = kernels.optimal_dp(
+        torch.from_numpy(args[0]).cuda(), *_cuda(args[1:])).cpu().numpy()
+    assert kernels.launches["optimal_dp"] == before + 1
+    for j, got, exp in _c_dp_rows(choice, args):
+        assert not choice[j, : max(args[3][j], 0)].any()
+        assert not choice[j, args[4][j]:].any()
+        for g, e, name in zip(got, exp, ("committed", "take", "sel_len")):
+            np.testing.assert_array_equal(g, e, err_msg=f"row {j} {name}")
+
+
+@pytest.mark.parametrize("chunk", [4096, 1 << 18])
+@pytest.mark.parametrize("case", list(OPTIMAL_OVERRIDE_CASES))
+def test_optimal_override_on_card_equals_cpu_path(case, chunk):
+    """From one analysis on the card of a batch with a zero chunk, a
+    periodic one, a short last one and padded rows, the pipeline's entry
+    (encode_policy.optimal_parse) runs the card's override, one optimal_dp
+    launch, and gives the CPU path's (the C DP on the same matches)
+    arrays, re-planned plans and largest token count."""
+    _card()
+    level, kw = OPTIMAL_OVERRIDE_CASES[case]
+    fixed_only = kw.get("strategy") == 4
+    rows_n = 8
+    buf, vends, wstarts, nchunks = build_chunk_batch(
+        optimal_batch_data(chunk), chunk, None)
+    pad = rows_n - nchunks
+    buf = np.concatenate([buf, np.zeros((pad, buf.shape[1]), np.uint8)])
+    vends = np.concatenate([vends, np.full(pad, 32768, np.int32)])
+    wstarts = np.concatenate([wstarts, np.full(pad, 32768, np.int32)])
+    starts = np.full(rows_n, 32768, np.int32)
+    rows = [torch.as_tensor(a).cuda() for a in (buf, starts, vends, wstarts)]
+    ana = enc.analyze_chunks_batch(*rows, LEVELS[level], **kw)
+    freqs = ana["freqs"].cpu().numpy()
+
+    def pass1():
+        return [huffman_host.build_chunk_plan(
+            freqs[j, :, :288], freqs[j, :, 288:],
+            bfinal=int(j == nchunks - 1), fixed_only=fixed_only)
+            for j in range(rows_n)]
+    ctx = types.SimpleNamespace(nchunks=nchunks, fixed_only=fixed_only,
+                                stream_final=True)
+    host = {k: v.cpu() for k, v in ana.items()}
+    exp_plans = pass1()
+    exp, exp_ntok = encode_policy.optimal_override(
+        ctx, exp_plans, host, host["mm_packed"].numpy(), buf, vends, 0)
+    before = kernels.launches["optimal_dp"]
+    plans = pass1()
+    got, ntok = encode_policy.optimal_parse(
+        ctx, plans, ana, tuple(rows[:3]), 0)
+    assert kernels.launches["optimal_dp"] == before + 1
+    assert ntok == exp_ntok
+    for k, e in exp.items():
+        assert got[k].is_cuda and got[k].dtype == e.dtype, k
+        assert torch.equal(got[k].cpu(), e), k
+    for p, e in zip(plans, exp_plans):
+        for k in e:
+            if k == "groups":
+                assert p[k] == e[k]
+            else:
+                np.testing.assert_array_equal(p[k], e[k], err_msg=k)
+
+
+def test_compress_l9_on_card_runs_the_dp():
+    """compress(level=9) on the card gives the CPU path's bytes and the
+    reference's digest, through optimal_dp."""
+    import chip_smoke
+
+    _card()
+    ref_in = mixed_corpus(chip_smoke.REF_INPUT_BYTES,
+                          chip_smoke.REF_INPUT_SEED)
+    before = kernels.launches["optimal_dp"]
+    out = zt.compress(ref_in, level=9, chunk_bytes=4096)
+    assert kernels.launches["optimal_dp"] > before
+    assert out == zt.compress(ref_in, level=9, chunk_bytes=4096,
+                              device="cpu")
+    assert hashlib.sha256(out).hexdigest() == chip_smoke.REF_SHA256_L9_4K
+    assert zlib.decompress(out) == ref_in

@@ -1,6 +1,7 @@
-// Plain C interface of the port's CUDA kernels: the matcher's three,
-// device decode's anchor walk, candidate decode, commit walk, token scatter
-// and LZ resolve, and CRC-32 and Adler-32 over row ranges.
+// Plain C interface of the port's CUDA kernels: the matcher's three, the
+// level 7-9 optimal parse's DP, device decode's anchor walk, candidate
+// decode, commit walk, token scatter and LZ resolve, and CRC-32 and Adler-32
+// over row ranges.
 //
 // Every entry launches on the given stream without synchronising and
 // returns cudaGetLastError() as an int (0 = cudaSuccess). The matcher's
@@ -190,6 +191,22 @@ int zz_token_scatter(const long long* off, const unsigned char* committed,
 int zz_resolve_lz(const int* litval, const int* start_mark, const int* dist_at,
                   int n, int* parent, int* scratch, int* tmax, int* flags,
                   unsigned char* out, int* rounds, void* stream);
+
+// The level 7-9 optimal parse's DP (zzt_optimal_parse's forward loop, which
+// it equals for any input): for each of `batch` rows of n positions, the
+// shortest-bit-path choice of every position in [max(start, 0), min(end,
+// n)): the match length taken there (>= 3), else 0; 0 outside it. data
+// (batch, n) bytes; mlen, mdist (batch, n) int32; starts, ends batch int32;
+// lens (batch, nsb, 318) int32, each sub-block's 288 litlen then 30 distance
+// code lengths (0 = absent, priced at 30 bits); bounds nsb + 1 int32 (the
+// C's sub_bounds); choice (batch, n) int32, every entry written. One launch:
+// one block of one warp a row, with ZZ_OPT_RING * 32 * 4 B of dynamic
+// shared memory (65 536 B) and 1 KiB of static.
+#define ZZ_OPT_RING 512
+int zz_optimal_dp(const unsigned char* data, const int* mlen, const int* mdist,
+                  const int* starts, const int* ends, const int* lens,
+                  const int* bounds, int nsb, int batch, int n, int* choice,
+                  void* stream);
 
 #ifdef __cplusplus
 }

@@ -5,9 +5,10 @@ analyze -> plan -> emit -> finish queue and the device<->host transfers.
 The stitching policy lives in encode_policy.py.
 
 Pipeline shape: device analyze (match, parse, histograms) for every
-batch, host Huffman/header build (at levels 7-9 then the C optimal parse
-over the device's matches and a second build from its tokens), device
-emit, host stitch in order.
+batch, host Huffman/header build (at levels 7-9 then the optimal parse
+over the device's matches, on the card for a CUDA device and in C on the
+host for the CPU, and a second build from its tokens), device emit, host
+stitch in order.
 Eager CUDA is asynchronous, so the overlap comes from the queue order:
 batch i+1's analyze is queued on the device before the host plans batch
 i, and one worker thread fetches and stitches finished batches in order
@@ -58,7 +59,7 @@ class _Ctx:
     params: object = None
     huffman_only: bool = False
     fixed_only: bool = False
-    optimal: bool = False  # levels 7-9: the C DP replaces the lazy parse
+    optimal: bool = False  # levels 7-9: the DP replaces the lazy parse
     n: int = 0
     nchunks: int = 0
     bsz: int = 0  # rows of one batch over the whole mesh
@@ -177,8 +178,8 @@ def _dispatch_analyze(ctx: _Ctx, b0: int):
 
     Returns the slice and, per device, its row range, analysis, the wait
     for its freqs, the wait for its checksum partials (or None) and, at
-    levels 7-9, what the DP reads on the host: the rows, their ends and
-    the wait for the packed candidates (copied beside the freqs)."""
+    levels 7-9, the rows the DP reads: (data, starts, valid_ends) as the
+    analysis took them."""
     b1 = min(b0 + ctx.bsz, ctx.nchunks)
     cb = ctx.chunk_bytes
     with maybe_stage("build_batches"):
@@ -220,10 +221,7 @@ def _dispatch_analyze(ctx: _Ctx, b0: int):
                 strategy=ctx.config.strategy, max_dist=ctx.max_dist,
                 with_checksums=ctx.with_checksums,
             )
-            dp_in = None
-            if ctx.optimal:
-                dp_in = (buf[r0:r1], valid_ends[r0:r1],
-                         _fetch(ctx, ana["mm_packed"]))
+            dp_in = tuple(db[:3]) if ctx.optimal else None
             cks = _fetch(ctx, ana["cks"]) if ctx.with_checksums else None
             parts.append((dev, r0, r1, ana, _fetch(ctx, ana["freqs"]), cks,
                           dp_in))
@@ -232,7 +230,7 @@ def _dispatch_analyze(ctx: _Ctx, b0: int):
 
 def _plan_and_emit(ctx: _Ctx, sl, parts):
     """Take the small freqs of every device, build tables on the host (at
-    levels 7-9 re-parse with the C DP and rebuild them), queue each
+    levels 7-9 re-parse with the optimal DP and rebuild them), queue each
     device's emit of its own rows. The per-position analysis arrays are
     dropped afterwards."""
     b0, b1 = sl
@@ -261,11 +259,10 @@ def _plan_and_emit(ctx: _Ctx, sl, parts):
     for dev, r0, r1, ana, _, cks, dp_in in parts:
         ntok = int(ntok_rows[r0:r1].max())
         if dp_in is not None:
-            buf, valid_ends, mm_wait = dp_in
             with maybe_stage("optimal_parse", dev):
                 sub = plans[r0:r1]
-                override, ntok = policy.optimal_override(
-                    ctx, sub, ana, mm_wait(), buf, valid_ends, b0 + r0,
+                override, ntok = policy.optimal_parse(
+                    ctx, sub, ana, dp_in, b0 + r0,
                 )
                 plans[r0:r1] = sub
                 ana = dict(ana, **override)

@@ -4,11 +4,14 @@ Port of ``zzflate_tpu/encode_policy.py``: when the stored fallback
 beats the Huffman segment, the device-side keep_bits_max budget that
 mirrors it, how a finished chunk becomes a framed segment (or, unframed,
 a (bytes, nbits) pair), its block/anchor index rows, and the level 7-9
-optimal-parse override. The last chunk is final only when the run is
+optimal-parse override (the DP on the card for a CUDA device, the C DP on
+the host for the CPU). The last chunk is final only when the run is
 ``stream_final`` (the stream layer's and the resumable shards' runs are
 not).
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -16,7 +19,7 @@ import torch
 from zzflate_tpu_torch import constants as C
 from zzflate_tpu_torch import native
 from zzflate_tpu_torch.models import deflate_encoder
-from zzflate_tpu_torch.ops import huffman_host
+from zzflate_tpu_torch.ops import huffman_host, kernels, matcher
 from zzflate_tpu_torch.utils import containers
 from zzflate_tpu_torch.utils.profiling import maybe_stage
 
@@ -107,8 +110,8 @@ def index_rows(plan, sb_bits_row, sb_out_row, anc_bit_row, anc_out_row):
 
 
 def optimal_override(ctx, plans, ana, mm_packed, buf, valid_ends, b0: int):
-    """Levels 7-9: replace the lazy parse of one batch with the C
-    shortest-bit-path DP over the device matcher's (mlen, mdist), priced
+    """Levels 7-9 off the card: replace the lazy parse of one batch with
+    the C shortest-bit-path DP over the device matcher's (mlen, mdist), priced
     by the pass-1 trees in `plans`, then rebuild each chunk's plan from
     the DP's own tokens.
 
@@ -158,11 +161,7 @@ def optimal_override(ctx, plans, ana, mm_packed, buf, valid_ends, b0: int):
     dev = ana["dcode"].device
 
     def up(a):
-        t = torch.as_tensor(a)
-        if dev.type == "cuda":
-            # Pinned staging: the upload does not wait for queued work.
-            t = t.pin_memory()
-        return t.to(dev, non_blocking=True)
+        return torch.as_tensor(a).to(dev)
 
     override = {
         "committed": up(com_b),
@@ -174,3 +173,75 @@ def optimal_override(ctx, plans, ana, mm_packed, buf, valid_ends, b0: int):
         "mdist": ana["mdist"],
     }
     return override, int(com_b.sum(axis=1).max())
+
+
+def optimal_parse(ctx, plans, ana, rows, b0: int):
+    """Levels 7-9: the optimal parse's override of one batch, where its
+    analysis ran: optimal_override_card on a CUDA device, else the C DP
+    (optimal_override) over the analysis' packed candidates. rows: the
+    batch's (data, starts, valid_ends) as the analysis took them. Replaces
+    `plans` in place; returns the override arrays and the largest token
+    count of a row."""
+    data, _, valid_ends = rows
+    if data.device.type == "cuda":
+        return optimal_override_card(ctx, plans, ana, rows, b0)
+    return optimal_override(ctx, plans, ana, ana["mm_packed"].numpy(),
+                            data.numpy(), valid_ends.numpy(), b0)
+
+
+@functools.lru_cache(maxsize=None)
+def _bounds_on(n: int, device: torch.device) -> torch.Tensor:
+    return torch.tensor(deflate_encoder.sub_block_bounds(n),
+                        dtype=torch.int32, device=device)
+
+
+def optimal_override_card(ctx, plans, ana, rows, b0: int):
+    """optimal_override on a CUDA device: the same override arrays, plans
+    and largest token count, with the DP and its tokens on the card. The
+    optimal_dp kernel chooses each position's length from the analysis'
+    (mlen, mdist) priced by the pass-1 trees in `plans`, parse_rows commits
+    the choices from each chunk's start (as for the lazy parse), and the
+    sub-block histograms of the DP's tokens come back in one copy for the
+    re-plan. rows: the batch's device (data, starts, valid_ends) as the
+    analysis took them. Only the pass-1 code lengths go up, (B, SB, 318)
+    int32; no (B, N) array crosses between host and card."""
+    data, starts, valid_ends = rows
+    dev = data.device
+    with maybe_stage("optimal_parse_dp", dev):
+        lens = torch.from_numpy(np.stack([
+            np.concatenate([p["ll_len"], p["d_len"]], axis=1) for p in plans
+        ]).astype(np.int32))
+        if dev.type == "cuda":
+            # Pinned staging: the upload does not wait for queued work.
+            lens = lens.pin_memory()
+        lens = lens.to(dev, non_blocking=True)
+        choice = kernels.optimal_dp(
+            data, ana["mlen"], ana["mdist"], starts, valid_ends, lens,
+            _bounds_on(data.shape[1], dev),
+        )
+        committed = matcher.commit_steps(torch.where(choice >= 3, choice, 1),
+                                         starts, valid_ends)
+        take = committed & (choice >= 3)
+        mlen = torch.where(take, choice, 0)
+        lcode = deflate_encoder._len_code(mlen)  # LENGTH_TO_CODE, 0 at 0
+        sym = torch.where(take, 257 + lcode, data.int())
+        freqs = deflate_encoder.sub_block_freqs(sym, committed, ana["dcode"],
+                                                take)["freqs"]
+        freqs = freqs.cpu().numpy().astype(np.int64)
+    ntok = int(freqs[:, :, :C.NUM_LITLEN_SYMBOLS].sum(axis=(1, 2)).max())
+    for j in range(len(plans)):
+        plans[j] = huffman_host.build_chunk_plan(
+            freqs[j, :, :C.NUM_LITLEN_SYMBOLS],
+            freqs[j, :, C.NUM_LITLEN_SYMBOLS:],
+            bfinal=int(is_final(ctx, b0 + j)), fixed_only=ctx.fixed_only,
+        )
+    override = {
+        "committed": committed,
+        "is_match": take,
+        "litlen_sym": sym,
+        "lcode": lcode,
+        "mlen": mlen,
+        "dcode": ana["dcode"],
+        "mdist": ana["mdist"],
+    }
+    return override, ntok

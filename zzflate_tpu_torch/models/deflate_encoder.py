@@ -104,7 +104,8 @@ def analyze_chunks_batch(data, starts, valid_ends, window_starts, params,
     windowBits by dropping far matches. Returns the reference's dict:
     freq_ll (B, SB, 288), freq_d (B, SB, 30), freqs (both, packed), and
     the (B, N) committed, is_match, litlen_sym, lcode, dcode, mlen, mdist,
-    and at levels 7-9 mm_packed = mlen << 16 | mdist. with_checksums
+    and at levels 7-9 mm_packed = mlen << 16 | mdist (what the C DP
+    reads). with_checksums
     adds each row's Adler-32 and CRC-32 over [starts, valid_ends) (the
     chunk's own bytes, not its dictionary or halo prefix) as (B,) int64
     "adler" and "crc", and both packed as "cks" (B, 2) for one copy.
@@ -137,7 +138,34 @@ def analyze_chunks_batch(data, starts, valid_ends, window_starts, params,
     dcode = _dist_code(mdist)
     litlen_sym = torch.where(is_match, 257 + lcode, data.int())
 
-    bounds = sub_block_bounds(n)
+    out = sub_block_freqs(litlen_sym, committed, dcode, is_match)
+    out.update({
+        "committed": committed,
+        "is_match": is_match,
+        "litlen_sym": litlen_sym,
+        "lcode": lcode,
+        "dcode": dcode,
+        "mlen": mlen,
+        "mdist": mdist,
+    })
+    if params.optimal:
+        # The C optimal-parse DP (levels 7-9) reads the candidates:
+        # (mlen, mdist <= 32768) packed into one int32.
+        out["mm_packed"] = (mlen << 16) | mdist
+    if with_checksums:
+        out["adler"] = checksums.adler32_rows(data, valid_ends, starts)
+        out["crc"] = checksums.crc32_rows(data, valid_ends, starts)
+        out["cks"] = torch.stack([out["adler"], out["crc"]], dim=1)
+    return out
+
+
+def sub_block_freqs(litlen_sym, committed, dcode, is_match):
+    """Each sub-block's symbol histograms of a (B, N) parse: freq_ll (B,
+    SB, 288) of litlen_sym at the committed positions, freq_d (B, SB, 30)
+    of dcode at the taken matches, and both packed as freqs (B, SB, 318)
+    for one device-to-host copy: [..., :288] = freq_ll, [..., 288:] =
+    freq_d."""
+    bounds = sub_block_bounds(litlen_sym.shape[1])
     spans = list(zip(bounds[:-1], bounds[1:]))
     freq_ll = torch.stack([
         huffman.histogram(litlen_sym[:, s:e], committed[:, s:e],
@@ -149,29 +177,8 @@ def analyze_chunks_batch(data, starts, valid_ends, window_starts, params,
                           C.NUM_DIST_SYMBOLS)
         for s, e in spans
     ], dim=1)
-    out = {
-        "freq_ll": freq_ll,
-        "freq_d": freq_d,
-        # One packed buffer, one device-to-host copy per batch:
-        # [..., :288] = freq_ll, [..., 288:] = freq_d.
-        "freqs": torch.cat([freq_ll, freq_d], dim=2),
-        "committed": committed,
-        "is_match": is_match,
-        "litlen_sym": litlen_sym,
-        "lcode": lcode,
-        "dcode": dcode,
-        "mlen": mlen,
-        "mdist": mdist,
-    }
-    if params.optimal:
-        # The host optimal-parse DP (levels 7-9) reads the candidates:
-        # (mlen, mdist <= 32768) packed into one int32, one copy.
-        out["mm_packed"] = (mlen << 16) | mdist
-    if with_checksums:
-        out["adler"] = checksums.adler32_rows(data, valid_ends, starts)
-        out["crc"] = checksums.crc32_rows(data, valid_ends, starts)
-        out["cks"] = torch.stack([out["adler"], out["crc"]], dim=1)
-    return out
+    return {"freq_ll": freq_ll, "freq_d": freq_d,
+            "freqs": torch.cat([freq_ll, freq_d], dim=2)}
 
 
 # ---------------------------------------------------------------------------

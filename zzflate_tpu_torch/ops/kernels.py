@@ -1,9 +1,10 @@
 """The port's hand-written CUDA kernels, their plain torch versions, the
 nvcc/ctypes loader and the launch counters: the matcher's three
-(scan_candidates, propagate_matches, parse_rows), device decode's
-anchor walk, candidate decode, commit walk and token scatter (the last
-three on the per-bit path of indexes without anchors) and LZ resolve
-(both paths), and the checksums over row ranges (crc32_rows,
+(scan_candidates, propagate_matches, parse_rows), the level 7-9 optimal
+parse's DP (optimal_dp, on the card only: the CPU path runs the C DP),
+device decode's anchor walk, candidate decode, commit walk and token
+scatter (the last three on the per-bit path of indexes without anchors)
+and LZ resolve (both paths), and the checksums over row ranges (crc32_rows,
 adler32_rows) that device decode's group CRC and the encode's per-chunk
 partials run on.
 
@@ -55,7 +56,7 @@ from zzflate_tpu_torch.ops.checksum_math import (
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD = Path(__file__).resolve().parent.parent / "_build"
 _SOURCES = ("scan.cu", "propagate.cu", "parse.cu", "walk.cu", "checksum.cu",
-            "commit.cu", "resolve.cu", "candidates.cu")
+            "commit.cu", "resolve.cu", "candidates.cu", "optimal.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -66,7 +67,7 @@ NVCC_FLAGS = (
 launches = {"scan_candidates": 0, "propagate_matches": 0, "parse_rows": 0,
             "anchor_walk": 0, "crc32_rows": 0, "adler32_rows": 0,
             "commit_walk": 0, "token_scatter": 0, "resolve_lz": 0,
-            "decode_candidates": 0}
+            "decode_candidates": 0, "optimal_dp": 0}
 
 
 # The walk's launch shape, as csrc/kernels.h defines it (a test holds the
@@ -174,12 +175,13 @@ def _load():
             lib.zz_resolve_lz.argtypes = [p, p, p, i, p, p, p, p, p, p, p]
             lib.zz_decode_candidates.argtypes = [p, i] + [p] * 12 + [i] + (
                 [p] * 9)
+            lib.zz_optimal_dp.argtypes = [p] * 7 + [i, i, i, p, p]
             for fn in (lib.zz_scan_candidates, lib.zz_propagate_matches,
                        lib.zz_parse_exits, lib.zz_parse_marks,
                        lib.zz_anchor_walk, lib.zz_crc32_rows,
                        lib.zz_adler32_rows, lib.zz_commit_walk,
                        lib.zz_token_scatter, lib.zz_resolve_lz,
-                       lib.zz_decode_candidates):
+                       lib.zz_decode_candidates, lib.zz_optimal_dp):
                 fn.restype = ctypes.c_int
             _lib = lib
     return _lib
@@ -1261,3 +1263,67 @@ def decode_candidates_plain(words, ll, d, start_bits, unit_valid,
         win_lo, win_hi, uid, ll_lut, d_lut)
     return (uid.int(), step.int(), outlen.int(), sym.int(), mdist.int(),
             islit, islen)
+
+
+# ---------------------------------------------------------------------------
+# 9. optimal_dp (the level 7-9 optimal parse)
+# ---------------------------------------------------------------------------
+
+# The DP's ring of costs, as csrc/kernels.h defines it (a test holds the
+# two equal): cost[i] reads cost[i + 1 .. i + 258].
+OPT_RING = 512
+_LENS = 288 + 30  # a sub-block's litlen then distance code lengths
+
+
+def optimal_dp(data, mlen, mdist, starts, ends, lengths, bounds):
+    """The shortest-bit-path choice of every position of each row: the
+    forward loop of the C DP (native.optimal_parse, zzt_optimal_parse),
+    which the kernel equals for any input, tie for tie.
+
+    data: (B, n) uint8; mlen, mdist: (B, n) int32, the matcher's best
+    match at each position; starts, ends: (B,) int32, the parsed range
+    [start, end) of each row; lengths: (B, SB, 318) int32, each sub-block's
+    288 litlen then 30 distance code lengths pricing it (0 = absent, priced
+    at 30 bits); bounds: (SB + 1,) int32 sub-block boundaries (a position
+    takes the last sub-block b with bounds[b] <= it, 0 below bounds[0]).
+    Returns choice (B, n) int32: the match length the DP takes at a
+    position (>= 3), else 0; 0 outside [start, end).
+
+    CUDA only: the kernel has no plain torch version, and a CPU tensor
+    raises. The CPU path runs the C DP on the host, its oracle."""
+    if data.dtype != torch.uint8 or data.dim() != 2:
+        raise TypeError("optimal_dp: data must be (B, n) uint8")
+    if not data.is_contiguous():
+        raise ValueError("optimal_dp: data must be contiguous")
+    b, n = data.shape
+    for nm, t in (("mlen", mlen), ("mdist", mdist)):
+        _check(nm, t, 2)
+        if t.shape != data.shape:
+            raise ValueError(f"optimal_dp: {nm} must be {tuple(data.shape)}")
+    for nm, t in (("starts", starts), ("ends", ends)):
+        _check(nm, t, 1)
+        if t.shape != (b,):
+            raise ValueError(f"optimal_dp: {nm} must be ({b},)")
+    _check("lengths", lengths, 3)
+    _check("bounds", bounds, 1)
+    nsb = bounds.shape[0] - 1
+    if nsb < 1 or lengths.shape != (b, nsb, _LENS):
+        raise ValueError(
+            f"optimal_dp: lengths must be (B, SB, {_LENS}) and bounds "
+            "(SB + 1,) with SB >= 1")
+    dev = data.device
+    if not _route(data, mlen, mdist, starts, ends, lengths, bounds):
+        raise ValueError(
+            f"optimal_dp runs on a CUDA device, not {dev}: the CPU path "
+            "runs the C DP (native.optimal_parse)")
+    choice = torch.empty_like(mlen)
+    if b and n:
+        with torch.cuda.device(dev):
+            rc = _load().zz_optimal_dp(
+                data.data_ptr(), mlen.data_ptr(), mdist.data_ptr(),
+                starts.data_ptr(), ends.data_ptr(), lengths.data_ptr(),
+                bounds.data_ptr(), nsb, b, n, choice.data_ptr(),
+                _stream(data))
+        _raise_rc("optimal_dp", rc)
+        launches["optimal_dp"] += 1
+    return choice

@@ -254,18 +254,26 @@ def parse_commit_batch(mlen, starts, valid_ends, lazy: bool,
     mlen: (B, N); starts/valid_ends: (B,). Returns (committed, take),
     (B, N) bools, with the semantics of a sequential zlib-style
     deflate_fast/deflate_slow walk (the walk depends on lengths only)."""
-    b, n = mlen.shape
     take = _lazy_take(mlen, lazy, max_lazy, nice)
-    step = torch.where(take, torch.clamp(mlen, min=1), 1).int()
+    step = torch.where(take, torch.clamp(mlen, min=1), 1)
+    committed = commit_steps(step, starts, valid_ends)
+    return committed, take & committed
+
+
+def commit_steps(step, starts, valid_ends):
+    """The positions that the walk next[p] = p + step[p] from each chunk's
+    start commits, within [start, valid_end): (B, N) bool. step: (B, N)
+    with every step in [1, 258] (the parse kernel)."""
+    b, n = step.shape
+    step = step.int()
     npad = -(-n // _ROW) * _ROW
     if npad != n:
         step = torch.nn.functional.pad(step, (0, npad - n), value=1)
     mark = kernels.parse_rows(step.contiguous(), starts.int().contiguous(),
                               _ROW)
-    posn = torch.arange(n, device=mlen.device)[None, :]
-    committed = (
+    posn = torch.arange(n, device=step.device)[None, :]
+    return (
         (mark[:, :n] == 1)
         & (posn >= starts[:, None])
         & (posn < valid_ends[:, None])
     )
-    return committed, take & committed

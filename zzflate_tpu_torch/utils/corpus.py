@@ -6,7 +6,8 @@ stream) and fixed tables, so the same (nbytes, seed) gives the same bytes
 on every machine with the same PCG64. Also the seeded synthetic inputs of
 device decode's per-bit kernels (``candidate_inputs``,
 ``commit_walk_inputs``, ``resolve_inputs``, ``scatter_inputs``), which
-the tests and chip_smoke.py share.
+the tests and chip_smoke.py share, and of the optimal parse's DP
+(``optimal_dp_inputs``, ``optimal_batch_data``).
 """
 from __future__ import annotations
 
@@ -375,3 +376,82 @@ def candidate_inputs(case: str, nbits: int, seed: int = 0):
             _plant(bits, at, code, int(ll_len[256]))
     words = np.packbits(bits, bitorder="little").view("<u4").view(np.int32)
     return (words.copy(), rows[0], rows[1], start.astype(np.int32), valid)
+
+
+OPTIMAL_CASES = ("random", "lengths-past-end", "lengths-257-258",
+                 "absent-symbols", "all-absent", "many-sub-blocks", "zeros",
+                 "periodic", "even-lengths")
+
+
+def optimal_dp_inputs(case: str, n: int = 3000, seed: int = 0):
+    """A batch for the optimal parse's DP, as the C DP takes a row: (data
+    (4, n) uint8, mlen, mdist (4, n) int32, starts, ends (4,) int32,
+    lengths (4, SB, 318) int32: each sub-block's litlen then distance code
+    lengths, bounds (SB + 1,) int32). Row 0 parses [start, end), row 1 is
+    a padded row (end == start), row 2 a short one, row 3 the whole row,
+    partly below bounds[0]; every row holds candidates of any length and
+    distance.
+
+    random: half the positions a match of 3..258; lengths-past-end: every
+    one, the last 300 of length 258 (past end - i); lengths-257-258: 0, 3,
+    256, 257 and 258 only; absent-symbols, all-absent: 60% and every code
+    length 0 (priced at 30 bits); many-sub-blocks: 7 of them; zeros and
+    periodic: the runs a matcher finds at distance 1 and 3 over zero and
+    period-3 bytes (ties between the literal and matches, and between
+    classes); even-lengths: every code length 8, so most candidates
+    tie."""
+    rng = np.random.default_rng([seed, n, OPTIMAL_CASES.index(case)])
+    b = 4
+    nsb = 7 if case == "many-sub-blocks" else 3
+    start, end = n // 30, n - n // 30
+    data = rng.integers(0, 256, (b, n)).astype(np.uint8)
+    if case == "lengths-past-end":
+        mlen = rng.integers(3, 259, (b, n))
+        mlen[:, -300:] = 258
+    elif case == "lengths-257-258":
+        mlen = rng.choice([0, 3, 256, 257, 258], (b, n))
+    elif case in ("zeros", "periodic"):
+        per = 1 if case == "zeros" else 3
+        data = np.tile(np.arange(per, dtype=np.uint8) * 7, (b, n // per + 1))
+        data = np.ascontiguousarray(data[:, :n])
+        left = n - np.arange(n)
+        mlen = np.where(np.arange(n) >= per, np.minimum(left, 258), 0)
+        mlen = np.tile(mlen, (b, 1))
+    else:
+        mlen = np.where(rng.random((b, n)) < 0.5,
+                        rng.integers(3, 259, (b, n)), 0)
+    if case in ("zeros", "periodic"):
+        mdist = np.where(mlen > 0, 1 if case == "zeros" else 3, 0)
+    else:
+        mdist = np.where(mlen > 0, rng.integers(1, 32769, (b, n)), 0)
+    lengths = rng.integers(1, 16, (b, nsb, 318))
+    zero = {"absent-symbols": 0.6, "all-absent": 1.0}.get(case, 0.0)
+    lengths[rng.random((b, nsb, 318)) < zero] = 0
+    if case in ("zeros", "periodic", "even-lengths"):
+        lengths[:] = 8
+    bounds = [start + (k * (end - start)) // nsb for k in range(nsb)] + [end]
+    starts = np.array([start, start + 10, start, 0], np.int32)
+    ends = np.array([end, start + 10, start + 37, n], np.int32)
+    return (data, mlen.astype(np.int32), mdist.astype(np.int32), starts,
+            ends, lengths.astype(np.int32), np.array(bounds, np.int32))
+
+
+# Batches of the level 7-9 override: (level, analyze_chunks_batch keywords).
+OPTIMAL_OVERRIDE_CASES = {
+    "L7": (7, {}),
+    "L8": (8, {}),
+    "L9": (9, {}),
+    "window-bits-9": (9, {"max_dist": 512}),
+    "filtered": (9, {"strategy": 1}),
+    "rle": (9, {"strategy": 3}),
+    "fixed": (9, {"strategy": 4}),
+}
+
+
+def optimal_batch_data(chunk: int, seed: int = 0) -> bytes:
+    """Input for a batch of the level 7-9 encode at `chunk`-byte chunks:
+    mixed corpus, a chunk of zero bytes, a periodic one, mixed again and a
+    short last chunk, so a batch of 8 rows holds padded rows too."""
+    return (mixed_corpus(chunk, seed) + bytes(chunk)
+            + b"abcab" * (chunk // 5) + bytes(chunk % 5)
+            + mixed_corpus(chunk + 777, seed + 1))
