@@ -6,6 +6,7 @@ the active collector's ``stage`` method."""
 import contextlib
 import functools
 import gzip
+import io
 import threading
 import time
 import zlib
@@ -28,6 +29,7 @@ DATA = mixed_corpus(5 * CHUNK + 300, 21)  # six chunks, the last short
 ENCODE = ("frame", "frame_checksum", "plan_upload", "host_plan_blocks",
           "host_plan_lengths", "host_plan_header")
 DECODE = ("decode_index", "decode_units", "decode_pack", "decode_verify")
+FOREIGN = ("decode_scan", "decode_units", "decode_pack", "decode_verify")
 # Each nested span and the spans it may lie in: at levels 7-9 the optimal
 # parse re-plans its chunks inside its own stage.
 PARENTS = {
@@ -47,6 +49,16 @@ def _indexed_blob() -> bytes:
                        device="cpu")
 
 
+@functools.lru_cache(maxsize=None)
+def _foreign_blob() -> bytes:
+    """A member as Python's gzip module writes it: FNAME set, no index."""
+    bio = io.BytesIO()
+    with gzip.GzipFile(filename="shard-00000", mode="wb", compresslevel=6,
+                       fileobj=bio, mtime=0) as f:
+        f.write(DATA)
+    return bio.getvalue()
+
+
 def _compress(fmt: str, level: int):
     return lambda: zt.compress(DATA, level=level, format=fmt,
                                chunk_bytes=CHUNK, device="cpu")
@@ -57,11 +69,17 @@ def _decode(verify: bool):
         _indexed_blob(), verify=verify, device="cpu")
 
 
+def _foreign_decode():
+    return inflate_device.decompress_foreign(_foreign_blob(), format="gzip",
+                                             device="cpu")
+
+
 PATHS = {
     "gzip6": (_compress("gzip", 6), ENCODE),
     "zlib6": (_compress("zlib", 6), ENCODE),
     "gzip9": (_compress("gzip", 9), ENCODE),
     "indexed_decode": (_decode(True), DECODE),
+    "foreign_decode": (_foreign_decode, FOREIGN),
 }
 
 
@@ -116,7 +134,7 @@ def test_spans_nest_in_their_parents(traced_path):
 def test_spans_change_no_output(traced_path):
     name, out, _spans = traced_path
     assert PATHS[name][0]() == out
-    if name == "indexed_decode":
+    if name.endswith("_decode"):
         assert out == DATA
     else:
         unpack = gzip.decompress if name.startswith("gzip") else (

@@ -850,7 +850,8 @@ def decompress_foreign(data: bytes, format: str = "gzip", verify: bool = True,
         if lo < nb:
             groups.append((lo, nb))
 
-        # Per group: units from block headers, stored runs, lanes.
+        # Per group: units from block headers, stored runs, lanes (the
+        # indexed path's _plan_units work, under the same stage name).
         plans = []
         max_units = 1
         max_stored = 0
@@ -859,58 +860,60 @@ def decompress_foreign(data: bytes, format: str = "gzip", verify: bool = True,
         max_go = 1
         abit = anchors[:, 0]
         for glo, ghi in groups:
-            byte_lo = int(blocks[glo, 0] // 8)
-            byte_hi = int((bit_ends[ghi - 1] + 7) // 8)
-            out_lo = int(blocks[glo, 2])
-            go = int(out_ends[ghi - 1]) - out_lo
-            units = []
-            sruns: list[tuple[int, int, int]] = []
-            ustarts: list[int] = []  # each coded block's header bit
-            for bi in range(glo, ghi):
-                bit0, btype, ostart, aux0, aux1 = (int(v) for v in blocks[bi])
-                if btype == 0:
-                    if aux1:
-                        sruns.append(
-                            (_W + ostart - out_lo, aux0 - byte_lo, aux1)
+            with maybe_stage("decode_units"):
+                byte_lo = int(blocks[glo, 0] // 8)
+                byte_hi = int((bit_ends[ghi - 1] + 7) // 8)
+                out_lo = int(blocks[glo, 2])
+                go = int(out_ends[ghi - 1]) - out_lo
+                units = []
+                sruns: list[tuple[int, int, int]] = []
+                ustarts: list[int] = []  # each coded block's header bit
+                for bi in range(glo, ghi):
+                    bit0, btype, ostart, aux0, aux1 = (
+                        int(v) for v in blocks[bi])
+                    if btype == 0:
+                        if aux1:
+                            sruns.append(
+                                (_W + ostart - out_lo, aux0 - byte_lo, aux1)
+                            )
+                        continue
+                    # Parse the header at the absolute bit, then rebase.
+                    b = BitReader(body, bit0)
+                    b.bits(1)
+                    bt = b.bits(2)
+                    if bt == 1:
+                        lld, dd = _FixedDecs.get()
+                    else:
+                        lld, dd = _read_dynamic_tables(b)
+                    units.append(
+                        _Unit(
+                            b.bitpos - 8 * byte_lo,
+                            _W + ostart - out_lo,
+                            _canon_desc(lld, _MAX_LL),
+                            _canon_desc(dd, _MAX_D),
                         )
-                    continue
-                # Parse the header at the absolute bit, then rebase.
-                b = BitReader(body, bit0)
-                b.bits(1)
-                bt = b.bits(2)
-                if bt == 1:
-                    lld, dd = _FixedDecs.get()
-                else:
-                    lld, dd = _read_dynamic_tables(b)
-                units.append(
-                    _Unit(
-                        b.bitpos - 8 * byte_lo,
-                        _W + ostart - out_lo,
-                        _canon_desc(lld, _MAX_LL),
-                        _canon_desc(dd, _MAX_D),
                     )
-                )
-                ustarts.append(bit0)
-            # Lanes: every coded block's first token and every anchor,
-            # tagged with the unit whose block holds it.
-            a_lo = np.searchsorted(abit, blocks[glo, 0], side="left")
-            a_hi = np.searchsorted(abit, bit_ends[ghi - 1], side="left")
-            anc = anchors[a_lo:a_hi]
-            k = np.searchsorted(np.array(ustarts, np.int64), anc[:, 0],
-                                side="right") - 1
-            ok = k >= 0
-            ubit = np.array([u.bit for u in units], np.int64)
-            uout = np.array([u.out_base for u in units], np.int64)
-            lanes = _walk_lanes(
-                np.concatenate([ubit, anc[ok, 0] - 8 * byte_lo]),
-                np.concatenate([uout, _W + anc[ok, 1] - out_lo]),
-                np.concatenate([np.arange(len(units)), k[ok]]))
-            plans.append((byte_lo, byte_hi, go, units, sruns, lanes))
-            max_units = max(max_units, len(units))
-            max_stored = max(max_stored, len(sruns))
-            max_lanes = max(max_lanes, lanes.shape[1])
-            max_body = max(max_body, byte_hi - byte_lo)
-            max_go = max(max_go, go)
+                    ustarts.append(bit0)
+                # Lanes: every coded block's first token and every anchor,
+                # tagged with the unit whose block holds it.
+                a_lo = np.searchsorted(abit, blocks[glo, 0], side="left")
+                a_hi = np.searchsorted(abit, bit_ends[ghi - 1], side="left")
+                anc = anchors[a_lo:a_hi]
+                k = np.searchsorted(np.array(ustarts, np.int64), anc[:, 0],
+                                    side="right") - 1
+                ok = k >= 0
+                ubit = np.array([u.bit for u in units], np.int64)
+                uout = np.array([u.out_base for u in units], np.int64)
+                lanes = _walk_lanes(
+                    np.concatenate([ubit, anc[ok, 0] - 8 * byte_lo]),
+                    np.concatenate([uout, _W + anc[ok, 1] - out_lo]),
+                    np.concatenate([np.arange(len(units)), k[ok]]))
+                plans.append((byte_lo, byte_hi, go, units, sruns, lanes))
+                max_units = max(max_units, len(units))
+                max_stored = max(max_stored, len(sruns))
+                max_lanes = max(max_lanes, lanes.shape[1])
+                max_body = max(max_body, byte_hi - byte_lo)
+                max_go = max(max_go, go)
 
         multi = len(plans) > 1
         n_out_pad = _pow2(_W + max_go)
