@@ -28,8 +28,10 @@ CHUNK = 4096
 DATA = mixed_corpus(5 * CHUNK + 300, 21)  # six chunks, the last short
 ENCODE = ("frame", "frame_checksum", "plan_upload", "host_plan_blocks",
           "host_plan_lengths", "host_plan_header")
-DECODE = ("decode_index", "decode_units", "decode_pack", "decode_verify")
-FOREIGN = ("decode_scan", "decode_units", "decode_pack", "decode_verify")
+DECODE = ("decode_index", "decode_units", "decode_headers", "decode_pack",
+          "decode_verify")
+FOREIGN = ("decode_scan", "decode_units", "decode_headers", "decode_pack",
+           "decode_verify")
 # Each nested span and the spans it may lie in: at levels 7-9 the optimal
 # parse re-plans its chunks inside its own stage.
 PARENTS = {
@@ -39,6 +41,7 @@ PARENTS = {
     "host_plan_header": ("host_plan", "optimal_parse"),
     "decode_index": ("decode_plan",),
     "decode_units": ("decode_plan",),
+    "decode_headers": ("decode_units",),
     "decode_pack": ("decode_plan",),
 }
 

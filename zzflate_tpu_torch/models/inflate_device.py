@@ -59,11 +59,7 @@ from zzflate_tpu_torch import constants as C
 from zzflate_tpu_torch import native
 from zzflate_tpu_torch.api import _resolve_device
 from zzflate_tpu_torch.models import inflate
-from zzflate_tpu_torch.models.inflate import (
-    BitReader,
-    CanonicalDecoder,
-    _read_dynamic_tables,
-)
+from zzflate_tpu_torch.models.inflate import BitReader, CanonicalDecoder
 from zzflate_tpu_torch.ops import checksums as cs
 from zzflate_tpu_torch.ops import kernels
 from zzflate_tpu_torch.ops.canonical import (  # noqa: F401 (the tests')
@@ -181,52 +177,54 @@ class _Unit:
         self.d = d              # (first, cnt, off, symtab) dist
 
 
+def _units(hdr_end, out_bases, ll, d) -> list[_Unit]:
+    """One _Unit a parsed block (native.parse_headers' arrays): its first
+    token's bit, its output base and row views of the descriptors."""
+    return [_Unit(bit, ob, tuple(a[j] for a in ll), tuple(a[j] for a in d))
+            for j, (bit, ob) in enumerate(zip(hdr_end.tolist(), out_bases))]
+
+
 def _plan_units(body: bytes, chunks, out_starts, out_sizes):
-    """Host walk: per indexed block, parse its header into canonical
-    descriptors; stored segments become run descriptors
-    (out_pos, body_byte_off, len), whose payload bytes the device reads
-    out of the uploaded words. Offsets (bit and output) are relative to
-    the given body/out space. unit_ranges[i] is the [lo, hi) slice of
-    `units` from chunk i (empty for stored-fallback chunks)."""
+    """Host walk: per indexed block, its header's canonical descriptors
+    (native.parse_headers, one call for all the chunks' coded blocks,
+    each bounded by its chunk's end); stored segments become run
+    descriptors (out_pos, body_byte_off, len), whose payload bytes the
+    device reads out of the uploaded words. Offsets (bit and output) are
+    relative to the given body/out space. unit_ranges[i] is the [lo, hi)
+    slice of `units` from chunk i (empty for stored-fallback chunks)."""
     with maybe_stage("decode_units"):
-        units = []
         stored_runs: list[tuple[int, int, int]] = []
         unit_ranges: list[tuple[int, int]] = []
+        bits: list[int] = []
+        ends: list[int] = []
+        outs: list[int] = []
+        err = None
         pos = 0
-        for i, (sz, blocks, _anchors) in enumerate(chunks):
-            seg = body[pos : pos + sz]
-            seg_bit0 = pos * 8
-            seg_byte0 = pos
-            pos += sz
-            ulo = len(units)
-            br = BitReader(seg, 0)
-            br.bits(1)
-            if br.bits(2) == 0:
-                stored_runs.extend(
-                    _stored_runs(seg, out_starts[i], out_sizes[i], seg_byte0)
-                )
-                unit_ranges.append((ulo, ulo))
-                continue
-            for bit_off, out_off in blocks:
-                b = BitReader(seg, bit_off)
-                b.bits(1)
-                btype = b.bits(2)
-                if btype == 1:
-                    lld, dd = _FixedDecs.get()
-                elif btype == 2:
-                    lld, dd = _read_dynamic_tables(b)
-                else:
-                    raise ValueError("corrupt indexed segment: bad BTYPE")
-                units.append(
-                    _Unit(
-                        seg_bit0 + b.bitpos,
-                        out_starts[i] + out_off,
-                        _canon_desc(lld, _MAX_LL),
-                        _canon_desc(dd, _MAX_D),
-                    )
-                )
-            unit_ranges.append((ulo, len(units)))
-        return units, stored_runs, unit_ranges
+        try:
+            for i, (sz, blocks, _anchors) in enumerate(chunks):
+                seg0 = pos
+                pos += sz
+                ulo = len(bits)
+                # The first block's BTYPE (IndexError: an empty segment).
+                if (body[seg0 : seg0 + min(sz, 1)][0] >> 1) & 3 == 0:
+                    stored_runs.extend(_stored_runs(
+                        body[seg0:pos], out_starts[i], out_sizes[i], seg0))
+                    unit_ranges.append((ulo, ulo))
+                    continue
+                for bit_off, out_off in blocks:
+                    bits.append(seg0 * 8 + bit_off)
+                    ends.append(pos)
+                    outs.append(out_starts[i] + out_off)
+                unit_ranges.append((ulo, len(bits)))
+        except (IndexError, struct.error) as e:
+            # A short segment: raised after the headers of the chunks
+            # before it, which the Python parse read first.
+            err = e
+        with maybe_stage("decode_headers"):
+            hdr_end, ll, d = native.parse_headers(body, bits, ends)
+        if err is not None:
+            raise err
+        return _units(hdr_end, outs, ll, d), stored_runs, unit_ranges
 
 
 def _stored_runs(seg: bytes, out_base: int, out_bytes: int,
@@ -865,9 +863,9 @@ def decompress_foreign(data: bytes, format: str = "gzip", verify: bool = True,
                 byte_hi = int((bit_ends[ghi - 1] + 7) // 8)
                 out_lo = int(blocks[glo, 2])
                 go = int(out_ends[ghi - 1]) - out_lo
-                units = []
                 sruns: list[tuple[int, int, int]] = []
                 ustarts: list[int] = []  # each coded block's header bit
+                uouts: list[int] = []
                 for bi in range(glo, ghi):
                     bit0, btype, ostart, aux0, aux1 = (
                         int(v) for v in blocks[bi])
@@ -877,23 +875,15 @@ def decompress_foreign(data: bytes, format: str = "gzip", verify: bool = True,
                                 (_W + ostart - out_lo, aux0 - byte_lo, aux1)
                             )
                         continue
-                    # Parse the header at the absolute bit, then rebase.
-                    b = BitReader(body, bit0)
-                    b.bits(1)
-                    bt = b.bits(2)
-                    if bt == 1:
-                        lld, dd = _FixedDecs.get()
-                    else:
-                        lld, dd = _read_dynamic_tables(b)
-                    units.append(
-                        _Unit(
-                            b.bitpos - 8 * byte_lo,
-                            _W + ostart - out_lo,
-                            _canon_desc(lld, _MAX_LL),
-                            _canon_desc(dd, _MAX_D),
-                        )
-                    )
                     ustarts.append(bit0)
+                    uouts.append(_W + ostart - out_lo)
+                # Parse the headers at their absolute bits, then rebase.
+                with maybe_stage("decode_headers"):
+                    hdr_end, ll, d = native.parse_headers(body, ustarts,
+                                                          len(body))
+                ubit = hdr_end - 8 * byte_lo
+                uout = np.array(uouts, np.int64)
+                units = _units(ubit, uouts, ll, d)
                 # Lanes: every coded block's first token and every anchor,
                 # tagged with the unit whose block holds it.
                 a_lo = np.searchsorted(abit, blocks[glo, 0], side="left")
@@ -902,8 +892,6 @@ def decompress_foreign(data: bytes, format: str = "gzip", verify: bool = True,
                 k = np.searchsorted(np.array(ustarts, np.int64), anc[:, 0],
                                     side="right") - 1
                 ok = k >= 0
-                ubit = np.array([u.bit for u in units], np.int64)
-                uout = np.array([u.out_base for u in units], np.int64)
                 lanes = _walk_lanes(
                     np.concatenate([ubit, anc[ok, 0] - 8 * byte_lo]),
                     np.concatenate([uout, _W + anc[ok, 1] - out_lo]),

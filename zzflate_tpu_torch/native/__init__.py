@@ -1,15 +1,16 @@
 """ctypes binding of the port's C runtime: host inflate, the anchor
-pre-scan of foreign streams, the level 7-9 shortest-bit-path DP, the
-host deflate engine and Adler-32/CRC-32.
+pre-scan of foreign streams, the block-header parse of the device
+decode's plan, the level 7-9 shortest-bit-path DP, the host deflate
+engine and Adler-32/CRC-32.
 
 The port's own copy of the JAX package's ``native/__init__.py``
-(:72-439), bound to the port's own copy of the C source,
-``zzflate_native.c`` beside this file. At first use the host C compiler
-builds it (``-O3 -shared -fPIC``) into ``zzflate_tpu_torch/_build/``
-under a name keyed on a hash of the source and flags, so an edited
-source rebuilds by itself. There is no fallback: a missing compiler or
-a failed build raises RuntimeError with the compiler's output, and no
-wrapper returns None.
+(:72-439) plus ``parse_headers``, bound to the port's own copy of the C
+source, ``zzflate_native.c`` beside this file. At first use the host C
+compiler builds it (``-O3 -shared -fPIC``) into
+``zzflate_tpu_torch/_build/`` under a name keyed on a hash of the source
+and flags, so an edited source rebuilds by itself. There is no fallback:
+a missing compiler or a failed build raises RuntimeError with the
+compiler's output, and no wrapper returns None.
 """
 from __future__ import annotations
 
@@ -45,7 +46,17 @@ ERRORS = {
     -8: "need more input",
 }
 E_OUTFULL = -6
+E_INPUT = -7
 E_AGAIN = -8
+# zzt_parse_headers' codes, worded as models/inflate.py's Python parse
+# words them.
+HEADER_ERRORS = {
+    -1: "bad BTYPE",
+    -3: "over-subscribed Huffman code",
+    -4: "invalid Huffman code",
+    -9: "repeat with no previous length",
+    -10: "code length overrun",
+}
 
 
 def library_path() -> Path:
@@ -108,9 +119,13 @@ def lib() -> ctypes.CDLL:
             L.zzt_scan_anchors.argtypes = [
                 ctypes.c_char_p, sz, sz, ctypes.c_uint32, sz, p, sz, p, sz,
                 psz, psz, psz, psz]
+            # in, in_len, start_bits, end_bytes, nb, hdr_end, desc, ll_sym,
+            # d_sym, failed
+            L.zzt_parse_headers.argtypes = [
+                ctypes.c_char_p, sz, p, p, sz, p, p, p, p, psz]
             for fn in (L.zzt_inflate, L.zzt_inflate_stream,
                        L.zzt_optimal_parse, L.zzt_deflate,
-                       L.zzt_scan_anchors):
+                       L.zzt_scan_anchors, L.zzt_parse_headers):
                 fn.restype = ctypes.c_int
             # value, buf, len
             for fn in (L.zzt_adler32, L.zzt_crc32):
@@ -249,6 +264,43 @@ def scan_anchors(data: bytes, anchor_tokens: int, bitpos: int = 0,
             return (blocks[: nb.value], anchors[: na.value],
                     total_out.value, end_bit.value)
         raise ValueError(ERRORS.get(rc, f"inflate error {rc}"))
+
+
+def parse_headers(body: bytes, start_bits, end_bytes):
+    """Block headers of a raw deflate body, in one call for all blocks.
+
+    start_bits: (nb,) each block's first bit (its BFINAL bit); end_bytes:
+    (nb,) or one int, the byte where each block's segment ends (clamped
+    to the body). Returns (hdr_end, ll, d): hdr_end (nb,) int64, the bit
+    of each block's first token; ll and d, each (first, cnt, off, sym),
+    the canonical descriptors that models/inflate_device._canon_desc
+    builds, as (nb, 16) int32 arrays and a (nb, 288) or (nb, 32) sym.
+    Accepts and rejects what models/inflate.py's _read_dynamic_tables
+    and CanonicalDecoder do, at the first bad block: ValueError with the
+    Python parse's words, IndexError where its BitReader would read past
+    the segment's end."""
+    L = lib()
+    if not isinstance(body, bytes):
+        body = bytes(body)  # c_char_p takes bytes only
+    starts = np.ascontiguousarray(start_bits, np.int64)
+    nb = len(starts)
+    ends = np.ascontiguousarray(np.broadcast_to(end_bytes, (nb,)), np.int64)
+    hdr_end = np.empty(nb, np.int64)
+    desc = np.empty((6, nb, 16), np.int32)
+    ll_sym = np.empty((nb, 288), np.int32)
+    d_sym = np.empty((nb, 32), np.int32)
+    failed = ctypes.c_size_t(0)
+    rc = L.zzt_parse_headers(
+        body, len(body), starts.ctypes.data, ends.ctypes.data, nb,
+        hdr_end.ctypes.data, desc.ctypes.data, ll_sym.ctypes.data,
+        d_sym.ctypes.data, ctypes.byref(failed),
+    )
+    if rc == E_INPUT:
+        raise IndexError(f"block {failed.value}: header runs past its "
+                         "segment")
+    if rc != OK:
+        raise ValueError(HEADER_ERRORS.get(rc, f"header error {rc}"))
+    return hdr_end, (*desc[:3], ll_sym), (*desc[3:], d_sym)
 
 
 def optimal_parse(data, mlen, mdist, start, end, ll_bits, d_bits, bounds):

@@ -1,5 +1,6 @@
 /* zzflate_tpu native runtime: fast host-side inflate + checksums.
- * zzflate_tpu_torch's own copy: equal to the JAX package's file but for this line.
+ * zzflate_tpu_torch's own copy: the JAX package's file plus this line and
+ * zzt_parse_headers (the block headers of the device decode's plan).
  *
  * A from-scratch table-driven raw-DEFLATE decoder (RFC 1951) plus
  * Adler-32/CRC-32, written for the host side of the TPU codec: the device
@@ -664,6 +665,157 @@ zz_fail:
   *total_out = w - dict_len;
   *end_bit = br_pos(&b);
   return rc;
+}
+
+/* ---------------- block headers of the device decode's plan ----------
+ *
+ * Parse the headers of nb coded blocks into the canonical descriptors the
+ * device decode takes per block (models/inflate_device.py): for each code,
+ * first code, count and symbol offset per length 1..max_len (zero above),
+ * and the symbols sorted by (length, symbol), zero-padded. It accepts and
+ * rejects what models/inflate.py's _read_dynamic_tables and
+ * CanonicalDecoder do, not what the scan above does: hlit up to 288 and
+ * hdist up to 32, incomplete codes. A block's header may not read past
+ * the end of its segment (ZZT_E_INPUT): the bit reader hands back zeros
+ * there, so each read is followed by a position check, and a failed
+ * symbol decode counts the max_len bits the Python decoder would read. */
+
+#define ZZT_E_REPEAT (-9)  /* repeat code 16 with no previous length */
+#define ZZT_E_LENRUN (-10) /* code lengths run past hlit + hdist */
+
+/* Descriptors of the code with lengths lens[0..n); -1 if over-subscribed.
+ * first/cnt/off are 16 wide, sym nsym wide (n <= nsym). */
+static int hp_canon(const uint8_t *lens, int n, int nsym, int32_t *first,
+                    int32_t *cnt, int32_t *off, int32_t *sym) {
+  int count[16] = {0}, next[16];
+  int s, l, max_len = 0, left = 1, code = 0, o = 0;
+  for (s = 0; s < n; s++) {
+    count[lens[s]]++;
+    if (lens[s] > max_len) max_len = lens[s];
+  }
+  for (l = 1; l <= max_len; l++) {
+    left = (left << 1) - count[l];
+    if (left < 0) return -1;
+  }
+  memset(first, 0, 16 * sizeof(int32_t));
+  memset(cnt, 0, 16 * sizeof(int32_t));
+  memset(off, 0, 16 * sizeof(int32_t));
+  memset(sym, 0, (size_t)nsym * sizeof(int32_t));
+  for (l = 1; l <= max_len; l++) {
+    first[l] = code;
+    cnt[l] = count[l];
+    off[l] = next[l] = o;
+    code = (code + count[l]) << 1;
+    o += count[l];
+  }
+  for (s = 0; s < n; s++)
+    if (lens[s]) sym[next[lens[s]]++] = s;
+  return max_len;
+}
+
+/* One symbol of a canonical code of at most 7 bits, read MSB-first one
+ * bit a length as the Python decoder does; -1 (nothing consumed) if the
+ * bits are no code. */
+static int hp_decode(bits_t *b, const int32_t *first, const int32_t *cnt,
+                     const int32_t *off, const int32_t *sym, int max_len) {
+  uint32_t w = br_peek(b, 7);
+  int l, code = 0;
+  for (l = 1; l <= max_len; l++) {
+    code = (code << 1) | (int)((w >> (l - 1)) & 1u);
+    if (cnt[l] && code - first[l] < cnt[l]) {
+      br_consume(b, l);
+      return sym[off[l] + code - first[l]];
+    }
+  }
+  return -1;
+}
+
+/* One block: the header from bit0 (its BFINAL bit), within [0, lim) bits.
+ * desc: ll first, cnt, off, then d first, cnt, off, each 16 wide and
+ * `stride` apart. */
+static int hp_block(const uint8_t *in, size_t end, int64_t bit0,
+                    int64_t *hdr_end, int32_t *desc, size_t stride,
+                    int32_t *ll_sym, int32_t *d_sym) {
+  const size_t lim = end * 8;
+  uint8_t lens[288 + 32];
+  uint32_t hlit, hdist, btype, i;
+  bits_t b;
+  if (bit0 < 0 || (size_t)bit0 + 3 > lim) return ZZT_E_INPUT;
+  br_init(&b, in, end, (size_t)bit0);
+  br_get(&b, 1);
+  btype = br_get(&b, 2);
+  if (btype == 1) {
+    hlit = 288;
+    hdist = 30;
+    memset(lens, 8, 144);
+    memset(lens + 144, 9, 112);
+    memset(lens + 256, 7, 24);
+    memset(lens + 280, 8, 8);
+    memset(lens + 288, 5, 30);
+  } else if (btype == 2) {
+    uint8_t cl_lens[19] = {0};
+    int32_t cf[16], cc[16], co[16], cs[19];
+    uint32_t hclen;
+    int cl_max;
+    hlit = br_get(&b, 5) + 257;
+    hdist = br_get(&b, 5) + 1;
+    hclen = br_get(&b, 4) + 4;
+    for (i = 0; i < hclen; i++) cl_lens[CLORD[i]] = (uint8_t)br_get(&b, 3);
+    if (br_pos(&b) > lim) return ZZT_E_INPUT;
+    cl_max = hp_canon(cl_lens, 19, 19, cf, cc, co, cs);
+    if (cl_max < 0) return ZZT_E_TABLE;
+    for (i = 0; i < hlit + hdist;) {
+      uint32_t r;
+      int s = hp_decode(&b, cf, cc, co, cs, cl_max);
+      if (s < 0)
+        return br_pos(&b) + (size_t)cl_max > lim ? ZZT_E_INPUT : ZZT_E_SYMBOL;
+      if (br_pos(&b) > lim) return ZZT_E_INPUT;
+      if (s < 16) {
+        lens[i++] = (uint8_t)s;
+        continue;
+      }
+      if (s == 16 && i == 0) return ZZT_E_REPEAT;
+      r = s == 16 ? 3 + br_get(&b, 2)
+                  : s == 17 ? 3 + br_get(&b, 3) : 11 + br_get(&b, 7);
+      if (br_pos(&b) > lim) return ZZT_E_INPUT;
+      if (i + r > hlit + hdist) return ZZT_E_LENRUN;
+      memset(lens + i, s == 16 ? lens[i - 1] : 0, r);
+      i += r;
+    }
+  } else {
+    return ZZT_E_BTYPE;
+  }
+  if (hp_canon(lens, (int)hlit, 288, desc, desc + stride, desc + 2 * stride,
+               ll_sym) < 0 ||
+      hp_canon(lens + hlit, (int)hdist, 32, desc + 3 * stride,
+               desc + 4 * stride, desc + 5 * stride, d_sym) < 0)
+    return ZZT_E_TABLE;
+  *hdr_end = (int64_t)br_pos(&b);
+  return ZZT_OK;
+}
+
+/* Headers of nb blocks of `in`: block k starts at bit start_bits[k] and its
+ * segment ends at byte end_bytes[k] (clamped to in_len). Outputs: hdr_end
+ * (nb,) the bit of each block's first token; desc (6, nb, 16) int32, the
+ * rows ll first, cnt, off, d first, cnt, off; ll_sym (nb, 288), d_sym
+ * (nb, 32). Stops at the first bad block, whose index goes to *failed, and
+ * returns its code (ZZT_E_INPUT: the header reads past its segment). */
+int zzt_parse_headers(const uint8_t *in, size_t in_len,
+                      const int64_t *start_bits, const int64_t *end_bytes,
+                      size_t nb, int64_t *hdr_end, int32_t *desc,
+                      int32_t *ll_sym, int32_t *d_sym, size_t *failed) {
+  size_t k;
+  for (k = 0; k < nb; k++) {
+    int64_t e = end_bytes[k];
+    size_t end = e < 0 ? 0 : (size_t)e < in_len ? (size_t)e : in_len;
+    int rc = hp_block(in, end, start_bits[k], hdr_end + k, desc + 16 * k,
+                      16 * nb, ll_sym + 288 * k, d_sym + 32 * k);
+    if (rc != ZZT_OK) {
+      *failed = k;
+      return rc;
+    }
+  }
+  return ZZT_OK;
 }
 
 /* ---------------- checksums ---------------- */
