@@ -2018,7 +2018,7 @@ def multihost_worker(port: str, nproc: str, rank: str, tmp: str,
     import torch
     import torch.distributed as dist
 
-    from zzflate_tpu_torch.api import _rank_device
+    from zzflate_tpu_torch.devices import rank_device
     from zzflate_tpu_torch.ops import kernels
     from zzflate_tpu_torch.parallel import multihost
     from zzflate_tpu_torch.utils import corpus
@@ -2047,7 +2047,7 @@ def multihost_worker(port: str, nproc: str, rank: str, tmp: str,
         secs.append(time.perf_counter() - t0)
         dist.barrier()  # root's return is the end of the timed call
     rep = {"rank": rank, "nbytes": len(local), "secs": secs,
-           "device": torch.cuda.get_device_name(_rank_device(None, rank)),
+           "device": torch.cuda.get_device_name(rank_device(None, rank)),
            "launches": {k: v // reps for k, v in kernels.launches.items()}}
     if rank == 0:
         with open(os.path.join(tmp, "stream.gz"), "wb") as f:

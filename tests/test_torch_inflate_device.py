@@ -35,6 +35,7 @@ import jax.numpy as jnp
 
 import zzflate_tpu as zf
 import zzflate_tpu_torch as zt
+from zzflate_tpu_torch import native
 from zzflate_tpu.models import inflate_tpu as ref
 from zzflate_tpu.ops import checksums as rcs
 from zzflate_tpu_torch.constants import ANCHOR_TOKENS
@@ -215,10 +216,9 @@ def _unit_descs(data):
     n = len(data)
     starts = [i * cb for i in range(len(chunks))]
     sizes = [min(cb, max(0, n - s)) for s in starts]
-    units, _runs, _ranges = idv._plan_units(body, chunks, starts, sizes)
-    ll = [np.stack([u.ll[k] for u in units]) for k in range(4)]
-    d = [np.stack([u.d[k] for u in units]) for k in range(4)]
-    return ll, d
+    _bits, _outs, ll, d, _runs, _ranges = idv._plan_units(body, chunks,
+                                                          starts, sizes)
+    return list(ll), list(d)
 
 
 @pytest.mark.parametrize("seed", [0, 1])
@@ -740,14 +740,19 @@ def test_plan_units_match_reference(streams):
         starts = [idv._W + i * cb for i in range(len(chunks))]
         sizes = [min(cb, max(0, len(data) - i * cb))
                  for i in range(len(chunks))]
-        got = idv._plan_units(body, chunks, starts, sizes)
-        exp = ref._plan_units(body, chunks, starts, sizes)
-        assert got[1] == exp[1] and got[2] == exp[2]
-        assert len(got[0]) == len(exp[0]) > 0
-        for gu, eu in zip(got[0], exp[0]):
-            assert (gu.bit, gu.out_base) == (eu.bit, eu.out_base)
-            for ga, ea in zip(gu.ll + gu.d, eu.ll + eu.d):
-                np.testing.assert_array_equal(ga, ea)
+        bits, outs, ll, d, runs, ranges = idv._plan_units(body, chunks,
+                                                          starts, sizes)
+        units, e_runs, e_ranges = ref._plan_units(body, chunks, starts, sizes)
+        assert runs.tolist() == [list(r) for r in e_runs]
+        assert ranges.tolist() == [list(r) for r in e_ranges]
+        assert len(bits) == len(outs) == len(units) > 0
+        assert bits.tolist() == [u.bit for u in units]
+        assert outs.tolist() == [u.out_base for u in units]
+        for k in range(4):
+            np.testing.assert_array_equal(
+                ll[k], np.stack([u.ll[k] for u in units]))
+            np.testing.assert_array_equal(
+                d[k], np.stack([u.d[k] for u in units]))
 
 
 @pytest.mark.parametrize("name", ["grouped", "anchor_long_blocks"])
@@ -789,6 +794,94 @@ def test_group_inputs_match_reference(streams, monkeypatch, name):
         kw = e[16]
         assert (n_out_pad, n_stored, t_steps) == (
             kw["n_out_pad"], kw["n_stored"], kw["t_steps"])
+
+
+def _recorded_partitions(monkeypatch):
+    """The groups _partition returns, one list a call."""
+    seen = []
+    orig = idv._partition
+
+    def rec(*args):
+        seen.append(orig(*args))
+        return seen[-1]
+
+    monkeypatch.setattr(idv, "_partition", rec)
+    return seen
+
+
+def _greedy(n, opens):
+    """[lo, hi) groups: item i > lo opens a new group when opens(lo, i)."""
+    groups, lo = [], 0
+    for i in range(n):
+        if i > lo and opens(lo, i):
+            groups.append((lo, i))
+            lo = i
+    return groups + [(lo, n)] if lo < n else groups
+
+
+def test_partition_gives_both_entries_groups(streams, mixed, monkeypatch):
+    """One partition serves both entries: the indexed rule counts
+    chunk_bytes of output a chunk, the foreign rule floors bit ends to
+    bytes. Each entry's groups, on a multi-group stream, are those rules'
+    (shrunk walk groups), and the bytes decode."""
+    seen = _recorded_partitions(monkeypatch)
+    monkeypatch.setattr(idv, "_WGROUP_OUT", 1 << 15)
+    data, blob = streams["grouped"]
+    assert idv.decompress_indexed(blob, device="cpu") == data
+    _h, cb, _t, chunks = containers.parse_gzip_index(blob)
+    cpos = np.r_[0, np.cumsum([sz for sz, _b, _a in chunks])]
+    out_cap = max(idv._WGROUP_OUT, cb)
+    want = _greedy(len(chunks), lambda lo, i: (
+        cpos[i + 1] - cpos[lo] > idv._WGROUP_BODY
+        or (i + 1 - lo) * cb > out_cap))
+    assert seen == [want] and len(want) >= 2
+
+    seen.clear()
+    monkeypatch.setattr(idv, "_WGROUP_OUT", 1 << 17)
+    monkeypatch.setattr(idv, "_WGROUP_BODY", 1 << 16)
+    blob = gzip.compress(mixed, 6, mtime=0)
+    assert idv.decompress_foreign(blob, format="gzip", device="cpu") == mixed
+    body = blob[containers.parse_gzip_header(blob):]
+    blocks, _anc, total, end_bit = native.scan_anchors(
+        body, idv.FOREIGN_ANCHOR_TOKENS)
+    bit_ends = np.r_[blocks[1:, 0], end_bit]
+    out_ends = np.r_[blocks[1:, 2], total]
+    want = _greedy(len(blocks), lambda lo, i: (
+        bit_ends[i] // 8 - blocks[lo, 0] // 8 > idv._WGROUP_BODY
+        or out_ends[i] - blocks[lo, 2] > idv._WGROUP_OUT))
+    assert seen == [want] and len(want) >= 2
+
+
+@pytest.mark.parametrize("in_order", [True, False])
+def test_lanes_attach_anchors_within_their_item(in_order):
+    """Each anchor walks with the unit that np.searchsorted finds among
+    its own item's units as recorded (the last at or before it); anchors
+    before every unit of their item, or in an item without units (a
+    stored chunk), are dropped. Block records out of bit order, as a
+    crafted index may give them, are searched item by item as before."""
+    ranges = np.array([[0, 3], [3, 3], [3, 5], [5, 6]])  # item 1: stored
+    bits = np.array([100, 400, 900, 2000, 2600, 4000])
+    if not in_order:
+        bits[[0, 2]] = bits[[2, 0]]
+    outs = bits * 3 + 7
+    rng = np.random.default_rng(1)
+    item = np.repeat(np.arange(4), [9, 4, 7, 5])
+    lo = np.array([50, 1000, 1900, 3900])[item]
+    abit = lo + rng.integers(0, 1000, len(item))
+    order = np.lexsort((abit, item))
+    anchors = np.stack([abit[order], abit[order] * 5 + 1, item[order]])
+    want = [bits, outs, np.arange(len(bits))]
+    for i, (ulo, uhi) in enumerate(ranges):
+        a = anchors[:, anchors[2] == i]
+        if ulo == uhi:
+            continue
+        k = np.searchsorted(bits[ulo:uhi], a[0], side="right") - 1
+        ok = k >= 0
+        want = [np.r_[w, x] for w, x in zip(want, (a[0, ok], a[1, ok],
+                                                   ulo + k[ok]))]
+    assert len(want[0]) < len(bits) + len(item)  # some anchors dropped
+    np.testing.assert_array_equal(idv._lanes(bits, outs, ranges, anchors),
+                                  idv._walk_lanes(*want))
 
 
 # ---------------------------------------------------------------------------

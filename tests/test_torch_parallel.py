@@ -42,7 +42,7 @@ from zzflate_tpu.parallel.multihost import (
 )
 
 import zzflate_tpu_torch as zt
-from zzflate_tpu_torch import api
+from zzflate_tpu_torch import devices
 from zzflate_tpu_torch.config import LEVELS, CodecConfig
 from zzflate_tpu_torch.encode_pipeline import build_chunk_batch, encode_segments
 from zzflate_tpu_torch.models import deflate_encoder
@@ -280,12 +280,12 @@ def test_rank_device_rule(monkeypatch):
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 3)
     monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
     monkeypatch.delenv("LOCAL_RANK", raising=False)
-    assert api._rank_device(None, 0) == torch.device("cuda", 0)
-    assert api._rank_device(None, 4) == torch.device("cuda", 1)
+    assert devices.rank_device(None, 0) == torch.device("cuda", 0)
+    assert devices.rank_device(None, 4) == torch.device("cuda", 1)
     monkeypatch.setenv("LOCAL_RANK", "2")
-    assert api._rank_device(None, 7) == torch.device("cuda", 2)
-    assert api._rank_device("cpu", 7) == torch.device("cpu")
-    assert api._rank_device("cuda:1", 0) == torch.device("cuda", 1)
+    assert devices.rank_device(None, 7) == torch.device("cuda", 2)
+    assert devices.rank_device("cpu", 7) == torch.device("cpu")
+    assert devices.rank_device("cuda:1", 0) == torch.device("cuda", 1)
 
 
 # ---------------------------------------------------------------------------

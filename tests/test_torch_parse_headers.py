@@ -155,12 +155,15 @@ def _plan_args(level: int):
 
 
 def _assert_plans_equal(got, exp):
-    assert got[1] == exp[1] and got[2] == exp[2]
-    assert len(got[0]) == len(exp[0])
-    for gu, (bit, out_base, lld, dd) in zip(got[0], exp[0]):
-        assert (gu.bit, gu.out_base) == (bit, out_base)
-        for ga, ea in zip(gu.ll + gu.d, lld + dd):
-            np.testing.assert_array_equal(ga, ea)
+    bits, outs, ll, d, runs, ranges = got
+    units, e_runs, e_ranges = exp
+    assert runs.tolist() == [list(r) for r in e_runs]
+    assert ranges.tolist() == [list(r) for r in e_ranges]
+    assert len(bits) == len(outs) == len(units)
+    for j, (bit, out_base, lld, dd) in enumerate(units):
+        assert (bits[j], outs[j]) == (bit, out_base)
+        for ga, ea in zip((*ll, *d), (*lld, *dd)):
+            np.testing.assert_array_equal(ga[j], ea)
 
 
 @pytest.mark.parametrize("level", [1, 6, 9])

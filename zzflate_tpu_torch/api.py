@@ -14,7 +14,6 @@ the host, in the port's C runtime.
 """
 from __future__ import annotations
 
-import os
 import struct
 import zlib as _zlib
 
@@ -23,8 +22,9 @@ import torch
 from zzflate_tpu_torch import config as cfg_mod
 from zzflate_tpu_torch import native
 from zzflate_tpu_torch.config import CodecConfig
+from zzflate_tpu_torch.devices import resolve_device
 from zzflate_tpu_torch.encode_pipeline import encode_segments
-from zzflate_tpu_torch.models import inflate
+from zzflate_tpu_torch.models import inflate, inflate_device
 from zzflate_tpu_torch.utils import containers
 from zzflate_tpu_torch.utils.profiling import maybe_stage
 
@@ -33,38 +33,6 @@ def compress_bound(n: int, format: str = "zlib") -> int:
     """Worst-case compressed size (stored fallback bound), zlib.h:760 shape."""
     overhead = {"raw": 0, "zlib": 2 + 4 + 4, "gzip": 10 + 8}[format]
     return n + 5 * (n // 65535 + 1) + 2 + overhead
-
-
-def _resolve_device(device) -> torch.device:
-    """None -> the current CUDA card (RuntimeError without a GPU);
-    otherwise as given. A CUDA device always carries its index, so a
-    tensor made there compares equal to it."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device: pass device='cpu' to run the plain torch "
-                "path on the CPU"
-            )
-        device = "cuda"
-    dev = torch.device(device)
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {dev}")
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
-    return dev
-
-
-def _rank_device(device, rank: int) -> torch.device:
-    """The device of one process of a distributed job: as given, or for
-    None the process's own card, cuda:(LOCAL_RANK or rank) % the visible
-    card count (processes of one host share its cards round-robin);
-    RuntimeError without a GPU."""
-    dev = _resolve_device(device)
-    if device is None:
-        local = os.environ.get("LOCAL_RANK", "")
-        idx = int(local) if local else rank
-        dev = torch.device("cuda", idx % torch.cuda.device_count())
-    return dev
 
 
 def _check_options(config: CodecConfig, dictionary, indexed: bool,
@@ -198,7 +166,7 @@ def compress(
         raise ValueError(f"unknown engine {engine!r}")
     if engine == "device":
         return _compress_on(data, config, dictionary,
-                            [_resolve_device(device)], indexed, seekable)
+                            [resolve_device(device)], indexed, seekable)
     if indexed:
         raise ValueError("indexed output requires engine='device'")
     if level == 0:
@@ -236,9 +204,7 @@ def decompress(data: bytes, format: str = "zlib",
     if engine not in ("device", "native"):
         raise ValueError(f"unknown engine {engine!r}")
     if engine == "device":
-        from zzflate_tpu_torch.models import inflate_device
-
-        dev = _resolve_device(device)
+        dev = resolve_device(device)
         if format == "gzip":
             out = inflate_device.decompress_indexed(data, device=dev)
             if out is not None:

@@ -125,9 +125,9 @@ def _cmd_bench(args) -> int:
     import torch
 
     import zzflate_tpu_torch as zt
-    from zzflate_tpu_torch.api import _resolve_device
+    from zzflate_tpu_torch.devices import resolve_device
 
-    dev = _resolve_device(args.device)
+    dev = resolve_device(args.device)
     if args.files:
         data = b"".join(_read(p) for p in args.files)
     else:

@@ -371,7 +371,7 @@ def encode_segments(data: bytes, config, dictionary: bytes | None,
     stream layer's Z_BLOCK).
 
     devices is the mesh, a list of torch.device, each CUDA one with its
-    index (api._resolve_device, parallel.make_mesh); it may name one
+    index (devices.resolve_device, parallel.make_mesh); it may name one
     device more than once, and one device stands for [device]. Every
     batch has len(devices) x per_dev rows, and rows [j*per_dev,
     (j+1)*per_dev) run on devices[j]: upload, analyze, emit and copies.

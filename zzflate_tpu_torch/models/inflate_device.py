@@ -51,13 +51,14 @@ chunk or block larger than a group.
 from __future__ import annotations
 
 import struct
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from zzflate_tpu_torch import constants as C
 from zzflate_tpu_torch import native
-from zzflate_tpu_torch.api import _resolve_device
+from zzflate_tpu_torch.devices import resolve_device
 from zzflate_tpu_torch.models import inflate
 from zzflate_tpu_torch.models.inflate import BitReader, CanonicalDecoder
 from zzflate_tpu_torch.ops import checksums as cs
@@ -98,8 +99,7 @@ _WGROUP_OUT = (4 << 20) - _W
 # the format's C.ANCHOR_TOKENS; a foreign stream's anchors come from the
 # host scan, so the decoder chooses: shorter lanes start every serial
 # chain sooner and make more blocks of the walk for the card's SMs
-# (chosen from 64, 128 and 256 on the H100 with utils/decode_bench.py:
-# PERF.md).
+# (chosen from 64, 128 and 256 on the H100: PERF.md §6).
 FOREIGN_ANCHOR_TOKENS = 64
 
 
@@ -167,64 +167,69 @@ def _with_edge_units(ll, d):
     return tuple(out)
 
 
-class _Unit:
-    __slots__ = ("bit", "out_base", "ll", "d")
-
-    def __init__(self, bit, out_base, ll, d):
-        self.bit = bit          # absolute bit offset into the body
-        self.out_base = out_base
-        self.ll = ll            # (first, cnt, off, symtab) litlen
-        self.d = d              # (first, cnt, off, symtab) dist
-
-
-def _units(hdr_end, out_bases, ll, d) -> list[_Unit]:
-    """One _Unit a parsed block (native.parse_headers' arrays): its first
-    token's bit, its output base and row views of the descriptors."""
-    return [_Unit(bit, ob, tuple(a[j] for a in ll), tuple(a[j] for a in d))
-            for j, (bit, ob) in enumerate(zip(hdr_end.tolist(), out_bases))]
-
-
 def _plan_units(body: bytes, chunks, out_starts, out_sizes):
-    """Host walk: per indexed block, its header's canonical descriptors
-    (native.parse_headers, one call for all the chunks' coded blocks,
-    each bounded by its chunk's end); stored segments become run
-    descriptors (out_pos, body_byte_off, len), whose payload bytes the
-    device reads out of the uploaded words. Offsets (bit and output) are
-    relative to the given body/out space. unit_ranges[i] is the [lo, hi)
-    slice of `units` from chunk i (empty for stored-fallback chunks)."""
-    with maybe_stage("decode_units"):
-        stored_runs: list[tuple[int, int, int]] = []
-        unit_ranges: list[tuple[int, int]] = []
-        bits: list[int] = []
-        ends: list[int] = []
-        outs: list[int] = []
-        err = None
-        pos = 0
-        try:
-            for i, (sz, blocks, _anchors) in enumerate(chunks):
-                seg0 = pos
-                pos += sz
-                ulo = len(bits)
-                # The first block's BTYPE (IndexError: an empty segment).
-                if (body[seg0 : seg0 + min(sz, 1)][0] >> 1) & 3 == 0:
-                    stored_runs.extend(_stored_runs(
-                        body[seg0:pos], out_starts[i], out_sizes[i], seg0))
-                    unit_ranges.append((ulo, ulo))
-                    continue
-                for bit_off, out_off in blocks:
-                    bits.append(seg0 * 8 + bit_off)
-                    ends.append(pos)
-                    outs.append(out_starts[i] + out_off)
-                unit_ranges.append((ulo, len(bits)))
-        except (IndexError, struct.error) as e:
-            # A short segment: raised after the headers of the chunks
-            # before it, which the Python parse read first.
-            err = e
-        with maybe_stage("decode_headers"):
-            hdr_end, ll, d = native.parse_headers(body, bits, ends)
-        if err is not None:
-            raise err
-        return _units(hdr_end, outs, ll, d), stored_runs, unit_ranges
+    """Host walk of indexed chunks: the coded chunks' block headers, each
+    bounded by its chunk's end, in one native.parse_headers call; the
+    stored-fallback chunks' runs (out_pos, body_byte_off, len), whose
+    payload the device reads out of the uploaded words. Offsets (bit and
+    output) are relative to the given body/out space.
+
+    Returns (start_bits, out_bases, ll, d, stored_runs, unit_ranges): each
+    unit's first-token bit and output base, (U,) int64; parse_headers'
+    descriptor arrays; the runs, (S, 3) int32; and each chunk's [lo, hi)
+    slice of the units, (nchunks, 2) int64 (empty for a stored-fallback
+    chunk)."""
+    stored_runs: list[tuple[int, int, int]] = []
+    unit_ranges: list[tuple[int, int]] = []
+    bits: list[int] = []
+    ends: list[int] = []
+    outs: list[int] = []
+    err = None
+    pos = 0
+    try:
+        for i, (sz, blocks, _anchors) in enumerate(chunks):
+            seg0 = pos
+            pos += sz
+            ulo = len(bits)
+            # The first block's BTYPE (IndexError: an empty segment).
+            if (body[seg0 : seg0 + min(sz, 1)][0] >> 1) & 3 == 0:
+                stored_runs.extend(_stored_runs(
+                    body[seg0:pos], out_starts[i], out_sizes[i], seg0))
+                unit_ranges.append((ulo, ulo))
+                continue
+            for bit_off, out_off in blocks:
+                bits.append(seg0 * 8 + bit_off)
+                ends.append(pos)
+                outs.append(out_starts[i] + out_off)
+            unit_ranges.append((ulo, len(bits)))
+    except (IndexError, struct.error) as e:
+        # A short segment: raised after the headers of the chunks before
+        # it, which the Python parse read first.
+        err = e
+    with maybe_stage("decode_headers"):
+        hdr_end, ll, d = native.parse_headers(body, bits, ends)
+    if err is not None:
+        raise err
+    return (hdr_end, np.array(outs, np.int64), ll, d,
+            np.array(stored_runs, np.int32).reshape(-1, 3),
+            np.array(unit_ranges, np.int64).reshape(-1, 2))
+
+
+def _block_units(body: bytes, blocks, byte_lo: int, out_lo: int):
+    """_plan_units' arrays for scanned blocks (native.scan_anchors' rows,
+    one unit a coded block), in the spaces of a group whose body starts at
+    byte byte_lo and whose output starts at out_lo (position _W there).
+    The headers are parsed at their absolute bits, bounded by the body."""
+    coded = blocks[:, 1] != 0
+    with maybe_stage("decode_headers"):
+        hdr_end, ll, d = native.parse_headers(body, blocks[coded, 0],
+                                              len(body))
+    st = blocks[~coded & (blocks[:, 4] != 0)]
+    runs = np.stack([_W + st[:, 2] - out_lo, st[:, 3] - byte_lo, st[:, 4]],
+                    axis=1).astype(np.int32)
+    uhi = np.cumsum(coded)
+    return (hdr_end - 8 * byte_lo, _W + blocks[coded, 2] - out_lo, ll, d,
+            runs, np.stack([uhi - coded, uhi], axis=1))
 
 
 def _stored_runs(seg: bytes, out_base: int, out_bytes: int,
@@ -454,48 +459,174 @@ def _walk_all(arrs: dict, prefix, crc_len: int, n_out_pad: int,
 
 
 # ---------------------------------------------------------------------------
-# Host staging shared by the indexed and foreign entries.
+# Groups, shared by the indexed and foreign entries: the partition, the
+# plan, the shapes, the staging and the runner.
 # ---------------------------------------------------------------------------
 
 
-def _stage_arrays(gbody: bytes, nw: int, u_pad: int, units, n_stored: int,
-                  n_out_pad: int, sruns, l_pad: int | None, lanes):
-    """Numpy inputs of one group, padded to the shared shapes: the body
-    as nw u32 words (carried as int32 bits), the units' canonical
-    descriptors, block starts, stored runs and (walk path) lanes."""
+def _partition(body_lo, body_hi, out_lo, out_hi, body_cap: int,
+               out_cap: int) -> list[tuple[int, int]]:
+    """Items (chunks or blocks) in order into greedy [lo, hi) groups: an
+    item opens a new group when the body from the group's first item's
+    start to its own end, or the output likewise, would pass its cap. An
+    item alone always makes a group."""
+    body_lo, body_hi, out_lo, out_hi = (
+        np.asarray(x).tolist() for x in (body_lo, body_hi, out_lo, out_hi))
+    groups: list[tuple[int, int]] = []
+    lo = 0
+    for i in range(len(body_lo)):
+        if i > lo and (body_hi[i] - body_lo[lo] > body_cap
+                       or out_hi[i] - out_lo[lo] > out_cap):
+            groups.append((lo, i))
+            lo = i
+    if lo < len(body_lo):
+        groups.append((lo, len(body_lo)))
+    return groups
+
+
+class _Group(NamedTuple):
+    """One group's plan, in its own bit and output spaces (output position
+    _W is its first byte; [0, _W) holds the previous output)."""
+    byte_lo: int              # its body bytes [byte_lo, byte_hi)
+    byte_hi: int
+    go: int                   # its output bytes
+    start_bits: np.ndarray    # (U,) each unit's first-token bit
+    out_bases: np.ndarray     # (U,) each unit's output base
+    ll: tuple                 # native.parse_headers' descriptor arrays
+    d: tuple
+    sr: np.ndarray            # (S, 3) int32 stored runs
+    lanes: np.ndarray | None  # _walk_lanes' (4, L) rows; None: per-bit
+
+
+def _lanes(start_bits, out_bases, unit_ranges, anchors) -> np.ndarray:
+    """A group's walk lanes: every unit's first token and every anchor
+    ((3, A) rows bit, out, item, sorted by item), each tagged with the
+    unit whose tree decodes it, found by np.searchsorted over its own
+    item's units: the last whose first token is at or before it (an
+    anchor before all of them, or in an item without units, is bogus:
+    dropped). A crafted index may repeat a lane (an anchor on a
+    block-first token): the walk max-combines the identical tokens."""
+    abit, aout, aitem = anchors
+    n_units = unit_ranges[:, 1] - unit_ranges[:, 0]
+    uitem = np.repeat(np.arange(len(n_units)), n_units)
+    ukey = (uitem << 40) | start_bits
+    if (ukey[1:] >= ukey[:-1]).all():
+        # Every item's units in bit order, as encoders and the scan write
+        # them: one search over (item, bit) keys serves every item.
+        k = np.searchsorted(ukey, (aitem << 40) | abit, side="right") - 1
+    else:
+        # A crafted index's block records out of order: item by item.
+        k = np.full(len(abit), -1)
+        cut = np.searchsorted(aitem, np.arange(len(n_units) + 1))
+        for i in np.flatnonzero(n_units):
+            ulo, uhi = unit_ranges[i]
+            a = slice(cut[i], cut[i + 1])
+            k[a] = ulo - 1 + np.searchsorted(start_bits[ulo:uhi], abit[a],
+                                             side="right")
+    ok = k >= 0
+    ok[ok] = uitem[k[ok]] == aitem[ok]
+    return _walk_lanes(np.r_[start_bits, abit[ok]],
+                       np.r_[out_bases, aout[ok]],
+                       np.r_[np.arange(len(start_bits)), k[ok]])
+
+
+def _plan_groups(groups, body_lo, body_hi, out_lo, out_hi, units_of,
+                 anchors) -> list[_Group]:
+    """Every group's plan. Items i have body bytes [body_lo[i],
+    body_hi[i]) and output [out_lo[i], out_hi[i]); units_of(lo, hi,
+    byte_lo, byte_hi, out_lo) gives the units of items [lo, hi) in the
+    group's spaces, as _plan_units does. anchors: the stream's, (3, A)
+    int64 rows bit, out and item, in body and output space and sorted by
+    item, or None on the per-bit path (no lanes)."""
+    plans = []
+    for lo, hi in groups:
+        with maybe_stage("decode_units"):
+            b0, b1 = int(body_lo[lo]), int(body_hi[hi - 1])
+            o0 = int(out_lo[lo])
+            start_bits, out_bases, ll, d, sr, unit_ranges = units_of(
+                lo, hi, b0, b1, o0)
+            lanes = None
+            if anchors is not None:
+                a_lo, a_hi = np.searchsorted(anchors[2], [lo, hi])
+                lanes = _lanes(start_bits, out_bases, unit_ranges,
+                               anchors[:, a_lo:a_hi]
+                               - np.c_[[8 * b0, o0 - _W, lo]])
+            plans.append(_Group(b0, b1, int(out_hi[hi - 1]) - o0,
+                                start_bits, out_bases, ll, d, sr, lanes))
+    return plans
+
+
+class _Shape(NamedTuple):
+    """The shapes every group of a stream is padded to."""
+    n_out_pad: int
+    u_pad: int
+    n_stored: int
+    nw: int
+    l_pad: int | None   # None: the per-bit path
+    t_steps: int
+    nbits: int = 0      # the per-bit path's
+    max_sup_span: int = 0
+
+
+def _shape(plans, body_cap: int, anchor_tokens: int,
+           seg_bits: int | None = None) -> _Shape:
+    """The shared shapes of a stream's groups. seg_bits, the largest
+    item's body in bits, selects the per-bit path, which adds nbits and
+    max_sup_span."""
+    multi = len(plans) > 1
+    max_body = max((g.byte_hi - g.byte_lo for g in plans), default=0)
+    max_go = max((g.go for g in plans), default=0)
+    max_units = max((len(g.start_bits) for g in plans), default=0)
+    max_stored = max((len(g.sr) for g in plans), default=0)
+    n_out_pad = _pow2(_W + max(1, max_go))
+    u_pad = _pow2(max(1, max_units))
+    n_stored = _pow2(max_stored) if max_stored else 0
+    t_steps = anchor_tokens + 2  # spacing + EOB + slack
+    if seg_bits is None:
+        nw = (body_cap if multi else _pow2(max(64, max_body))) // 4 + 2
+        max_lanes = max((g.lanes.shape[1] for g in plans), default=0)
+        return _Shape(n_out_pad, u_pad, n_stored, nw,
+                      _lane_bucket(max(1, max_lanes)), t_steps)
+    nbits = _GROUP_BITS if multi else max(_RR, _pow2(max_body * 8 + 16))
+    return _Shape(n_out_pad, u_pad, n_stored, nbits // 32 + 2, None,
+                  t_steps, nbits, min(nbits // _RR, seg_bits // _RR + 2))
+
+
+_DESC = ("ll_first", "ll_cnt", "ll_off", "ll_sym",
+         "d_first", "d_cnt", "d_off", "d_sym")
+_LANES = ("lane_bit", "lane_out", "lane_uid", "lane_valid")
+
+
+def _stage_arrays(body: bytes, g: _Group, s: _Shape) -> dict:
+    """Numpy inputs of one group, its plan copied by slice into zeroed
+    arrays of the shared shapes: the body as nw u32 words (carried as
+    int32 bits), the units' descriptors, first-token bits, output bases
+    and validity, the stored runs (padding rows at out_pos = n_out_pad,
+    len 0; one zero row when no group has runs) and on the walk path the
+    lanes."""
     with maybe_stage("decode_pack"):
-        wbytes = gbody + b"\x00" * (nw * 4 - len(gbody))
-        words = np.frombuffer(wbytes[: nw * 4], "<u4").view(np.int32)
-        a = {"words": words.copy()}
-        for name, width in (("ll_first", 16), ("ll_cnt", 16),
-                            ("ll_off", 16), ("ll_sym", _MAX_LL),
-                            ("d_first", 16), ("d_cnt", 16), ("d_off", 16),
-                            ("d_sym", _MAX_D)):
-            a[name] = np.zeros((u_pad, width), np.int32)
-        a["start_bits"] = np.zeros(u_pad, np.int32)
-        a["out_bases"] = np.zeros(u_pad, np.int32)
-        a["unit_valid"] = np.zeros(u_pad, bool)
-        for j, un in enumerate(units):
-            (a["ll_first"][j], a["ll_cnt"][j], a["ll_off"][j],
-             a["ll_sym"][j]) = un.ll
-            (a["d_first"][j], a["d_cnt"][j], a["d_off"][j],
-             a["d_sym"][j]) = un.d
-            a["start_bits"][j] = un.bit
-            a["out_bases"][j] = un.out_base
-            a["unit_valid"][j] = True
-        if n_stored:
-            sr = np.zeros((n_stored, 3), np.int32)
-            sr[:, 0] = n_out_pad  # padding rows: out of range, len 0
-            for j, run in enumerate(sruns):
-                sr[j] = run
-        else:
-            sr = np.zeros((1, 3), np.int32)
-        a["sr"] = sr
-        if l_pad is not None:
-            for k, name in enumerate(("lane_bit", "lane_out", "lane_uid",
-                                      "lane_valid")):
-                a[name] = np.zeros(l_pad, np.int32)
-                a[name][: lanes.shape[1]] = lanes[k]
+        words = np.zeros(s.nw, "<i4")
+        n = min(g.byte_hi - g.byte_lo, 4 * s.nw)
+        words.view(np.uint8)[:n] = np.frombuffer(body, np.uint8)[
+            g.byte_lo : g.byte_lo + n]
+        a = {"words": words}
+        u = len(g.start_bits)
+        for name, rows in zip(_DESC, (*g.ll, *g.d)):
+            a[name] = np.zeros((s.u_pad, rows.shape[1]), np.int32)
+            a[name][:u] = rows
+        for name, rows in (("start_bits", g.start_bits),
+                           ("out_bases", g.out_bases)):
+            a[name] = np.zeros(s.u_pad, np.int32)
+            a[name][:u] = rows
+        a["unit_valid"] = np.arange(s.u_pad) < u
+        a["sr"] = np.zeros((max(1, s.n_stored), 3), np.int32)
+        if s.n_stored:
+            a["sr"][:, 0] = s.n_out_pad
+            a["sr"][: len(g.sr)] = g.sr
+        if s.l_pad is not None:
+            lanes = np.zeros((4, s.l_pad), np.int32)
+            lanes[:, : g.lanes.shape[1]] = g.lanes
+            a.update(zip(_LANES, lanes))
         return a
 
 
@@ -526,6 +657,59 @@ def _device_result(group_out, total_out: int, tail: bytes, dev):
     return torch.cat([buf[_W : _W + go] for buf, go in group_out]), total_out
 
 
+def _decode_groups(body: bytes, plans, s: _Shape, dev, crc_expect,
+                   total_out: int, tail: bytes, to_device: bool, check):
+    """Both entries' decode of their planned groups, in order: stage,
+    upload, then the walk (or on the per-bit path _decode_all) and the
+    CRC-32 of the group's output unless crc_expect is None, each group's
+    last 32 KiB the next one's prefix. Then the CRC verdict, and either
+    the to_device result or the fetched bytes, held to the entry's
+    check(out), with a gzip tail decoded on the host appended."""
+    with_crc = crc_expect is not None
+    prefix = torch.zeros((_W,), dtype=torch.uint8, device=dev)
+    group_out: list[tuple[torch.Tensor, int]] = []  # (device buf, out bytes)
+    group_crc: list[torch.Tensor] = []
+    for g in plans:
+        with maybe_stage("decode_plan"):
+            staged = _stage_arrays(body, g, s)
+        arrs = _upload(staged, dev)
+        if s.l_pad is not None:
+            out_dev, crc_dev = _walk_all(
+                arrs, prefix, _W + g.go, s.n_out_pad, s.n_stored, s.t_steps,
+                with_crc=with_crc,
+            )
+        else:
+            with maybe_stage("decode_walk", dev):
+                out_dev = _decode_all(
+                    arrs["words"], *(arrs[k] for k in _DESC),
+                    arrs["start_bits"], arrs["out_bases"],
+                    arrs["unit_valid"], prefix, arrs["sr"],
+                    s.nbits, s.n_out_pad, s.max_sup_span, s.n_stored,
+                )
+            crc_dev = None
+            if with_crc:
+                with maybe_stage("decode_crc", dev):
+                    crc_dev = cs._crc32_impl(out_dev, _W + g.go, _W)
+        if with_crc:
+            group_crc.append(crc_dev)
+        group_out.append((out_dev, g.go))
+        # Last 32 KiB of output so far: positions [go, go+_W) of this
+        # buffer (its own [0,_W) prefix covers the short-output case).
+        prefix = out_dev[g.go : g.go + _W]
+
+    if with_crc:
+        _check_crc(group_crc, group_out, crc_expect)
+    if to_device:
+        return _device_result(group_out, total_out, tail, dev)
+    with maybe_stage("decode_fetch"):  # one device->host copy a group
+        out = b"".join(buf[_W : _W + go].cpu().numpy().tobytes()
+                       for buf, go in group_out if go)
+    check(out)
+    if tail:
+        out += inflate.decompress(tail, format="gzip")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Public entry: indexed gzip.
 # ---------------------------------------------------------------------------
@@ -539,7 +723,7 @@ def decompress_indexed(data: bytes, verify: bool = True,
     falls back). With to_device=True, returns (uint8 tensor on the
     decode device, length); the CRC is still verified on the device when
     verify=True. device=None means CUDA (RuntimeError without a card)."""
-    dev = _resolve_device(device)
+    dev = resolve_device(device)
     with maybe_stage("decode_plan"):
         with maybe_stage("decode_index"):
             parsed = containers.parse_gzip_index(data)
@@ -583,173 +767,57 @@ def decompress_indexed(data: bytes, verify: bool = True,
                     or member_len - header_len - 8 > (1 << 30)):
                 return None  # host-memory sanity cap; native fallback
 
-            out_sizes = [
-                min(chunk_bytes, max(0, total_out - i * chunk_bytes))
-                for i in range(nchunks)
-            ]
-            out_starts = [i * chunk_bytes for i in range(nchunks)]
+            sizes = np.array([sz for sz, _b, _a in chunks], np.int64)
+            cpos = np.r_[0, np.cumsum(sizes)]
+            out_starts = np.arange(nchunks, dtype=np.int64) * chunk_bytes
+            out_sizes = np.clip(total_out - out_starts, 0, chunk_bytes)
             body = data[header_len : member_len - 8]
 
-            # Partition chunks into groups bounded by body and output.
+            # Groups bounded by body and by chunk_bytes of output a chunk.
             if use_walk:
                 body_cap = _WGROUP_BODY
                 out_cap = max(_WGROUP_OUT, chunk_bytes)
             else:
                 body_cap = _GROUP_BODY
                 out_cap = max(_GROUP_OUT, chunk_bytes)
-            if any(sz > body_cap for sz, _b, _a in chunks):
+            if (sizes > body_cap).any():
                 return None  # one chunk exceeds a group; native fallback
-            cpos = [0]
-            for sz, _b, _a in chunks:
-                cpos.append(cpos[-1] + sz)
-            groups: list[tuple[int, int]] = []
-            lo = 0
-            for i in range(nchunks):
-                if (
-                    cpos[i + 1] - cpos[lo] > body_cap
-                    or (i + 1 - lo) * chunk_bytes > out_cap
-                ) and i > lo:
-                    groups.append((lo, i))
-                    lo = i
-            if lo < nchunks:
-                groups.append((lo, nchunks))
+            groups = _partition(cpos[:-1], cpos[1:], out_starts,
+                                out_starts + chunk_bytes, body_cap, out_cap)
 
-        # Host walk of every group's block headers (tiny descriptors).
-        plans = []
-        max_units = 1
-        max_stored = 0
-        max_lanes = 1
-        try:
-            for glo, ghi in groups:
-                g_out_lo = out_starts[glo]
-                units, sruns, uranges = _plan_units(
-                    body[cpos[glo] : cpos[ghi]],
-                    chunks[glo:ghi],
-                    [_W + out_starts[i] - g_out_lo for i in range(glo, ghi)],
-                    out_sizes[glo:ghi],
-                )
-                # Walk lanes: every block's first token + every index
-                # anchor (rebased into the group's bit/output spaces),
-                # each tagged with the unit whose tree decodes it.
-                lanes = None
-                if use_walk:
-                    parts = [np.zeros((3, 0), np.int64)]
-                    for ci in range(glo, ghi):
-                        ulo, uhi = uranges[ci - glo]
-                        if ulo == uhi:
-                            continue  # stored fallback: no token lanes
-                        ubit = np.array([units[u].bit
-                                         for u in range(ulo, uhi)], np.int64)
-                        parts.append(np.stack([
-                            ubit,
-                            [units[u].out_base for u in range(ulo, uhi)],
-                            np.arange(ulo, uhi)]))
-                        anc = np.array(chunks[ci][2], np.int64).reshape(-1, 2)
-                        abit = (cpos[ci] - cpos[glo]) * 8 + anc[:, 0]
-                        k = np.searchsorted(ubit, abit, side="right") - 1
-                        ok = k >= 0  # an anchor before any token: bogus
-                        parts.append(np.stack([
-                            abit[ok],
-                            _W + out_starts[ci] - g_out_lo + anc[ok, 1],
-                            ulo + k[ok]]))
-                    bit, out, uid = np.concatenate(parts, axis=1)
-                    # A crafted index can place an anchor exactly on a
-                    # block-first token: drop duplicate (bit, out) lanes
-                    # (first occurrence wins; duplicates walk the same).
-                    _, first = np.unique((bit << 32) | out, return_index=True)
-                    first.sort()
-                    lanes = _walk_lanes(bit[first], out[first], uid[first])
-                    max_lanes = max(max_lanes, lanes.shape[1])
-                plans.append((glo, ghi, units, sruns, lanes))
-                max_units = max(max_units, len(units))
-                max_stored = max(max_stored, len(sruns))
-        except (IndexError, struct.error) as e:
-            # Host header parsing ran off the segment: the index lied.
-            raise ValueError(f"corrupt indexed segment: {e}") from e
+            # Lanes past the blocks' first tokens: every index anchor,
+            # in body and (chunk_bytes a chunk) output space.
+            anchors = None
+            if use_walk:
+                n_anc = [len(a) for _sz, _b, a in chunks]
+                item = np.repeat(np.arange(nchunks), n_anc)
+                anc = np.array([x for _sz, _b, a in chunks for x in a],
+                               np.int64).reshape(-1, 2)
+                anchors = np.stack([cpos[item] * 8 + anc[:, 0],
+                                    out_starts[item] + anc[:, 1], item])
 
-        # Shared shapes for every group.
-        multi = len(groups) > 1
-        max_body = max((cpos[hi] - cpos[lo] for lo, hi in groups), default=0)
-        nbits = (
-            _GROUP_BITS if multi else max(_RR, _pow2(max_body * 8 + 16))
-        )
-        max_go = max(
-            (
-                out_starts[hi - 1] + out_sizes[hi - 1] - out_starts[lo]
-                for lo, hi in groups
-            ),
-            default=0,
-        )
-        n_out_pad = _pow2(_W + max(1, max_go))
-        u_pad = _pow2(max_units)
-        max_seg_bits = max((sz * 8 for sz, _b, _a in chunks), default=1)
-        max_sup_span = min(nbits // _RR, max_seg_bits // _RR + 2)
-        n_stored = _pow2(max_stored) if max_stored else 0
-        if use_walk:
-            nw = (body_cap if multi else _pow2(max(64, max_body))) // 4 + 2
-        else:
-            nw = nbits // 32 + 2
-        l_pad = _lane_bucket(max_lanes) if use_walk else None
-        t_steps = anchor_tokens + 2  # spacing + EOB + slack
+        def units_of(lo, hi, byte_lo, byte_hi, out_lo):
+            try:
+                return _plan_units(
+                    body[byte_lo:byte_hi], chunks[lo:hi],
+                    (_W + out_starts[lo:hi] - out_lo).tolist(),
+                    out_sizes[lo:hi].tolist())
+            except (IndexError, struct.error) as e:
+                # Host header parsing ran off the segment: the index lied.
+                raise ValueError(f"corrupt indexed segment: {e}") from e
 
-    prefix = torch.zeros((_W,), dtype=torch.uint8, device=dev)
-    group_out: list[tuple[torch.Tensor, int]] = []  # (device buf, out bytes)
-    group_crc: list[torch.Tensor] = []
-    for glo, ghi, units, sruns, lanes in plans:
-        go = out_starts[ghi - 1] + out_sizes[ghi - 1] - out_starts[glo]
-        with maybe_stage("decode_plan"):
-            staged = _stage_arrays(
-                body[cpos[glo] : cpos[ghi]], nw, u_pad, units, n_stored,
-                n_out_pad, sruns, l_pad, lanes,
-            )
-        arrs = _upload(staged, dev)
-        if use_walk:
-            out_dev, crc_dev = _walk_all(
-                arrs, prefix, _W + go, n_out_pad, n_stored, t_steps,
-                with_crc=verify,
-            )
-        else:
-            with maybe_stage("decode_walk", dev):
-                out_dev = _decode_all(
-                    arrs["words"], arrs["ll_first"], arrs["ll_cnt"],
-                    arrs["ll_off"], arrs["ll_sym"], arrs["d_first"],
-                    arrs["d_cnt"], arrs["d_off"], arrs["d_sym"],
-                    arrs["start_bits"], arrs["out_bases"],
-                    arrs["unit_valid"], prefix, arrs["sr"],
-                    nbits, n_out_pad, max_sup_span, n_stored,
-                )
-            crc_dev = None
-            if verify:
-                with maybe_stage("decode_crc", dev):
-                    crc_dev = cs._crc32_impl(out_dev, _W + go, _W)
-        if verify:
-            group_crc.append(crc_dev)
-        group_out.append((out_dev, go))
-        if (glo, ghi) != groups[-1]:
-            # Last 32 KiB of output so far: positions [go, go+_W) of this
-            # buffer (its own [0,_W) prefix covers the short-output case).
-            prefix = out_dev[go : go + _W]
+        plans = _plan_groups(groups, cpos[:-1], cpos[1:], out_starts,
+                             out_starts + out_sizes, units_of, anchors)
+        shape = _shape(plans, body_cap, anchor_tokens,
+                       None if use_walk else 8 * int(sizes.max(initial=0)))
 
-    if verify:
-        _check_crc(group_crc, group_out, crc_expect)
+    def check(out: bytes) -> None:
+        if verify and (len(out) & _M32) != (isize & _M32):
+            raise ValueError("isize mismatch (device inflate)")
 
-    if to_device:
-        return _device_result(group_out, total_out, tail, dev)
-
-    with maybe_stage("decode_fetch"):
-        out = b"".join(_fetch_bytes(buf, go, base=_W) for buf, go in group_out)
-    if verify and (len(out) & _M32) != (isize & _M32):
-        raise ValueError("isize mismatch (device inflate)")
-    if tail:
-        out += inflate.decompress(tail, format="gzip")
-    return out
-
-
-def _fetch_bytes(out_dev: torch.Tensor, total_out: int, base: int = 0) -> bytes:
-    """Device->host: one copy of [base, base + total_out)."""
-    if total_out == 0:
-        return b""
-    return out_dev[base : base + total_out].cpu().numpy().tobytes()
+    return _decode_groups(body, plans, shape, dev,
+                          crc_expect if verify else None, total_out, tail,
+                          to_device, check)
 
 
 # ---------------------------------------------------------------------------
@@ -772,7 +840,7 @@ def decompress_foreign(data: bytes, format: str = "gzip", verify: bool = True,
     group): the caller falls back to the host C decoder. The gzip CRC
     verifies on the device; the zlib Adler-32 on the host bytes (fetch
     path only). device=None means CUDA (RuntimeError without a card)."""
-    dev = _resolve_device(device)
+    dev = resolve_device(device)
     data = bytes(data)
     tail = b""
     crc_expect = isize = adler_expect = None
@@ -819,129 +887,32 @@ def decompress_foreign(data: bytes, format: str = "gzip", verify: bool = True,
                 raise ValueError("isize mismatch (device inflate)")
         if total_out > (1 << 30):
             return None
-        nb = len(blocks)
-        if nb == 0 or not (blocks[:, 1] != 0).any():
+        if len(blocks) == 0 or not (blocks[:, 1] != 0).any():
             return None  # all-stored stream: the host memcpy path wins
 
-        # Partition blocks into groups bounded like the indexed walk path.
-        out_cap = _WGROUP_OUT
-        body_cap = _WGROUP_BODY
-        out_ends = np.empty(nb, np.int64)
-        out_ends[:-1] = blocks[1:, 2]
-        out_ends[-1] = total_out
-        bit_ends = np.empty(nb, np.int64)
-        bit_ends[:-1] = blocks[1:, 0]
-        bit_ends[-1] = end_bit
-        if ((out_ends - blocks[:, 2]) > out_cap).any() or (
-            (bit_ends - blocks[:, 0]) // 8 > body_cap
+        # Groups bounded like the indexed walk path's, bit ends floored
+        # to bytes.
+        out_ends = np.r_[blocks[1:, 2], total_out]
+        bit_ends = np.r_[blocks[1:, 0], end_bit]
+        if ((out_ends - blocks[:, 2]) > _WGROUP_OUT).any() or (
+            (bit_ends - blocks[:, 0]) // 8 > _WGROUP_BODY
         ).any():
             return None  # one block exceeds a group
-        groups: list[tuple[int, int]] = []  # [lo, hi) block ranges
-        lo = 0
-        for i in range(nb):
-            if i > lo and (
-                (bit_ends[i] // 8 - blocks[lo, 0] // 8) > body_cap
-                or (out_ends[i] - blocks[lo, 2]) > out_cap
-            ):
-                groups.append((lo, i))
-                lo = i
-        if lo < nb:
-            groups.append((lo, nb))
+        groups = _partition(blocks[:, 0] // 8, bit_ends // 8, blocks[:, 2],
+                            out_ends, _WGROUP_BODY, _WGROUP_OUT)
+        item = np.searchsorted(blocks[:, 0], anchors[:, 0], side="right") - 1
+        plans = _plan_groups(
+            groups, blocks[:, 0] // 8, (bit_ends + 7) // 8, blocks[:, 2],
+            out_ends,
+            lambda lo, hi, byte_lo, _hi, out_lo: _block_units(
+                body, blocks[lo:hi], byte_lo, out_lo),
+            np.vstack([anchors.T, item]))
+        shape = _shape(plans, _WGROUP_BODY, T)
 
-        # Per group: units from block headers, stored runs, lanes (the
-        # indexed path's _plan_units work, under the same stage name).
-        plans = []
-        max_units = 1
-        max_stored = 0
-        max_lanes = 1
-        max_body = 0
-        max_go = 1
-        abit = anchors[:, 0]
-        for glo, ghi in groups:
-            with maybe_stage("decode_units"):
-                byte_lo = int(blocks[glo, 0] // 8)
-                byte_hi = int((bit_ends[ghi - 1] + 7) // 8)
-                out_lo = int(blocks[glo, 2])
-                go = int(out_ends[ghi - 1]) - out_lo
-                sruns: list[tuple[int, int, int]] = []
-                ustarts: list[int] = []  # each coded block's header bit
-                uouts: list[int] = []
-                for bi in range(glo, ghi):
-                    bit0, btype, ostart, aux0, aux1 = (
-                        int(v) for v in blocks[bi])
-                    if btype == 0:
-                        if aux1:
-                            sruns.append(
-                                (_W + ostart - out_lo, aux0 - byte_lo, aux1)
-                            )
-                        continue
-                    ustarts.append(bit0)
-                    uouts.append(_W + ostart - out_lo)
-                # Parse the headers at their absolute bits, then rebase.
-                with maybe_stage("decode_headers"):
-                    hdr_end, ll, d = native.parse_headers(body, ustarts,
-                                                          len(body))
-                ubit = hdr_end - 8 * byte_lo
-                uout = np.array(uouts, np.int64)
-                units = _units(ubit, uouts, ll, d)
-                # Lanes: every coded block's first token and every anchor,
-                # tagged with the unit whose block holds it.
-                a_lo = np.searchsorted(abit, blocks[glo, 0], side="left")
-                a_hi = np.searchsorted(abit, bit_ends[ghi - 1], side="left")
-                anc = anchors[a_lo:a_hi]
-                k = np.searchsorted(np.array(ustarts, np.int64), anc[:, 0],
-                                    side="right") - 1
-                ok = k >= 0
-                lanes = _walk_lanes(
-                    np.concatenate([ubit, anc[ok, 0] - 8 * byte_lo]),
-                    np.concatenate([uout, _W + anc[ok, 1] - out_lo]),
-                    np.concatenate([np.arange(len(units)), k[ok]]))
-                plans.append((byte_lo, byte_hi, go, units, sruns, lanes))
-                max_units = max(max_units, len(units))
-                max_stored = max(max_stored, len(sruns))
-                max_lanes = max(max_lanes, lanes.shape[1])
-                max_body = max(max_body, byte_hi - byte_lo)
-                max_go = max(max_go, go)
-
-        multi = len(plans) > 1
-        n_out_pad = _pow2(_W + max_go)
-        u_pad = _pow2(max_units)
-        n_stored = _pow2(max_stored) if max_stored else 0
-        nw = (body_cap if multi else _pow2(max(64, max_body))) // 4 + 2
-        l_pad = _lane_bucket(max_lanes)
-        t_steps = T + 2
-
-    with_crc = verify and format == "gzip"
-    prefix = torch.zeros((_W,), dtype=torch.uint8, device=dev)
-    group_out: list[tuple[torch.Tensor, int]] = []
-    group_crc: list[torch.Tensor] = []
-    for byte_lo, byte_hi, go, units, sruns, lanes in plans:
-        with maybe_stage("decode_plan"):
-            staged = _stage_arrays(
-                body[byte_lo:byte_hi], nw, u_pad, units, n_stored,
-                n_out_pad, sruns, l_pad, lanes,
-            )
-        arrs = _upload(staged, dev)
-        out_dev, crc_dev = _walk_all(
-            arrs, prefix, _W + go, n_out_pad, n_stored, t_steps,
-            with_crc=with_crc,
-        )
-        if with_crc:
-            group_crc.append(crc_dev)
-        group_out.append((out_dev, go))
-        prefix = out_dev[go : go + _W]
-
-    if with_crc:
-        _check_crc(group_crc, group_out, crc_expect)
-
-    if to_device:
-        return _device_result(group_out, total_out, tail, dev)
-
-    with maybe_stage("decode_fetch"):
-        out = b"".join(_fetch_bytes(buf, go, base=_W) for buf, go in group_out)
-    if verify and format == "zlib":
-        if native.adler32(out) != adler_expect:
+    def check(out: bytes) -> None:
+        if verify and format == "zlib" and native.adler32(out) != adler_expect:
             raise ValueError("adler32 mismatch (device inflate)")
-    if tail:
-        out += inflate.decompress(tail, format="gzip")
-    return out
+
+    return _decode_groups(body, plans, shape, dev,
+                          crc_expect if verify else None, total_out, tail,
+                          to_device, check)

@@ -36,8 +36,9 @@ import torch
 import torch.distributed as dist
 
 from zzflate_tpu_torch import config as cfg_mod
-from zzflate_tpu_torch.api import _rank_device, _stream_checksums
+from zzflate_tpu_torch.api import _stream_checksums
 from zzflate_tpu_torch.config import CodecConfig
+from zzflate_tpu_torch.devices import rank_device
 from zzflate_tpu_torch.encode_pipeline import encode_segments
 from zzflate_tpu_torch.ops.checksums import adler32_combine, crc32_combine
 from zzflate_tpu_torch.utils import containers
@@ -140,7 +141,7 @@ def compress_multihost(
     local_data = bytes(local_data)
     config = CodecConfig(level=level, format=format, chunk_bytes=chunk_bytes)
     pid, nproc = _world()
-    dev = _rank_device(device, pid)
+    dev = rank_device(device, pid)
 
     # Halo: every process publishes its 32 KiB tail; process i seeds its
     # first chunk with process i-1's.

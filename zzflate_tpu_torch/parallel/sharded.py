@@ -26,8 +26,9 @@ from __future__ import annotations
 import torch
 
 from zzflate_tpu_torch import config as cfg_mod
-from zzflate_tpu_torch.api import _check_options, _compress_on, _resolve_device
+from zzflate_tpu_torch.api import _check_options, _compress_on
 from zzflate_tpu_torch.config import CodecConfig
+from zzflate_tpu_torch.devices import resolve_device
 
 
 def make_mesh(devices=None) -> list[torch.device]:
@@ -36,10 +37,10 @@ def make_mesh(devices=None) -> list[torch.device]:
     devices as they are (e.g. ["cpu"] * 8; a bare "cuda" is the current
     card)."""
     if devices is None:
-        _resolve_device(None)
+        resolve_device(None)
         return [torch.device("cuda", i)
                 for i in range(torch.cuda.device_count())]
-    return [_resolve_device(d) for d in devices]
+    return [resolve_device(d) for d in devices]
 
 
 def compress_sharded(

@@ -25,8 +25,8 @@ import numpy as np
 
 from zzflate_tpu_torch import config as cfg_mod
 from zzflate_tpu_torch import native
-from zzflate_tpu_torch.api import _resolve_device
 from zzflate_tpu_torch.config import CodecConfig
+from zzflate_tpu_torch.devices import resolve_device
 from zzflate_tpu_torch.encode_pipeline import encode_segments
 from zzflate_tpu_torch.utils import containers
 
@@ -72,7 +72,7 @@ class Compressor:
             raise ValueError(f"unknown engine {engine!r}")
         self._engine = engine
         self._device_arg = device
-        self._device = _resolve_device(device) if engine == "device" else None
+        self._device = resolve_device(device) if engine == "device" else None
         self._dictionary = dictionary
         self._window: bytes = (dictionary or b"")[-_WINDOW:]
         self._buf = bytearray()
@@ -172,7 +172,7 @@ class Compressor:
             return out
         # The C encoder has no unframed mode: every engine takes the
         # pipeline here (as the reference's stream does).
-        dev = self._device or _resolve_device(self._device_arg)
+        dev = self._device or resolve_device(self._device_arg)
         out = bytearray()
         for seg, nbits in encode_segments(
             payload, self.config, self._window or None, [dev],

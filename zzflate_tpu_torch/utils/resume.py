@@ -16,8 +16,8 @@ import os
 
 from zzflate_tpu_torch import config as cfg_mod
 from zzflate_tpu_torch import native
-from zzflate_tpu_torch.api import _resolve_device
 from zzflate_tpu_torch.config import CodecConfig
+from zzflate_tpu_torch.devices import resolve_device
 from zzflate_tpu_torch.encode_pipeline import encode_segments
 from zzflate_tpu_torch.ops.checksums import adler32_combine, crc32_combine
 from zzflate_tpu_torch.utils import containers
@@ -43,7 +43,7 @@ def compress_to_dir(
     after a crash or a lost file encodes only what is missing. `device`
     as in ``api.compress`` (None means CUDA and raises RuntimeError
     without a card). Returns the manifest."""
-    dev = _resolve_device(device)
+    dev = resolve_device(device)
     os.makedirs(outdir, exist_ok=True)
     mpath = os.path.join(outdir, _MANIFEST)
     manifest = {
