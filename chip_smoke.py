@@ -586,9 +586,8 @@ def optimal_report(torch, kernels, timer, real, data, n: int) -> dict:
                                 stream_final=True)
 
     def pass1():
-        return [huffman_host.build_chunk_plan(
-            freqs[j, :, :288], freqs[j, :, 288:], bfinal=0)
-            for j in range(nchunks)]
+        return huffman_host.build_batch_plans(
+            freqs[..., :288], freqs[..., 288:], [0] * nchunks)
 
     def card(plans):
         return encode_policy.optimal_override_card(ctx, plans, ana,

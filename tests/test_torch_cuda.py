@@ -1176,10 +1176,9 @@ def test_optimal_override_on_card_equals_cpu_path(case, chunk):
     freqs = ana["freqs"].cpu().numpy()
 
     def pass1():
-        return [huffman_host.build_chunk_plan(
-            freqs[j, :, :288], freqs[j, :, 288:],
-            bfinal=int(j == nchunks - 1), fixed_only=fixed_only)
-            for j in range(rows_n)]
+        return huffman_host.build_batch_plans(
+            freqs[..., :288], freqs[..., 288:],
+            [int(j == nchunks - 1) for j in range(rows_n)], fixed_only=fixed_only)
     ctx = types.SimpleNamespace(nchunks=nchunks, fixed_only=fixed_only,
                                 stream_final=True)
     host = {k: v.cpu() for k, v in ana.items()}

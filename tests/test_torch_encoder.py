@@ -2,6 +2,8 @@
 
 Phase 1 (analyze_chunks_batch): every key of the output dict is equal
 (at levels 7-9 also mm_packed, the DP's packed candidates).
+The plans: the port's C batch plan (huffman_host.build_batch_plans)
+equals the reference's build_chunk_plan on every key of that analysis.
 Phase 2 (emit_chunks_batch): fed the JAX analysis through
 zzflate_tpu_torch.interop, so a mismatch is the emit's alone; compact
 and full-width, with and without anchors, with one and with two
@@ -22,6 +24,7 @@ from zzflate_tpu.ops import huffman_host as jax_huffman_host
 from zzflate_tpu_torch import interop
 from zzflate_tpu_torch.encode_pipeline import build_chunk_batch
 from zzflate_tpu_torch.models import deflate_encoder as enc
+from zzflate_tpu_torch.ops import huffman_host
 from zzflate_tpu_torch.utils.corpus import mixed_corpus
 
 # The test processes share the CPU. With torch's default intra-op pool in
@@ -84,33 +87,46 @@ def test_analyze_equals_reference(small, ref_l6, level, kw):
         np.testing.assert_array_equal(got[k].numpy(), exp[k], err_msg=k)
 
 
+_PLAN_KEYS = ("ll_len", "ll_code", "d_len", "d_code", "hdr_vals",
+              "hdr_nbits", "eob_v", "eob_nb")
+
+
 def _plans(ana, nchunks):
+    """The reference's plans (build_chunk_plan a chunk) and the port's
+    (build_batch_plans, the C plan, for the batch), held equal on every
+    key."""
     freqs = ana["freqs"]
-    return [
+    bfinal = [int(j == nchunks - 1) for j in range(nchunks)]
+    ref = [
         jax_huffman_host.build_chunk_plan(
-            freqs[j, :, :288], freqs[j, :, 288:],
-            bfinal=int(j == nchunks - 1),
+            freqs[j, :, :288], freqs[j, :, 288:], bfinal=bfinal[j],
         )
         for j in range(nchunks)
     ]
+    port = huffman_host.build_batch_plans(
+        freqs[:nchunks, :, :288], freqs[:nchunks, :, 288:], bfinal)
+    for p, e in zip(port, ref, strict=True):
+        assert p["groups"] == e["groups"]
+        for k in _PLAN_KEYS:
+            np.testing.assert_array_equal(p[k], e[k], err_msg=k)
+    return ref, port
 
 
 def _emit_both(ana, plans, chunk_bytes, with_anchors, compact_tokens):
+    """plans: _plans' pair; the reference emits from its own, the port
+    from the C plan."""
+    ref_plans, port_plans = plans
     out_words = enc.output_words_bound(chunk_bytes)
     slots = enc.token_budget(chunk_bytes) if compact_tokens else 0
-    tables = {k: np.stack([p[k] for p in plans]) for k in (
-        "ll_len", "ll_code", "d_len", "d_code", "hdr_vals", "hdr_nbits",
-        "eob_v", "eob_nb")}
-    kbm = np.full(len(plans), 8 * chunk_bytes, np.int32)
+    tables = {k: np.stack([p[k] for p in ref_plans]) for k in _PLAN_KEYS}
+    kbm = np.full(len(ref_plans), 8 * chunk_bytes, np.int32)
     exp = jax_enc.emit_chunks_batch(
         {k: jnp.asarray(v) for k, v in ana.items()}, out_words,
-        *(jnp.asarray(tables[k]) for k in (
-            "ll_len", "ll_code", "d_len", "d_code", "hdr_vals", "hdr_nbits",
-            "eob_v", "eob_nb")),
+        *(jnp.asarray(tables[k]) for k in _PLAN_KEYS),
         keep_bits_max=jnp.asarray(kbm), with_anchors=with_anchors,
         compact=True, token_slots=slots,
     )
-    t = interop.plan_stack(plans, "cpu")
+    t = interop.plan_stack(port_plans, "cpu")
     got = enc.emit_chunks_batch(
         interop.analysis_from_numpy(ana, "cpu"), out_words,
         t["ll_len"], t["ll_code"], t["d_len"], t["d_code"], t["hdr_vals"],

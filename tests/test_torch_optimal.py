@@ -26,6 +26,7 @@ from zzflate_tpu.models import deflate_encoder as jax_enc
 from zzflate_tpu.ops import huffman_host as jax_huffman_host
 from zzflate_tpu_torch import encode_policy, native
 from zzflate_tpu_torch.encode_pipeline import build_chunk_batch
+from zzflate_tpu_torch.ops import huffman_host
 from zzflate_tpu_torch.utils.corpus import mixed_corpus
 
 # The test processes share the CPU. With torch's default intra-op pool in
@@ -101,7 +102,6 @@ def test_window_bits_bound_the_dp_distances():
     sees them, so every distance the DP takes fits 512 bytes."""
     from zzflate_tpu_torch.config import LEVELS
     from zzflate_tpu_torch.models import deflate_encoder as enc
-    from zzflate_tpu_torch.ops import huffman_host
 
     buf, vends, wstarts, nchunks = build_chunk_batch(DATA, CHUNK, None)
     starts = np.full(nchunks, 32768, np.int32)
@@ -110,9 +110,8 @@ def test_window_bits_bound_the_dp_distances():
         LEVELS[9], max_dist=512,
     )
     freqs = ana["freqs"].numpy()
-    plans = [huffman_host.build_chunk_plan(freqs[j, :, :288],
-                                           freqs[j, :, 288:], bfinal=0)
-             for j in range(nchunks)]
+    plans = huffman_host.build_batch_plans(freqs[..., :288],
+                                           freqs[..., 288:], [0] * nchunks)
     ctx = types.SimpleNamespace(nchunks=nchunks, fixed_only=False,
                                 stream_final=True, device=torch.device("cpu"))
     got, _ = encode_policy.optimal_override(
@@ -223,20 +222,23 @@ def test_optimal_override_equals_reference(fixed_only, nreal):
     freqs = np.asarray(ana["freqs"])
     bfinals = np.array([int(j == nreal - 1) for j in range(ROWS)])
 
-    def pass1():
-        return [jax_huffman_host.build_chunk_plan(
-            freqs[j, :, :288], freqs[j, :, 288:], bfinal=int(bfinals[j]),
-            fixed_only=fixed_only) for j in range(ROWS)]
-
     ref_ctx = types.SimpleNamespace(bsz=ROWS, fixed_only=fixed_only,
                                     single_block_chunks=False, sharding=None)
-    ref_plans = pass1()
+    ref_plans = [jax_huffman_host.build_chunk_plan(
+        freqs[j, :, :288], freqs[j, :, 288:], bfinal=int(bfinals[j]),
+        fixed_only=fixed_only) for j in range(ROWS)]
+    # The port's pass 1 is its C batch plan, equal to the reference's.
+    plans = huffman_host.build_batch_plans(
+        freqs[..., :288], freqs[..., 288:], bfinals, fixed_only=fixed_only)
+    for p, e in zip(plans, ref_plans):
+        for k in _PLAN_KEYS:
+            np.testing.assert_array_equal(p[k], e[k], err_msg=k)
+        assert p["groups"] == e["groups"]
     ref_ana = dict(ana, _host_buf=buf, _host_valid_ends=vends)
     exp, exp_ntok = jax_policy.optimal_override(ref_ctx, ref_plans, ref_ana,
                                                 bfinals, 0, nreal)
     ctx = types.SimpleNamespace(nchunks=nreal, fixed_only=fixed_only,
                                 stream_final=True, device=torch.device("cpu"))
-    plans = pass1()
     port_ana = {k: torch.as_tensor(np.array(ana[k]))
                 for k in ("dcode", "mdist")}
     got, ntok = encode_policy.optimal_override(

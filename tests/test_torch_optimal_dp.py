@@ -212,10 +212,9 @@ def _analysis(data, level, **kw):
     fixed_only = kw.get("strategy") == 4
 
     def pass1():
-        return [huffman_host.build_chunk_plan(
-            freqs[j, :, :288], freqs[j, :, 288:],
-            bfinal=int(j == nchunks - 1), fixed_only=fixed_only)
-            for j in range(ROWS)]
+        return huffman_host.build_batch_plans(
+            freqs[..., :288], freqs[..., 288:],
+            [int(j == nchunks - 1) for j in range(ROWS)], fixed_only=fixed_only)
     ctx = types.SimpleNamespace(nchunks=nchunks, fixed_only=fixed_only,
                                 stream_final=True)
     return ctx, ana, rows, buf, vends, pass1

@@ -240,14 +240,11 @@ def _plan_and_emit(ctx: _Ctx, sl, parts):
         freq_ll = freqs[..., :288]
         freq_d = freqs[..., 288:]
     with maybe_stage("host_plan"):
-        plans = [
-            huffman_host.build_chunk_plan(
-                freq_ll[j], freq_d[j],
-                bfinal=int(policy.is_final(ctx, b0 + j)),
-                fixed_only=ctx.fixed_only,
-            )
-            for j in range(ctx.bsz)
-        ]
+        plans = huffman_host.build_batch_plans(
+            freq_ll, freq_d,
+            [int(policy.is_final(ctx, b0 + j)) for j in range(ctx.bsz)],
+            fixed_only=ctx.fixed_only,
+        )
     ntok_rows = freq_ll.sum(axis=(1, 2))
     kbm = policy.keep_bits_budget(ctx, b0, b1)
     # Token-compacted emit when every committed token count of a device's

@@ -127,6 +127,8 @@ def optimal_override(ctx, plans, ana, mm_packed, buf, valid_ends, b0: int):
     mdist = mm_packed & 0xFFFF
     bounds = deflate_encoder.sub_block_bounds(nn)
     sbn = len(bounds) - 1
+    fll = np.zeros((bsz, sbn, C.NUM_LITLEN_SYMBOLS), np.int64)
+    fd = np.zeros((bsz, sbn, C.NUM_DIST_SYMBOLS), np.int64)
     com_b = np.zeros((bsz, nn), bool)
     take_b = np.zeros((bsz, nn), bool)
     sel_b = np.zeros((bsz, nn), np.int32)
@@ -145,18 +147,17 @@ def optimal_override(ctx, plans, ana, mm_packed, buf, valid_ends, b0: int):
         # Distance codes of the taken matches only.
         tk = np.flatnonzero(take)
         dcode = np.searchsorted(C.DIST_BASE, mdist[j, tk], side="right") - 1
-        fll = np.zeros((sbn, C.NUM_LITLEN_SYMBOLS), np.int64)
-        fd = np.zeros((sbn, C.NUM_DIST_SYMBOLS), np.int64)
         for b in range(sbn):
             s, e = bounds[b], bounds[b + 1]
-            fll[b] = np.bincount(sym_b[j, s:e][com[s:e]],
-                                 minlength=C.NUM_LITLEN_SYMBOLS)
-            fd[b] = np.bincount(dcode[(tk >= s) & (tk < e)],
-                                minlength=C.NUM_DIST_SYMBOLS)
-        plans[j] = huffman_host.build_chunk_plan(
-            fll, fd, bfinal=int(is_final(ctx, b0 + j)),
-            fixed_only=ctx.fixed_only,
-        )
+            fll[j, b] = np.bincount(sym_b[j, s:e][com[s:e]],
+                                    minlength=C.NUM_LITLEN_SYMBOLS)
+            fd[j, b] = np.bincount(dcode[(tk >= s) & (tk < e)],
+                                   minlength=C.NUM_DIST_SYMBOLS)
+    # Each row's DP above read its own pass-1 plan; all are rebuilt now.
+    plans[:] = huffman_host.build_batch_plans(
+        fll, fd, [int(is_final(ctx, b0 + j)) for j in range(bsz)],
+        fixed_only=ctx.fixed_only,
+    )
 
     dev = ana["dcode"].device
 
@@ -229,12 +230,11 @@ def optimal_override_card(ctx, plans, ana, rows, b0: int):
                                                 take)["freqs"]
         freqs = freqs.cpu().numpy().astype(np.int64)
     ntok = int(freqs[:, :, :C.NUM_LITLEN_SYMBOLS].sum(axis=(1, 2)).max())
-    for j in range(len(plans)):
-        plans[j] = huffman_host.build_chunk_plan(
-            freqs[j, :, :C.NUM_LITLEN_SYMBOLS],
-            freqs[j, :, C.NUM_LITLEN_SYMBOLS:],
-            bfinal=int(is_final(ctx, b0 + j)), fixed_only=ctx.fixed_only,
-        )
+    plans[:] = huffman_host.build_batch_plans(
+        freqs[:, :, :C.NUM_LITLEN_SYMBOLS], freqs[:, :, C.NUM_LITLEN_SYMBOLS:],
+        [int(is_final(ctx, b0 + j)) for j in range(len(plans))],
+        fixed_only=ctx.fixed_only,
+    )
     override = {
         "committed": committed,
         "is_match": take,

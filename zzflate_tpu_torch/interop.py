@@ -63,7 +63,7 @@ def analysis_from_numpy(d: dict, device) -> dict:
 
 
 def plan_stack(plans: list, device) -> dict:
-    """Stack per-chunk host plans (huffman_host.build_chunk_plan) into
+    """Stack per-chunk host plans (huffman_host.build_batch_plans) into
     (B, SB, ...) tensors on `device`, as emit_chunks_batch takes them."""
     return {
         k: torch.as_tensor(

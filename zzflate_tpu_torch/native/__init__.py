@@ -1,14 +1,14 @@
 """ctypes binding of the port's C runtime: host inflate, the anchor
 pre-scan of foreign streams, the block-header parse of the device
-decode's plan, the level 7-9 shortest-bit-path DP, the host deflate
-engine and Adler-32/CRC-32.
+decode's plan, the encoder's host Huffman plan, the level 7-9
+shortest-bit-path DP, the host deflate engine and Adler-32/CRC-32.
 
 The port's own copy of the JAX package's ``native/__init__.py``
-(:72-439) plus ``parse_headers``, bound to the port's own copy of the C
-source, ``zzflate_native.c`` beside this file. At first use the host C
-compiler builds it (``-O3 -shared -fPIC``) into
-``zzflate_tpu_torch/_build/`` under a name keyed on a hash of the source
-and flags, so an edited source rebuilds by itself. There is no fallback:
+(:72-439) plus ``parse_headers``, ``plan_lengths`` and ``plan_header``,
+bound to the port's own copy of the C source, ``zzflate_native.c``
+beside this file. At first use the host C compiler builds it (``-O3
+-shared -fPIC``) into ``zzflate_tpu_torch/_build/`` under a name keyed on
+a hash of the source and flags, so an edited source rebuilds by itself. There is no fallback:
 a missing compiler or a failed build raises RuntimeError with the
 compiler's output, and no wrapper returns None.
 """
@@ -57,6 +57,9 @@ HEADER_ERRORS = {
     -9: "repeat with no previous length",
     -10: "code length overrun",
 }
+# zzt_plan_header's code: a dynamic header needs more fields than a row of
+# hdr_vals holds.
+E_FIELDS = -11
 
 
 def library_path() -> Path:
@@ -123,9 +126,17 @@ def lib() -> ctypes.CDLL:
             # d_sym, failed
             L.zzt_parse_headers.argtypes = [
                 ctypes.c_char_p, sz, p, p, sz, p, p, p, p, psz]
+            # ng, freq_ll, freq_d, ll_len, d_len, body
+            L.zzt_plan_lengths.argtypes = [sz, p, p, p, p, p]
+            # ng, ll_dyn, d_dyn, body, bfinal, bounds, slots, ll_len,
+            # ll_code, d_len, d_code, hdr_vals, hdr_nbits, eob_v, eob_nb,
+            # nfields
+            L.zzt_plan_header.argtypes = [sz, p, p, p, p, p, sz, p, p, p, p,
+                                          p, p, p, p, psz]
             for fn in (L.zzt_inflate, L.zzt_inflate_stream,
                        L.zzt_optimal_parse, L.zzt_deflate,
-                       L.zzt_scan_anchors, L.zzt_parse_headers):
+                       L.zzt_scan_anchors, L.zzt_parse_headers,
+                       L.zzt_plan_lengths, L.zzt_plan_header):
                 fn.restype = ctypes.c_int
             # value, buf, len
             for fn in (L.zzt_adler32, L.zzt_crc32):
@@ -301,6 +312,74 @@ def parse_headers(body: bytes, start_bits, end_bytes):
     if rc != OK:
         raise ValueError(HEADER_ERRORS.get(rc, f"header error {rc}"))
     return hdr_end, (*desc[:3], ll_sym), (*desc[3:], d_sym)
+
+
+def plan_lengths(freq_ll, freq_d):
+    """The dynamic code lengths of ng block groups in one call: the
+    forcing rules of the reference's ``ops/huffman_host.build_tables`` and
+    its two ``code_lengths`` at 15 bits. freq_ll (ng, 288), freq_d (ng,
+    30): each group's summed histograms, EOB not yet counted. Returns
+    (ll_len (ng, 288) int32, d_len (ng, 30) int32, body (ng, 2) int64: the
+    body's bits under the fixed and under the dynamic codes)."""
+    freq_ll = np.ascontiguousarray(freq_ll, np.int64)
+    freq_d = np.ascontiguousarray(freq_d, np.int64)
+    ng = len(freq_ll)
+    if freq_ll.shape != (ng, 288) or freq_d.shape != (ng, 30):
+        raise ValueError("plan_lengths: array shapes do not agree")
+    ll_len = np.empty((ng, 288), np.int32)
+    d_len = np.empty((ng, 30), np.int32)
+    body = np.empty((ng, 2), np.int64)
+    lib().zzt_plan_lengths(ng, freq_ll.ctypes.data, freq_d.ctypes.data,
+                           ll_len.ctypes.data, d_len.ctypes.data,
+                           body.ctypes.data)
+    return ll_len, d_len, body
+
+
+def plan_header(lengths, bfinal, bounds, slots: int) -> dict:
+    """The tables of ng block groups in one call, as
+    ``ops/huffman_host.build_batch_plans`` lays them out: group g covers
+    rows [bounds[g], bounds[g + 1]) of the batch's sub-blocks. lengths:
+    plan_lengths' result, or None for the fixed codes in every group;
+    bfinal (ng,): each group's BFINAL bit. Returns the (R, ...) arrays
+    ll_len/ll_code (R, 288), d_len/d_code (R, 30), hdr_vals/hdr_nbits (R,
+    slots), eob_v/eob_nb (R,): the chosen lengths and codes on every row,
+    the header on a group's first row, its EOB on its last. Raises
+    ValueError when a dynamic header needs more than `slots` fields."""
+    bounds = np.ascontiguousarray(bounds, np.int64)
+    bfinal = np.ascontiguousarray(bfinal, np.int64)
+    ng = len(bounds) - 1
+    rows = int(bounds[-1])
+    if bfinal.shape != (ng,):
+        raise ValueError("plan_header: array shapes do not agree")
+    if lengths is None:
+        ll_dyn = d_dyn = body = None
+    else:
+        ll_dyn, d_dyn, body = (np.ascontiguousarray(a) for a in lengths)
+        if (ll_dyn.shape != (ng, 288) or d_dyn.shape != (ng, 30)
+                or body.shape != (ng, 2)):
+            raise ValueError("plan_header: array shapes do not agree")
+    out = {
+        "ll_len": np.zeros((rows, 288), np.int32),
+        "ll_code": np.zeros((rows, 288), np.uint32),
+        "d_len": np.zeros((rows, 30), np.int32),
+        "d_code": np.zeros((rows, 30), np.uint32),
+        "hdr_vals": np.zeros((rows, slots), np.uint32),
+        "hdr_nbits": np.zeros((rows, slots), np.int32),
+        "eob_v": np.zeros((rows,), np.uint32),
+        "eob_nb": np.zeros((rows,), np.int32),
+    }
+    nfields = ctypes.c_size_t(0)
+    rc = lib().zzt_plan_header(
+        ng, *(None if a is None else a.ctypes.data
+              for a in (ll_dyn, d_dyn, body)),
+        bfinal.ctypes.data, bounds.ctypes.data, slots,
+        *(a.ctypes.data for a in out.values()), ctypes.byref(nfields),
+    )
+    if rc == E_FIELDS:
+        raise ValueError(f"dynamic header needs {nfields.value} fields")
+    if rc != OK:
+        raise RuntimeError(f"zzt_plan_header failed: {rc}")
+    return out
 
 
 def optimal_parse(data, mlen, mdist, start, end, ll_bits, d_bits, bounds):

@@ -1,6 +1,7 @@
 /* zzflate_tpu native runtime: fast host-side inflate + checksums.
- * zzflate_tpu_torch's own copy: the JAX package's file plus this line and
- * zzt_parse_headers (the block headers of the device decode's plan).
+ * zzflate_tpu_torch's own copy: the JAX package's file plus this line,
+ * zzt_parse_headers (the block headers of the device decode's plan) and
+ * zzt_plan_lengths/zzt_plan_header (the encoder's host Huffman plan).
  *
  * A from-scratch table-driven raw-DEFLATE decoder (RFC 1951) plus
  * Adler-32/CRC-32, written for the host side of the TPU codec: the device
@@ -814,6 +815,320 @@ int zzt_parse_headers(const uint8_t *in, size_t in_len,
       *failed = k;
       return rc;
     }
+  }
+  return ZZT_OK;
+}
+
+/* ---------------- host Huffman plan ----------------
+ * The encoder's tables for every block group of a batch in two calls
+ * (ops/huffman_host.build_batch_plans): zzt_plan_lengths, the forcing
+ * rules and the dynamic code lengths; zzt_plan_header, the header, the
+ * dynamic-or-fixed choice and the codes. Each step follows the reference's
+ * zzflate_tpu/ops/huffman_host.build_tables and code_lengths, so the
+ * arrays equal its own bit for bit: a binary min-heap on the unique keys (weight, id),
+ * leaves numbered in symbol order and internal nodes from nsyms up, depths
+ * assigned top-down, the clamp and the Kraft repair, then the lengths
+ * handed out by (freq asc, sym asc). zh_lengths (the host engine's) builds
+ * by another rule and is not used here. */
+
+#define ZZT_E_FIELDS (-11) /* the dynamic header needs more than `slots` */
+
+typedef struct {
+  int64_t w;
+  int32_t id;
+} pl_node_t;
+
+static inline int pl_less(pl_node_t a, pl_node_t b) {
+  return a.w < b.w || (a.w == b.w && a.id < b.id);
+}
+
+static void pl_sift_down(pl_node_t *h, int n, int i) {
+  pl_node_t x = h[i];
+  for (;;) {
+    int c = 2 * i + 1;
+    if (c >= n) break;
+    if (c + 1 < n && pl_less(h[c + 1], h[c])) c++;
+    if (!pl_less(h[c], x)) break;
+    h[i] = h[c];
+    i = c;
+  }
+  h[i] = x;
+}
+
+static pl_node_t pl_pop(pl_node_t *h, int *n) {
+  pl_node_t top = h[0];
+  h[0] = h[--*n];
+  pl_sift_down(h, *n, 0);
+  return top;
+}
+
+static void pl_push(pl_node_t *h, int *n, pl_node_t x) {
+  int i = (*n)++;
+  while (i > 0 && pl_less(x, h[(i - 1) / 2])) {
+    h[i] = h[(i - 1) / 2];
+    i = (i - 1) / 2;
+  }
+  h[i] = x;
+}
+
+typedef struct {
+  int64_t f;
+  int32_t s;
+} pl_leaf_t;
+
+static int pl_leaf_cmp(const void *a, const void *b) {
+  const pl_leaf_t *x = (const pl_leaf_t *)a, *y = (const pl_leaf_t *)b;
+  if (x->f != y->f) return x->f < y->f ? -1 : 1;
+  return x->s < y->s ? -1 : x->s > y->s;
+}
+
+/* The reference's code_lengths: lengths of at most max_len (<= 15) bits for
+ * the n <= 288 symbols of freq. */
+static void pl_code_lengths(const int64_t *freq, int n, int max_len,
+                            int32_t *len) {
+  int32_t syms[288], kid[287][2], depth[2 * 288];
+  pl_node_t heap[288];
+  pl_leaf_t leaf[288];
+  int64_t bl_count[16] = {0}, kraft = 0;
+  int ns = 0, hn, nxt, i, l;
+  for (i = 0; i < n; i++) {
+    len[i] = 0;
+    if (freq[i] != 0) syms[ns++] = i;
+  }
+  if (ns == 0) return;
+  if (ns == 1) {
+    len[syms[0]] = 1;
+    return;
+  }
+  for (i = 0; i < ns; i++) {
+    heap[i].w = freq[syms[i]];
+    heap[i].id = i;
+  }
+  hn = ns;
+  for (i = ns / 2 - 1; i >= 0; i--) pl_sift_down(heap, hn, i);
+  for (nxt = ns; hn > 1; nxt++) {
+    pl_node_t a = pl_pop(heap, &hn), b = pl_pop(heap, &hn), m;
+    kid[nxt - ns][0] = a.id;
+    kid[nxt - ns][1] = b.id;
+    m.w = a.w + b.w;
+    m.id = nxt;
+    pl_push(heap, &hn, m);
+  }
+  depth[nxt - 1] = 0;
+  for (i = nxt - 1; i >= ns; i--)
+    depth[kid[i - ns][0]] = depth[kid[i - ns][1]] = depth[i] + 1;
+  /* The clamped multiset and its Kraft sum in units of 2^-max_len. */
+  for (i = 0; i < ns; i++) {
+    int d = depth[i] < max_len ? depth[i] : max_len;
+    bl_count[d]++;
+    kraft += (int64_t)1 << (max_len - d);
+  }
+  while (kraft > ((int64_t)1 << max_len)) {
+    int bits = 0;
+    for (l = max_len - 1; l >= 1 && !bits; l--)
+      if (bl_count[l] > 0) bits = l;
+    if (!bits) break; /* unreachable: ns <= 288 < 2^max_len */
+    bl_count[bits]--;
+    bl_count[bits + 1] += 2;
+    bl_count[max_len]--;
+    kraft--;
+  }
+  for (i = 0; i < ns; i++) {
+    leaf[i].f = freq[syms[i]];
+    leaf[i].s = syms[i];
+  }
+  qsort(leaf, (size_t)ns, sizeof(pl_leaf_t), pl_leaf_cmp);
+  for (i = 0, l = max_len; l >= 1; l--) {
+    int64_t c;
+    for (c = 0; c < bl_count[l]; c++) len[leaf[i++].s] = l;
+  }
+}
+
+/* The reference's canonical_codes_lsb: canonical codes, bit-reversed. */
+static void pl_codes_lsb(const int32_t *len, int n, uint32_t *code) {
+  uint32_t bl_count[16] = {0}, next[16], c = 0;
+  int s, b;
+  for (s = 0; s < n; s++) bl_count[len[s]]++;
+  bl_count[0] = 0;
+  for (b = 1; b <= 15; b++) {
+    c = (c + bl_count[b - 1]) << 1;
+    next[b] = c;
+  }
+  for (s = 0; s < n; s++) {
+    uint32_t v, r = 0;
+    if (!len[s]) {
+      code[s] = 0;
+      continue;
+    }
+    v = next[len[s]]++;
+    for (b = 0; b < len[s]; b++) r = (r << 1) | ((v >> b) & 1u);
+    code[s] = r;
+  }
+}
+
+/* The reference's cl_rle: (symbol, extra value, extra bits) of each entry;
+ * returns the count (at most n). */
+static int pl_cl_rle(const int32_t *lens, int n, uint8_t *sym, uint8_t *ev,
+                     uint8_t *eb) {
+  int i = 0, k = 0, prev = -1;
+  while (i < n) {
+    int cur = lens[i], run = 1, left, r;
+    while (i + run < n && lens[i + run] == cur) run++;
+    left = run;
+    if (cur == 0) {
+      for (; left >= 11; left -= r, k++) {
+        r = left < 138 ? left : 138;
+        sym[k] = 18, ev[k] = (uint8_t)(r - 11), eb[k] = 7;
+      }
+      for (; left >= 3; left -= r, k++) {
+        r = left < 10 ? left : 10;
+        sym[k] = 17, ev[k] = (uint8_t)(r - 3), eb[k] = 3;
+      }
+    } else {
+      if (cur != prev) sym[k] = (uint8_t)cur, ev[k] = eb[k] = 0, k++, left--;
+      for (; left >= 3; left -= r, k++) {
+        r = left < 6 ? left : 6;
+        sym[k] = 16, ev[k] = (uint8_t)(r - 3), eb[k] = 2;
+      }
+    }
+    for (; left; left--, k++) sym[k] = (uint8_t)cur, ev[k] = eb[k] = 0;
+    prev = cur;
+    i += run;
+  }
+  return k;
+}
+
+static int pl_fixed_ll(int s) {
+  return s < 144 ? 8 : s < 256 ? 9 : s < 280 ? 7 : 8;
+}
+
+/* The dynamic code lengths of ng block groups. freq_ll (ng, 288) and
+ * freq_d (ng, 30): each group's summed histograms, EOB not yet counted.
+ * Applies build_tables' forcing rules (EOB counted once, at least two
+ * lit/len symbols and two distance codes), then writes ll_len (ng, 288)
+ * and d_len (ng, 30) at 15 bits and body (ng, 2): the body's bits under
+ * the fixed and under the dynamic codes. */
+int zzt_plan_lengths(size_t ng, const int64_t *freq_ll, const int64_t *freq_d,
+                     int32_t *ll_len, int32_t *d_len, int64_t *body) {
+  size_t g;
+  for (g = 0; g < ng; g++) {
+    int64_t fl[288], fd[30], fix = 0, dyn = 0;
+    int32_t *ll = ll_len + 288 * g, *d = d_len + 30 * g;
+    int s, nl = 0, nd = 0;
+    memcpy(fl, freq_ll + 288 * g, sizeof fl);
+    memcpy(fd, freq_d + 30 * g, sizeof fd);
+    fl[256] += 1;
+    for (s = 0; s < 288; s++) nl += fl[s] > 0;
+    if (nl < 2 && fl[0] < 1) fl[0] = 1;
+    for (s = 0; s < 30; s++) nd += fd[s] > 0;
+    if (nd < 1) fd[0] = 1, nd = 1;
+    if (nd < 2) {
+      int k = fd[0] > 0 ? 1 : 0;
+      if (fd[k] < 1) fd[k] = 1;
+    }
+    pl_code_lengths(fl, 288, 15, ll);
+    pl_code_lengths(fd, 30, 15, d);
+    for (s = 0; s < 288; s++) {
+      fix += fl[s] * pl_fixed_ll(s);
+      dyn += fl[s] * ll[s];
+    }
+    for (s = 0; s < 30; s++) {
+      fix += fd[s] * 5;
+      dyn += fd[s] * d[s];
+    }
+    body[2 * g] = fix;
+    body[2 * g + 1] = dyn;
+  }
+  return ZZT_OK;
+}
+
+/* The tables of ng block groups, written into the rows of the batch's
+ * sub-blocks: group g covers rows [bounds[g], bounds[g + 1]). ll_dyn,
+ * d_dyn and body are zzt_plan_lengths' outputs, all NULL for the fixed
+ * codes in every group. Each group's header field stream (hdr_vals,
+ * hdr_nbits; `slots` a row) goes to its first row, its EOB's code and
+ * length to its last, its chosen lengths and LSB-first codes to every
+ * row. The caller zeroes the outputs. A dynamic header of more than
+ * `slots` fields stops the call: ZZT_E_FIELDS, the count in *nfields. */
+int zzt_plan_header(size_t ng, const int32_t *ll_dyn, const int32_t *d_dyn,
+                    const int64_t *body, const int64_t *bfinal,
+                    const int64_t *bounds, size_t slots, int32_t *ll_len,
+                    uint32_t *ll_code, int32_t *d_len, uint32_t *d_code,
+                    uint32_t *hdr_vals, int32_t *hdr_nbits, uint32_t *eob_v,
+                    int32_t *eob_nb, size_t *nfields) {
+  int32_t fix_ll[288], fix_d[30];
+  size_t g;
+  int s;
+  for (s = 0; s < 288; s++) fix_ll[s] = pl_fixed_ll(s);
+  for (s = 0; s < 30; s++) fix_d[s] = 5;
+  for (g = 0; g < ng; g++) {
+    const int32_t *ll = fix_ll, *d = fix_d;
+    int64_t r, r0 = bounds[g], r1 = bounds[g + 1];
+    uint32_t *hv = hdr_vals + (size_t)r0 * slots;
+    int32_t *hb = hdr_nbits + (size_t)r0 * slots;
+    uint32_t llc[288], dc[30];
+    int use_dyn = 0;
+    if (ll_dyn) {
+      const int32_t *ld = ll_dyn + 288 * g, *dd = d_dyn + 30 * g;
+      int32_t comb[286 + 30], cl_len[19];
+      uint32_t cl_code[19];
+      int64_t fcl[19] = {0}, hdr_bits;
+      uint8_t rs[286 + 30], re[286 + 30], rb[286 + 30];
+      int hlit, hdist, hclen, nr, i;
+      for (hlit = 286; hlit > 257 && !ld[hlit - 1]; hlit--) {
+      }
+      for (hdist = 30; hdist > 1 && !dd[hdist - 1]; hdist--) {
+      }
+      memcpy(comb, ld, (size_t)hlit * sizeof(int32_t));
+      memcpy(comb + hlit, dd, (size_t)hdist * sizeof(int32_t));
+      nr = pl_cl_rle(comb, hlit + hdist, rs, re, rb);
+      for (i = 0; i < nr; i++) fcl[rs[i]]++;
+      pl_code_lengths(fcl, 19, 7, cl_len);
+      pl_codes_lsb(cl_len, 19, cl_code);
+      for (hclen = 19; hclen > 4 && !cl_len[CLORD[hclen - 1]]; hclen--) {
+      }
+      hdr_bits = 3 + 14 + 3 * hclen;
+      for (i = 0; i < nr; i++) hdr_bits += cl_len[rs[i]] + rb[i];
+      if (hdr_bits + body[2 * g + 1] < 3 + body[2 * g]) {
+        size_t nf = 5 + (size_t)hclen, f = 0;
+        for (i = 0; i < nr; i++) nf += 1 + (rb[i] != 0);
+        if (nf > slots) {
+          *nfields = nf;
+          return ZZT_E_FIELDS;
+        }
+        use_dyn = 1;
+        ll = ld;
+        d = dd;
+#define PL_FIELD(v, n) (hv[f] = (uint32_t)(v), hb[f++] = (int32_t)(n))
+        PL_FIELD(bfinal[g], 1);
+        PL_FIELD(2, 2);
+        PL_FIELD(hlit - 257, 5);
+        PL_FIELD(hdist - 1, 5);
+        PL_FIELD(hclen - 4, 4);
+        for (i = 0; i < hclen; i++) PL_FIELD(cl_len[CLORD[i]], 3);
+        for (i = 0; i < nr; i++) {
+          PL_FIELD(cl_code[rs[i]], cl_len[rs[i]]);
+          if (rb[i]) PL_FIELD(re[i], rb[i]);
+        }
+#undef PL_FIELD
+      }
+    }
+    if (!use_dyn) {
+      hv[0] = (uint32_t)bfinal[g];
+      hb[0] = 1;
+      hv[1] = 1; /* BTYPE=01 fixed */
+      hb[1] = 2;
+    }
+    pl_codes_lsb(ll, 288, llc);
+    pl_codes_lsb(d, 30, dc);
+    for (r = r0; r < r1; r++) {
+      memcpy(ll_len + 288 * r, ll, 288 * sizeof(int32_t));
+      memcpy(ll_code + 288 * r, llc, sizeof llc);
+      memcpy(d_len + 30 * r, d, 30 * sizeof(int32_t));
+      memcpy(d_code + 30 * r, dc, sizeof dc);
+    }
+    eob_v[r1 - 1] = llc[256];
+    eob_nb[r1 - 1] = ll[256];
   }
   return ZZT_OK;
 }
