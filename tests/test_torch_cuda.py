@@ -596,6 +596,38 @@ def test_device_decode_to_device_returns_a_cuda_tensor():
     assert arr.is_cuda and bytes(arr.cpu().numpy()) == DATA
 
 
+def test_bgzf_decodes_whole_to_the_card():
+    """An 8 MiB BGZF file (129 members of at most 0xff00 input bytes, each
+    with its BC subfield, and the 28-byte end marker) decodes to_device on
+    the card to gzip.decompress's bytes, every member in one plan; with
+    the middle member's CRC-32 flipped it raises."""
+    _card()
+    data = mixed_corpus(8 << 20, 24)
+    members = []
+    for o in range(0, len(data), 0xFF00):
+        piece = data[o:o + 0xFF00]
+        c = zlib.compressobj(6, zlib.DEFLATED, -15, 8)
+        body = c.compress(piece) + c.flush()
+        members.append(b"\x1f\x8b\x08\x04" + bytes(4) + b"\x00\xff"
+                       + struct.pack("<H2sHH", 6, b"BC", 2, len(body) + 25)
+                       + body + struct.pack("<II", zlib.crc32(piece),
+                                            len(piece)))
+    members.append(bytes.fromhex(
+        "1f8b08040000000000ff0600424302001b0003000000000000000000"))
+    blob = b"".join(members)
+    assert len(members) == 130 and gzip.decompress(blob) == data
+    kernels.reset_launches()
+    arr, n = idv.decompress_foreign(blob, format="gzip", to_device=True)
+    assert arr.is_cuda and n == len(data)
+    assert bytes(arr.cpu().numpy()) == data
+    assert kernels.launches["anchor_walk"] == 3  # groups span members
+    off = sum(len(m) for m in members[:65]) - 8
+    bad = bytearray(blob)
+    bad[off] ^= 0x01
+    with pytest.raises(ValueError, match="crc32 mismatch"):
+        idv.decompress_foreign(bytes(bad), format="gzip", to_device=True)
+
+
 # ---------------------------------------------------------------------------
 # commit_walk: the per-bit path's kernel (csrc/commit.cu).
 # ---------------------------------------------------------------------------

@@ -1123,7 +1123,8 @@ def test_foreign_none_corrupt_multimember_and_to_device(mixed):
         bytes(z), format="zlib", device="cpu")) \
         == _outcome(lambda: ref.decompress_foreign(bytes(z), format="zlib")) \
         == "ValueError"
-    # Two members: the first on the device, the tail on the host.
+    # Two members: both on the device (the reference decodes the second
+    # on the host).
     a, b = mixed[: 1 << 17], mixed[1 << 17 : 1 << 18]
     two = gzip.compress(a, 6, mtime=0) + gzip.compress(b, 5, mtime=0)
     assert idv.decompress_foreign(two, format="gzip", device="cpu") == a + b

@@ -30,8 +30,8 @@ ENCODE = ("frame", "frame_checksum", "plan_upload", "host_plan_blocks",
           "host_plan_lengths", "host_plan_header")
 DECODE = ("decode_index", "decode_units", "decode_headers", "decode_pack",
           "decode_verify")
-FOREIGN = ("decode_scan", "decode_units", "decode_headers", "decode_pack",
-           "decode_verify")
+FOREIGN = ("decode_scan", "decode_members", "decode_units", "decode_headers",
+           "decode_pack", "decode_verify")
 # Each nested span and the spans it may lie in: at levels 7-9 the optimal
 # parse re-plans its chunks inside its own stage.
 PARENTS = {
@@ -40,6 +40,7 @@ PARENTS = {
     "host_plan_lengths": ("host_plan", "optimal_parse"),
     "host_plan_header": ("host_plan", "optimal_parse"),
     "decode_index": ("decode_plan",),
+    "decode_members": ("decode_plan",),
     "decode_units": ("decode_plan",),
     "decode_headers": ("decode_units",),
     "decode_pack": ("decode_plan",),

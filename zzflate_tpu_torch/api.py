@@ -196,10 +196,12 @@ def decompress(data: bytes, format: str = "zlib",
     (`device` is unused). engine="device" decodes on `device` through
     the anchor walk (models/inflate_device): an indexed gzip stream
     first, then any stream without a preset dictionary after the host
-    pre-scan; the host decoder takes only the streams the device path
-    declines (no index and a dictionary, all-stored, size caps, one
-    block larger than a group). device=None means CUDA and raises
-    RuntimeError without a card."""
+    pre-scan, which for a gzip file without an index covers every
+    member, so a multi-member or BGZF file decodes whole on the card;
+    the host decoder takes only the streams the device path declines (no
+    index and a dictionary, all-stored, size caps, one block larger than
+    a group, corrupt deflate data) and the members after an indexed one.
+    device=None means CUDA and raises RuntimeError without a card."""
     data = bytes(data)
     if engine not in ("device", "native"):
         raise ValueError(f"unknown engine {engine!r}")

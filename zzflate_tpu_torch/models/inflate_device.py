@@ -7,8 +7,9 @@ decoded. Two parallel answers live here, selected by the stream:
 **Anchor-walk decode (v3 indexed streams and foreign streams).** The
 encoder records the (bit, output) position of every block start and of
 every ANCHOR_TOKENS-th token in its 'ZZ' FEXTRA index; for a foreign
-stream the host C pre-scan (``native.scan_anchors``) finds the block
-starts and every FOREIGN_ANCHOR_TOKENS-th token. Each recorded position
+stream the host C pre-scan (``native.scan_anchors``, or
+``native.scan_members`` over every member of a gzip buffer) finds the
+block starts and every FOREIGN_ANCHOR_TOKENS-th token. Each recorded position
 is a LANE, and each lane decodes its token interval serially:
 ``ops/kernels.anchor_walk``, one CUDA thread per lane (lanes sorted by
 block and padded by ``_walk_lanes``, so a warp's blocks share decode
@@ -646,7 +647,8 @@ def _check_crc(group_crc, group_out, crc_expect: int) -> None:
 
 
 def _device_result(group_out, total_out: int, tail: bytes, dev):
-    """to_device=True: (uint8 tensor on the decode device, length)."""
+    """to_device=True: (uint8 tensor on the decode device, length). A
+    tail (an indexed member's further members) is not decoded here."""
     if tail:
         raise ValueError("to_device unsupported for multi-member gzip")
     if not group_out:
@@ -664,7 +666,8 @@ def _decode_groups(body: bytes, plans, s: _Shape, dev, crc_expect,
     CRC-32 of the group's output unless crc_expect is None, each group's
     last 32 KiB the next one's prefix. Then the CRC verdict, and either
     the to_device result or the fetched bytes, held to the entry's
-    check(out), with a gzip tail decoded on the host appended."""
+    check(out), with an indexed member's gzip tail decoded on the host
+    appended."""
     with_crc = crc_expect is not None
     prefix = torch.zeros((_W,), dtype=torch.uint8, device=dev)
     group_out: list[tuple[torch.Tensor, int]] = []  # (device buf, out bytes)
@@ -824,7 +827,8 @@ def decompress_indexed(data: bytes, verify: bool = True,
 # Foreign (unindexed) streams: host anchor pre-scan -> device anchor walk.
 #
 # Arbitrary zlib/gzip/raw streams carry no index, so the C scanner
-# (native.scan_anchors) walks the bitstream once without materializing
+# (native.scan_anchors; for gzip native.scan_members, every member of the
+# buffer in one pass) walks the bitstream once without materializing
 # output and records exactly the lane set the walk needs: every block's
 # first token plus every FOREIGN_ANCHOR_TOKENS-th token's (bit, out)
 # position.
@@ -835,18 +839,24 @@ def decompress_foreign(data: bytes, format: str = "gzip", verify: bool = True,
                        to_device: bool = False, device=None):
     """Device decode of a foreign (unindexed) zlib/gzip/raw stream.
 
+    A gzip buffer decodes whole on the card: every member (RFC 1952
+    members one after another, as `cat` and BGZF write them), each one's
+    window empty at its start, into one output; bytes after the last
+    member that do not start another are ignored. Each member's ISIZE is
+    checked against its scanned length, and with verify the CRC-32 of the
+    whole output against the members' CRC-32s combined.
+
     Returns None when the stream is unsuitable (a preset dictionary,
-    nothing but stored blocks, a size cap, or one block larger than a
-    group): the caller falls back to the host C decoder. The gzip CRC
-    verifies on the device; the zlib Adler-32 on the host bytes (fetch
-    path only). device=None means CUDA (RuntimeError without a card)."""
+    nothing but stored blocks, a size cap, one block larger than a group,
+    or deflate data the scan finds corrupt): the caller falls back to the
+    host C decoder. The gzip CRC verifies on the device; the zlib
+    Adler-32 on the host bytes (fetch path only). device=None means CUDA
+    (RuntimeError without a card)."""
     dev = resolve_device(device)
     data = bytes(data)
-    tail = b""
-    crc_expect = isize = adler_expect = None
+    crc_expect = adler_expect = None
     if format == "gzip":
-        header_len = containers.parse_gzip_header(data)
-        body = data[header_len:]
+        body = data  # every member, in the buffer's coordinates
     elif format == "zlib":
         header_len, dictid = containers.parse_zlib_header(data)
         if dictid is not None:
@@ -862,29 +872,40 @@ def decompress_foreign(data: bytes, format: str = "gzip", verify: bool = True,
     T = FOREIGN_ANCHOR_TOKENS
     with maybe_stage("decode_scan"):
         try:
-            blocks, anchors, total_out, end_bit = native.scan_anchors(body, T)
-        except ValueError:
+            if format == "gzip":
+                members, blocks, anchors, crc_expect = native.scan_members(
+                    data, T)
+            else:
+                blocks, anchors, total_out, end_bit = native.scan_anchors(
+                    body, T)
+        except native.StreamError:
             return None  # corrupt per the scanner: let the host raise
     with maybe_stage("decode_plan"):
-        if format == "zlib":
-            # Adler-32 sits right after the final block (trailing bytes
-            # beyond it are ignored, matching zlib.decompress).
-            tr = header_len + (end_bit + 7) // 8
-            if tr + 4 > len(data):
-                raise ValueError("truncated zlib trailer")
-            (adler_expect,) = struct.unpack(">I", data[tr : tr + 4])
         if format == "gzip":
-            member_end = header_len + (end_bit + 7) // 8 + 8
-            if member_end > len(data):
-                raise ValueError("truncated gzip member")
-            (crc_expect, isize) = struct.unpack(
-                "<II", data[member_end - 8 : member_end]
-            )
-            tail = data[member_end:]
-            if tail[:2] != b"\x1f\x8b":
-                tail = b""  # trailing garbage tolerated (gzip(1) behavior)
-            if isize != (total_out & _M32):
-                raise ValueError("isize mismatch (device inflate)")
+            with maybe_stage("decode_members"):
+                _hdr, _body, m_end_bit, _out, out_len, _crc, isize = (
+                    members.T)
+                if (isize != (out_len & _M32)).any():
+                    raise ValueError("isize mismatch (device inflate)")
+                total_out = int(out_len.sum())
+                # A block ends where the next one starts, or at its
+                # member's final bit.
+                member = blocks[:, 5]
+                bit_ends = np.r_[blocks[1:, 0], 0]
+                last = np.r_[member[1:] != member[:-1], True]
+                bit_ends[last] = m_end_bit[member[last]]
+                item = anchors[:, 2]
+        else:
+            if format == "zlib":
+                # Adler-32 sits right after the final block (trailing
+                # bytes beyond it are ignored, matching zlib.decompress).
+                tr = header_len + (end_bit + 7) // 8
+                if tr + 4 > len(data):
+                    raise ValueError("truncated zlib trailer")
+                (adler_expect,) = struct.unpack(">I", data[tr : tr + 4])
+            bit_ends = np.r_[blocks[1:, 0], end_bit]
+            item = np.searchsorted(blocks[:, 0], anchors[:, 0],
+                                   side="right") - 1
         if total_out > (1 << 30):
             return None
         if len(blocks) == 0 or not (blocks[:, 1] != 0).any():
@@ -893,20 +914,18 @@ def decompress_foreign(data: bytes, format: str = "gzip", verify: bool = True,
         # Groups bounded like the indexed walk path's, bit ends floored
         # to bytes.
         out_ends = np.r_[blocks[1:, 2], total_out]
-        bit_ends = np.r_[blocks[1:, 0], end_bit]
         if ((out_ends - blocks[:, 2]) > _WGROUP_OUT).any() or (
             (bit_ends - blocks[:, 0]) // 8 > _WGROUP_BODY
         ).any():
             return None  # one block exceeds a group
         groups = _partition(blocks[:, 0] // 8, bit_ends // 8, blocks[:, 2],
                             out_ends, _WGROUP_BODY, _WGROUP_OUT)
-        item = np.searchsorted(blocks[:, 0], anchors[:, 0], side="right") - 1
         plans = _plan_groups(
             groups, blocks[:, 0] // 8, (bit_ends + 7) // 8, blocks[:, 2],
             out_ends,
             lambda lo, hi, byte_lo, _hi, out_lo: _block_units(
                 body, blocks[lo:hi], byte_lo, out_lo),
-            np.vstack([anchors.T, item]))
+            np.vstack([anchors[:, :2].T, item]))
         shape = _shape(plans, _WGROUP_BODY, T)
 
     def check(out: bytes) -> None:
@@ -914,5 +933,5 @@ def decompress_foreign(data: bytes, format: str = "gzip", verify: bool = True,
             raise ValueError("adler32 mismatch (device inflate)")
 
     return _decode_groups(body, plans, shape, dev,
-                          crc_expect if verify else None, total_out, tail,
+                          crc_expect if verify else None, total_out, b"",
                           to_device, check)

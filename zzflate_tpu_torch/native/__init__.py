@@ -1,10 +1,12 @@
 """ctypes binding of the port's C runtime: host inflate, the anchor
-pre-scan of foreign streams, the block-header parse of the device
-decode's plan, the encoder's host Huffman plan, the level 7-9
-shortest-bit-path DP, the host deflate engine and Adler-32/CRC-32.
+pre-scan of foreign streams and of every member of a gzip buffer, the
+block-header parse of the device decode's plan, the encoder's host
+Huffman plan, the level 7-9 shortest-bit-path DP, the host deflate
+engine and Adler-32/CRC-32.
 
 The port's own copy of the JAX package's ``native/__init__.py``
-(:72-439) plus ``parse_headers``, ``plan_lengths`` and ``plan_header``,
+(:72-439) plus ``scan_members``, ``parse_headers``, ``plan_lengths`` and
+``plan_header``,
 bound to the port's own copy of the C source, ``zzflate_native.c``
 beside this file. At first use the host C compiler builds it (``-O3
 -shared -fPIC``) into ``zzflate_tpu_torch/_build/`` under a name keyed on
@@ -60,6 +62,14 @@ HEADER_ERRORS = {
 # zzt_plan_header's code: a dynamic header needs more fields than a row of
 # hdr_vals holds.
 E_FIELDS = -11
+# zzt_scan_members' codes: a member's header is malformed; its trailer is
+# cut off.
+E_HEADER = -12
+E_TRAILER = -13
+
+
+class StreamError(ValueError):
+    """Deflate data that the anchor scans find corrupt or cut short."""
 
 
 def library_path() -> Path:
@@ -122,6 +132,11 @@ def lib() -> ctypes.CDLL:
             L.zzt_scan_anchors.argtypes = [
                 ctypes.c_char_p, sz, sz, ctypes.c_uint32, sz, p, sz, p, sz,
                 psz, psz, psz, psz]
+            # in, in_len, T, members, members_cap, blocks, blocks_cap,
+            # anchors, anchors_cap, nmembers, nblocks, nanchors, crc
+            L.zzt_scan_members.argtypes = [
+                ctypes.c_char_p, sz, ctypes.c_uint32, p, sz, p, sz, p, sz,
+                psz, psz, psz, ctypes.POINTER(ctypes.c_uint32)]
             # in, in_len, start_bits, end_bytes, nb, hdr_end, desc, ll_sym,
             # d_sym, failed
             L.zzt_parse_headers.argtypes = [
@@ -135,7 +150,8 @@ def lib() -> ctypes.CDLL:
                                           p, p, p, p, psz]
             for fn in (L.zzt_inflate, L.zzt_inflate_stream,
                        L.zzt_optimal_parse, L.zzt_deflate,
-                       L.zzt_scan_anchors, L.zzt_parse_headers,
+                       L.zzt_scan_anchors, L.zzt_scan_members,
+                       L.zzt_parse_headers,
                        L.zzt_plan_lengths, L.zzt_plan_header):
                 fn.restype = ctypes.c_int
             # value, buf, len
@@ -246,7 +262,7 @@ def scan_anchors(data: bytes, anchor_tokens: int, bitpos: int = 0,
                  token within its block (bit BEFORE the token's code)
     These are the lane records the device anchor walk consumes
     (models/inflate_device.py), so a foreign (unindexed) stream decodes
-    on the card after this host scan. Raises ValueError on corruption."""
+    on the card after this host scan. Raises StreamError on corruption."""
     L = lib()
     data = bytes(data)
     n = len(data)
@@ -274,7 +290,57 @@ def scan_anchors(data: bytes, anchor_tokens: int, bitpos: int = 0,
         if rc == OK:
             return (blocks[: nb.value], anchors[: na.value],
                     total_out.value, end_bit.value)
-        raise ValueError(ERRORS.get(rc, f"inflate error {rc}"))
+        raise StreamError(ERRORS.get(rc, f"inflate error {rc}"))
+
+
+def scan_members(data: bytes, anchor_tokens: int):
+    """scan_anchors over every member of a gzip buffer, in one C pass.
+
+    Members follow one another while the two bytes after a trailer are
+    the gzip magic; bytes after the last member are left alone. Returns
+    (members, blocks, anchors, crc), every bit and byte from the buffer's
+    start and every output offset in the members' concatenated output:
+      members -- int64 (nm, 7): header and body start bytes, the bit
+                 after the final block, output start and bytes, and the
+                 trailer's CRC-32 and ISIZE
+      blocks  -- int64 (nb, 6): scan_anchors' five columns and the member
+      anchors -- int64 (na, 3): [bit, out] and the index of the block
+      crc     -- the CRC-32 of the whole output that the trailers state
+                 (their CRC-32s combined over the scanned lengths)
+    Each member's window starts empty. Raises ValueError on a malformed
+    header or a cut trailer, StreamError on corrupt deflate data."""
+    L = lib()
+    data = bytes(data)
+    n = len(data)
+    # First guesses as scan_anchors', with room for a block a member of
+    # BGZF's 64 KiB members.
+    mcap = max(16, n // 16384)
+    bcap = max(64, n // 8192) + mcap
+    acap = max(64, (8 * n) // max(1, anchor_tokens))
+    while True:
+        members = np.zeros((mcap, 7), np.int64)
+        blocks = np.zeros((bcap, 6), np.int64)
+        anchors = np.zeros((acap, 3), np.int64)
+        nm, nb, na = (ctypes.c_size_t(0) for _ in range(3))
+        crc = ctypes.c_uint32(0)
+        rc = L.zzt_scan_members(
+            data, n, anchor_tokens, members.ctypes.data, mcap,
+            blocks.ctypes.data, bcap, anchors.ctypes.data, acap,
+            ctypes.byref(nm), ctypes.byref(nb), ctypes.byref(na),
+            ctypes.byref(crc))
+        if rc == E_OUTFULL:  # a cap was too small; counts hold the sizes
+            mcap = max(mcap, nm.value + 1)
+            bcap = max(bcap, nb.value + 1)
+            acap = max(acap, na.value + 1)
+            continue
+        if rc == OK:
+            return (members[: nm.value], blocks[: nb.value],
+                    anchors[: na.value], crc.value)
+        if rc == E_HEADER:
+            raise ValueError(f"gzip member {nm.value}: bad header")
+        if rc == E_TRAILER:
+            raise ValueError("truncated gzip member")
+        raise StreamError(ERRORS.get(rc, f"inflate error {rc}"))
 
 
 def parse_headers(body: bytes, start_bits, end_bytes):

@@ -1,5 +1,6 @@
 /* zzflate_tpu native runtime: fast host-side inflate + checksums.
  * zzflate_tpu_torch's own copy: the JAX package's file plus this line,
+ * zzt_scan_members (every member of a gzip buffer in one scan),
  * zzt_parse_headers (the block headers of the device decode's plan) and
  * zzt_plan_lengths/zzt_plan_header (the encoder's host Huffman plan).
  *
@@ -493,16 +494,54 @@ int zzt_inflate_stream(const uint8_t *in, size_t in_len, size_t start_bit,
  * anchors: 2 int64 per anchor [bit, out]  (bit BEFORE the token's code)
  * Returns ZZT_OK, or ZZT_E_OUTFULL if a cap was too small (counts then
  * hold the required sizes; re-call with bigger buffers). */
-int zzt_scan_anchors(const uint8_t *in, size_t in_len, size_t start_bit,
-                     uint32_t T, size_t dict_len,
-                     int64_t *blocks, size_t blocks_cap,
-                     int64_t *anchors, size_t anchors_cap,
-                     size_t *nblocks, size_t *nanchors,
-                     size_t *total_out, size_t *end_bit) {
+
+/* Where a scan writes its records. bcols is 5, or 6 with the member in
+ * the last column; acols is 2, or 3 with the index of the anchor's block
+ * in the last column. Counts go on past a cap (overflow set). */
+typedef struct {
+  int64_t *blocks, *anchors;
+  size_t bcap, acap, nb, na;
+  int bcols, acols, overflow;
+  int64_t member;
+} scan_rec_t;
+
+static void scan_block(scan_rec_t *r, size_t bit, uint32_t btype,
+                       int64_t out, int64_t aux0, int64_t aux1) {
+  if (r->nb < r->bcap) {
+    int64_t *b = r->blocks + (size_t)r->bcols * r->nb;
+    b[0] = (int64_t)bit;
+    b[1] = (int64_t)btype;
+    b[2] = out;
+    b[3] = aux0;
+    b[4] = aux1;
+    if (r->bcols > 5) b[5] = r->member;
+  } else {
+    r->overflow = 1;
+  }
+  r->nb++;
+}
+
+static void scan_anchor(scan_rec_t *r, size_t bit, int64_t out) {
+  if (r->na < r->acap) {
+    int64_t *a = r->anchors + (size_t)r->acols * r->na;
+    a[0] = (int64_t)bit;
+    a[1] = out;
+    if (r->acols > 2) a[2] = (int64_t)r->nb - 1;
+  } else {
+    r->overflow = 1;
+  }
+  r->na++;
+}
+
+/* One raw deflate stream from start_bit to its final block, its records
+ * appended to r with output offsets from out_base (dict_len bytes of
+ * history precede its output). *out_len: the stream's output bytes;
+ * *end_bit: the bit after its final block (also set on an error). */
+static int scan_stream(const uint8_t *in, size_t in_len, size_t start_bit,
+                       uint32_t T, size_t dict_len, int64_t out_base,
+                       scan_rec_t *r, size_t *out_len, size_t *end_bit) {
   bits_t b;
   size_t w = dict_len;
-  size_t nb = 0, na = 0;
-  int overflow = 0;
   int rc;
   static __thread htab_t dyn_ll, dyn_d;
 
@@ -525,16 +564,8 @@ int zzt_scan_anchors(const uint8_t *in, size_t in_len, size_t start_bit,
       nlen = in[pos + 2] | ((uint32_t)in[pos + 3] << 8);
       if ((len ^ nlen) != 0xFFFF) ZFAIL(ZZT_E_STORED);
       if (pos + 4 + len > in_len) ZFAIL(ZZT_E_INPUT);
-      if (nb + 1 <= blocks_cap) {
-        blocks[5 * nb] = (int64_t)blk_bit;
-        blocks[5 * nb + 1] = 0;
-        blocks[5 * nb + 2] = (int64_t)(w - dict_len);
-        blocks[5 * nb + 3] = (int64_t)(pos + 4);
-        blocks[5 * nb + 4] = (int64_t)len;
-      } else {
-        overflow = 1;
-      }
-      nb++;
+      scan_block(r, blk_bit, 0, out_base + (int64_t)(w - dict_len),
+                 (int64_t)(pos + 4), (int64_t)len);
       w += len;
       br_init(&b, in, in_len, (pos + 4 + len) * 8);
       goto scan_block_done;
@@ -558,17 +589,17 @@ int zzt_scan_anchors(const uint8_t *in, size_t in_len, size_t start_bit,
         if (s < 16) {
           lens[i++] = (uint8_t)s;
         } else if (s == 16) {
-          uint32_t r;
+          uint32_t r16;
           uint8_t prev;
           if (i == 0) ZFAIL(ZZT_E_TABLE);
-          r = 3 + br_get(&b, 2);
+          r16 = 3 + br_get(&b, 2);
           prev = lens[i - 1];
-          if (i + r > hlit + hdist) ZFAIL(ZZT_E_TABLE);
-          while (r--) lens[i++] = prev;
+          if (i + r16 > hlit + hdist) ZFAIL(ZZT_E_TABLE);
+          while (r16--) lens[i++] = prev;
         } else {
-          uint32_t r = (s == 17) ? 3 + br_get(&b, 3) : 11 + br_get(&b, 7);
-          if (i + r > hlit + hdist) ZFAIL(ZZT_E_TABLE);
-          while (r--) lens[i++] = 0;
+          uint32_t rz = (s == 17) ? 3 + br_get(&b, 3) : 11 + br_get(&b, 7);
+          if (i + rz > hlit + hdist) ZFAIL(ZZT_E_TABLE);
+          while (rz--) lens[i++] = 0;
         }
       }
       if (build_table(lens, (int)hlit, &dyn_ll) != ZZT_OK) ZFAIL(ZZT_E_TABLE);
@@ -580,16 +611,7 @@ int zzt_scan_anchors(const uint8_t *in, size_t in_len, size_t start_bit,
       ZFAIL(ZZT_E_BTYPE);
     }
 
-    if (nb + 1 <= blocks_cap) {
-      blocks[5 * nb] = (int64_t)blk_bit;
-      blocks[5 * nb + 1] = (int64_t)btype;
-      blocks[5 * nb + 2] = (int64_t)(w - dict_len);
-      blocks[5 * nb + 3] = 0;
-      blocks[5 * nb + 4] = 0;
-    } else {
-      overflow = 1;
-    }
-    nb++;
+    scan_block(r, blk_bit, btype, out_base + (int64_t)(w - dict_len), 0, 0);
 
     {
       size_t tok = 0;
@@ -598,15 +620,8 @@ int zzt_scan_anchors(const uint8_t *in, size_t in_len, size_t start_bit,
         br_refill(&b);
         if (b.n < 48 && (size_t)(b.end - b.p) < 8 && br_pos(&b) > in_len * 8)
           ZFAIL(ZZT_E_INPUT);
-        if (T && tok && tok % T == 0) {
-          if (na + 1 <= anchors_cap) {
-            anchors[2 * na] = (int64_t)br_pos(&b);
-            anchors[2 * na + 1] = (int64_t)(w - dict_len);
-          } else {
-            overflow = 1;
-          }
-          na++;
-        }
+        if (T && tok && tok % T == 0)
+          scan_anchor(r, br_pos(&b), out_base + (int64_t)(w - dict_len));
         e = ll->root[(uint32_t)b.acc & ((1u << ROOT_BITS) - 1)];
         if (e & 0x80000000u) {
           uint32_t sb = (e >> 16) & 0x7FFF;
@@ -654,17 +669,170 @@ int zzt_scan_anchors(const uint8_t *in, size_t in_len, size_t start_bit,
     if (br_pos(&b) > in_len * 8) ZFAIL(ZZT_E_INPUT);
     if (bfinal) break;
   }
-  *nblocks = nb;
-  *nanchors = na;
-  *total_out = w - dict_len;
-  *end_bit = br_pos(&b);
-  return overflow ? ZZT_E_OUTFULL : ZZT_OK;
-
+  rc = ZZT_OK;
 zz_fail:
-  *nblocks = nb;
-  *nanchors = na;
-  *total_out = w - dict_len;
+  *out_len = w - dict_len;
   *end_bit = br_pos(&b);
+  return rc;
+}
+
+int zzt_scan_anchors(const uint8_t *in, size_t in_len, size_t start_bit,
+                     uint32_t T, size_t dict_len,
+                     int64_t *blocks, size_t blocks_cap,
+                     int64_t *anchors, size_t anchors_cap,
+                     size_t *nblocks, size_t *nanchors,
+                     size_t *total_out, size_t *end_bit) {
+  scan_rec_t r = {blocks, anchors, blocks_cap, anchors_cap, 0, 0, 5, 2, 0, 0};
+  int rc = scan_stream(in, in_len, start_bit, T, dict_len, 0, &r, total_out,
+                       end_bit);
+  *nblocks = r.nb;
+  *nanchors = r.na;
+  if (rc == ZZT_OK && r.overflow) rc = ZZT_E_OUTFULL;
+  return rc;
+}
+
+/* ---------------- every member of a gzip buffer, in one pass ----------
+ *
+ * RFC 1952 members one after another (a `cat`-ed .gz file; BGZF, whose
+ * members are at most 64 KiB): each member's header (FEXTRA, FNAME,
+ * FCOMMENT, FHCRC skipped, as utils/containers.parse_gzip_header does),
+ * its deflate body scanned as zzt_scan_anchors scans one stream, with an
+ * empty window at its start (a distance before the member fails), and its
+ * trailer. A member follows when the two bytes after a trailer are the
+ * gzip magic; anything else after a trailer ends the buffer's members
+ * (trailing bytes are tolerated, as gzip(1) tolerates them). All records
+ * are in the buffer's coordinates: bits and bytes from its start, output
+ * offsets in the members' concatenated output.
+ *
+ * members: 7 int64 per member [header_byte, body_byte, end_bit, out_start,
+ *          out_len, crc32, isize] (end_bit: after its final block; crc32
+ *          and isize read from its trailer)
+ * blocks:  6 int64 per block, zzt_scan_anchors' five and the member
+ * anchors: 3 int64 per anchor, [bit, out] and the index of its block
+ * *crc: the CRC-32 of the concatenated output that the trailers state,
+ *       the members' crc32 fields combined over their scanned lengths.
+ * Returns ZZT_OK, ZZT_E_OUTFULL (a cap too small: counts hold the sizes),
+ * ZZT_E_HEADER (a bad header; *nmembers is its member), ZZT_E_TRAILER (a
+ * trailer cut off) or the scan's error, counts then as far as it got. */
+
+#define ZZT_E_HEADER (-12)
+#define ZZT_E_TRAILER (-13)
+
+/* GF(2) polynomial product a * b modulo the CRC-32 polynomial, bit-reflected
+ * (x^0 in the top bit), and x^(2^k) for k < 32: zlib 1.2.12's multmodp and
+ * x2n_table, for crc32_combine. */
+static uint32_t g_x2n[32];
+static int g_x2n_ready = 0;
+
+static uint32_t multmodp(uint32_t a, uint32_t b) {
+  uint32_t m = 1u << 31, p = 0;
+  for (;;) {
+    if (a & m) {
+      p ^= b;
+      if ((a & (m - 1)) == 0) break;
+    }
+    m >>= 1;
+    b = b & 1 ? (b >> 1) ^ 0xEDB88320u : b >> 1;
+  }
+  return p;
+}
+
+static uint32_t crc32_combine_c(uint32_t crc1, uint32_t crc2, uint64_t len2) {
+  uint32_t p = 1u << 31; /* x^0 */
+  unsigned k = 3;        /* len2 bytes: x^(8 len2) = x^(2^3 len2) */
+  if (!g_x2n_ready) {
+    uint32_t q = 1u << 30; /* x^1 */
+    int n;
+    g_x2n[0] = q;
+    for (n = 1; n < 32; n++) g_x2n[n] = q = multmodp(q, q);
+    g_x2n_ready = 1;
+  }
+  while (len2) {
+    if (len2 & 1) p = multmodp(g_x2n[k & 31], p);
+    len2 >>= 1;
+    k++;
+  }
+  return multmodp(p, crc1) ^ crc2;
+}
+
+static inline uint32_t le32(const uint8_t *p) {
+  return p[0] | ((uint32_t)p[1] << 8) | ((uint32_t)p[2] << 16) |
+         ((uint32_t)p[3] << 24);
+}
+
+/* A member's header at pos: ZZT_OK with *body its first body byte. */
+static int gz_header(const uint8_t *in, size_t in_len, size_t pos,
+                     size_t *body) {
+  size_t p = pos + 10;
+  uint8_t flg;
+  if (pos + 10 > in_len || in[pos] != 0x1F || in[pos + 1] != 0x8B ||
+      in[pos + 2] != 8)
+    return ZZT_E_HEADER;
+  flg = in[pos + 3];
+  if (flg & 0x04) { /* FEXTRA */
+    if (p + 2 > in_len) return ZZT_E_HEADER;
+    p += 2 + (in[p] | ((size_t)in[p + 1] << 8));
+  }
+  if (flg & 0x08) { /* FNAME */
+    while (p < in_len && in[p]) p++;
+    if (p++ >= in_len) return ZZT_E_HEADER;
+  }
+  if (flg & 0x10) { /* FCOMMENT */
+    while (p < in_len && in[p]) p++;
+    if (p++ >= in_len) return ZZT_E_HEADER;
+  }
+  if (flg & 0x02) p += 2; /* FHCRC */
+  if (p > in_len) return ZZT_E_HEADER;
+  *body = p;
+  return ZZT_OK;
+}
+
+int zzt_scan_members(const uint8_t *in, size_t in_len, uint32_t T,
+                     int64_t *members, size_t members_cap,
+                     int64_t *blocks, size_t blocks_cap,
+                     int64_t *anchors, size_t anchors_cap,
+                     size_t *nmembers, size_t *nblocks, size_t *nanchors,
+                     uint32_t *crc) {
+  scan_rec_t r = {blocks, anchors, blocks_cap, anchors_cap, 0, 0, 6, 3, 0, 0};
+  size_t pos = 0, nm = 0;
+  int64_t out = 0;
+  uint32_t c = 0;
+  int rc;
+  for (;;) {
+    size_t body, out_len, end_bit, tr;
+    rc = gz_header(in, in_len, pos, &body);
+    if (rc != ZZT_OK) break;
+    r.member = (int64_t)nm;
+    rc = scan_stream(in, in_len, body * 8, T, 0, out, &r, &out_len, &end_bit);
+    if (rc != ZZT_OK) break;
+    tr = (end_bit + 7) >> 3;
+    if (tr + 8 > in_len) {
+      rc = ZZT_E_TRAILER;
+      break;
+    }
+    if (nm < members_cap) {
+      int64_t *m = members + 7 * nm;
+      m[0] = (int64_t)pos;
+      m[1] = (int64_t)body;
+      m[2] = (int64_t)end_bit;
+      m[3] = out;
+      m[4] = (int64_t)out_len;
+      m[5] = (int64_t)le32(in + tr);
+      m[6] = (int64_t)le32(in + tr + 4);
+    } else {
+      r.overflow = 1;
+    }
+    c = crc32_combine_c(c, le32(in + tr), out_len);
+    out += (int64_t)out_len;
+    nm++;
+    pos = tr + 8;
+    if (pos + 2 > in_len || in[pos] != 0x1F || in[pos + 1] != 0x8B) break;
+  }
+  *nmembers = nm;
+  *nblocks = r.nb;
+  *nanchors = r.na;
+  *crc = c;
+  if (rc == ZZT_OK && r.overflow) rc = ZZT_E_OUTFULL;
   return rc;
 }
 
