@@ -10,6 +10,7 @@ The walk groups are shrunk so that groups span members. The plain
 reference is the standard library's ``gzip.decompress``; the member scan
 is held to ``native.scan_anchors`` run on each member's body alone."""
 import gzip
+import os
 import struct
 import zlib
 
@@ -35,17 +36,23 @@ BGZF_EOF = bytes.fromhex(
 BGZF_BLOCK = 0xFF00  # input bytes a BGZF member holds at most
 
 
-def _bgzf(data: bytes, level: int = 6) -> bytes:
-    """data as bgzip writes it: raw deflate members of BGZF_BLOCK input
+def _bgzf(data: bytes, level: int = 6, block: int = BGZF_BLOCK,
+          before: bytes = b"", plain: tuple = ()) -> bytes:
+    """data as bgzip writes it: raw deflate members of `block` input
     bytes, each header with FEXTRA's BC subfield (BSIZE = member length -
-    1), then the end marker."""
+    1) after the subfields `before`, then the end marker. The members
+    numbered in `plain` carry `before` alone."""
     out = []
-    for o in range(0, len(data), BGZF_BLOCK):
-        piece = data[o:o + BGZF_BLOCK]
+    for k, o in enumerate(range(0, len(data), block)):
+        piece = data[o:o + block]
         c = zlib.compressobj(level, zlib.DEFLATED, -15, 8)
         body = c.compress(piece) + c.flush()
+        extra = before
+        if k not in plain:
+            extra += struct.pack("<BBHH", 66, 67, 2,
+                                 len(body) + len(before) + 25)
         out.append(b"\x1f\x8b\x08\x04" + bytes(4) + b"\x00\xff"
-                   + struct.pack("<HBBHH", 6, 66, 67, 2, len(body) + 25)
+                   + struct.pack("<H", len(extra)) + extra
                    + body + struct.pack("<II", zlib.crc32(piece),
                                         len(piece)))
     return b"".join(out) + BGZF_EOF
@@ -246,3 +253,180 @@ def test_member_scan_equals_scan_of_each_body(name):
     assert crc == want_crc
     assert members[0, 3] == 0 and (
         members[1:, 3] == members[:-1, 3] + members[:-1, 4]).all()
+
+
+# The ranged scan of BGZF members (native.scan_members with threads > 1)
+# against the serial pass (threads=1), on files that BSIZE splits and on
+# files it must leave to the serial pass.
+TINY = mixed_corpus(30000, 26)
+SPLIT_FILES = {  # name: (file, whether the ranges engage)
+    "bgzf_2": (lambda: _bgzf(TINY[:3000]), True),
+    "bgzf_3": (lambda: _bgzf(TINY[:8000], block=4096), True),
+    "bgzf_7": (lambda: _bgzf(TINY[:24576], block=4096), True),
+    "bgzf_64": (lambda: _bgzf(TINY[:25200], block=400), True),
+    "bgzf_200": (lambda: _bgzf(SMALL[:59700], block=300), True),
+    "short_last": (lambda: _bgzf(TINY[:4096 * 5 + 17], block=4096), True),
+    "other_subfield_first": (
+        lambda: _bgzf(TINY, block=4096, before=b"XY\x03\x00abc"), True),
+    "eof_only": (lambda: BGZF_EOF, False),
+    "middle_without_bc": (
+        lambda: _bgzf(TINY, block=4096, before=b"XY\x00\x00", plain=(3,)),
+        False),
+    "cat": (lambda: _cat(TINY), False),
+}
+
+
+@pytest.fixture
+def paths(monkeypatch):
+    """Yields the list of the member scan's passes as they run: "ranges"
+    (agreed), "ranges declined" or "serial"."""
+    seen = []
+    ranged, serial = native._scan_ranges, native._scan_serial
+
+    def scan_ranges(*a):
+        got = ranged(*a)
+        seen.append("ranges" if got is not None else "ranges declined")
+        return got
+
+    def scan_serial(*a):
+        seen.append("serial")
+        return serial(*a)
+
+    monkeypatch.setattr(native, "_scan_ranges", scan_ranges)
+    monkeypatch.setattr(native, "_scan_serial", scan_serial)
+    return seen
+
+
+@pytest.mark.parametrize("threads", [2, 3, 7])
+@pytest.mark.parametrize("name", list(SPLIT_FILES))
+def test_ranged_member_scan_equals_serial_scan(paths, name, threads):
+    blob, engages = SPLIT_FILES[name][0](), SPLIT_FILES[name][1]
+    want = native.scan_members(blob, 64, threads=1)
+    assert paths == ["serial"]
+    paths.clear()
+    got = native.scan_members(blob, 64, threads=threads)
+    for g, w in zip(got[:3], want[:3]):
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g, w)
+    assert got[3] == want[3] == zlib.crc32(gzip.decompress(blob))
+    assert paths == (["ranges"] if engages else ["serial"])
+    if name.startswith("bgzf_"):
+        assert len(want[0]) == int(name[5:])
+    if name == "short_last":
+        assert want[0][-2, 4] == 17
+
+
+def test_ranged_member_scan_with_more_threads_than_cores():
+    """64 threads take 200 ranges of one member from the shared counter, on
+    however many cores the host has, twenty times: every answer is the
+    serial pass's."""
+    blob = SPLIT_FILES["bgzf_200"][0]()
+    want = native.scan_members(blob, 64, threads=1)
+    for _ in range(20):
+        got = native.scan_members(blob, 64, threads=64)
+        for g, w in zip(got[:3], want[:3]):
+            np.testing.assert_array_equal(g, w)
+        assert got[3] == want[3]
+
+
+def _member_at(blob: bytes, k: int) -> int:
+    return int(native.scan_members(blob, 64, threads=1)[0][k, 0])
+
+
+def _btype3(blob: bytes, k: int) -> bytes:
+    """Member k's first block made BTYPE 3 (invalid)."""
+    b = bytearray(blob)
+    b[_member_at(blob, k) + 18] = 0x07
+    return bytes(b)
+
+
+def _bsize(blob: bytes, k: int, delta: int) -> bytes:
+    b = bytearray(blob)
+    at = _member_at(blob, k) + 16
+    struct.pack_into("<H", b, at, struct.unpack_from("<H", b, at)[0] + delta)
+    return bytes(b)
+
+
+BAD = _bgzf(TINY[:28000], block=4096)  # 7 data members and the marker
+BAD_FILES = {  # name: (file, the passes with threads)
+    "corrupt_first": (lambda: _btype3(BAD, 0),
+                      ["ranges declined", "serial"]),
+    "corrupt_middle": (lambda: _btype3(BAD, 3),
+                       ["ranges declined", "serial"]),
+    "corrupt_last": (lambda: _btype3(BAD, 6),
+                     ["ranges declined", "serial"]),
+    "bsize_too_small": (lambda: _bsize(BAD, 3, -1),
+                        ["ranges declined", "serial"]),
+    "bsize_too_large": (lambda: _bsize(BAD, 3, +1),
+                        ["ranges declined", "serial"]),
+    "cut_trailer": (lambda: BAD[:-len(BGZF_EOF) - 3],
+                    ["ranges declined", "serial"]),
+    "trailing_junk": (lambda: BAD + b"trailing junk", ["ranges"]),
+    "trailing_magic": (lambda: BAD + b"\x1f\x8b\x08", ["serial"]),
+}
+
+
+def _outcome(blob: bytes):
+    try:
+        return _decode(blob, to_device=False)
+    except Exception as e:  # noqa: BLE001 (the type and words compared)
+        return type(e), str(e)
+
+
+@pytest.mark.parametrize("threads", [2, 3, 7])
+@pytest.mark.parametrize("name", list(BAD_FILES))
+def test_ranged_member_scan_gives_the_serial_verdict(monkeypatch, paths,
+                                                     name, threads):
+    """A corrupt member in the first, a middle or the last range, a BSIZE
+    one off, a cut trailer, trailing bytes: decompress_foreign gives with
+    threads the bytes, the None or the exception it gives with the serial
+    pass, a disagreement rerunning the serial pass."""
+    blob, passes = BAD_FILES[name][0](), BAD_FILES[name][1]
+    scan = native.scan_members
+    for r in (1, threads):
+        monkeypatch.setattr(native, "scan_members",
+                            lambda d, T, r=r: scan(d, T, threads=r))
+        paths.clear()
+        got = _outcome(blob)
+        if r == 1:
+            want = got
+            assert paths == ["serial"]
+    assert got == want
+    assert paths == passes
+    if name.startswith("corrupt"):
+        assert want is None  # the scan's StreamError: the host decides
+    elif name == "cut_trailer":
+        assert want == (ValueError, "truncated gzip member")
+    elif name == "trailing_magic":
+        assert want == (ValueError, "gzip member 8: bad header")
+    else:
+        assert want == gzip.decompress(BAD)
+
+
+@pytest.mark.parametrize("name", ["bgzf", "stdlib"])
+def test_decode_scan_split_span(monkeypatch, name):
+    """decode_scan_split, inside decode_scan, for a BGZF file of enough
+    members on a host of four cores; not for a one-member stdlib file."""
+    monkeypatch.setattr(os, "sched_getaffinity", lambda _pid: set(range(4)))
+    data = TINY[:20000]
+    blob = (_bgzf(data, block=1024) if name == "bgzf"
+            else gzip.compress(data, 6, mtime=0))
+    names = []
+    with profiling.collect() as timer:
+        orig = timer.stage
+
+        def stage(nm, device=None):
+            names.append(nm)
+            return orig(nm, device)
+
+        timer.stage = stage
+        assert _decode(blob) == data
+    ms = timer.as_ms()
+    if name == "stdlib":
+        assert "decode_scan_split" not in names and "decode_scan" in ms
+        return
+    assert 20 // native.SPLIT_MIN_MEMBERS >= 2
+    assert names.count("decode_scan_split") == 1
+    assert names.index("decode_scan") < names.index("decode_scan_split") < (
+        names.index("decode_plan"))
+    assert 0 < ms["decode_scan_split"] <= ms["decode_scan"]

@@ -28,9 +28,11 @@ from pathlib import Path
 
 import numpy as np
 
+from zzflate_tpu_torch.utils.profiling import maybe_stage
+
 _SRC = Path(__file__).resolve().parent / "zzflate_native.c"
 _BUILD = Path(__file__).resolve().parent.parent / "_build"
-CC_FLAGS = ("-O3", "-shared", "-fPIC")
+CC_FLAGS = ("-O3", "-shared", "-fPIC", "-pthread")
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -66,6 +68,15 @@ E_FIELDS = -11
 # cut off.
 E_HEADER = -12
 E_TRAILER = -13
+# Members a thread of the BGZF member scan takes at least. A member (at most
+# 64 KiB of input) scans in ~0.22 ms on the card host's cores, so a thread
+# scans for ~1.8 ms or more, against some 0.05 ms to start it and copy its
+# records.
+SPLIT_MIN_MEMBERS = 8
+# Ranges a thread of that scan takes on average: the threads take them in
+# order as each finishes its last, so one range slower than the rest holds
+# up a sixteenth of a thread's share, not all of it.
+SPLIT_RANGES_PER_THREAD = 16
 
 
 class StreamError(ValueError):
@@ -137,6 +148,14 @@ def lib() -> ctypes.CDLL:
             L.zzt_scan_members.argtypes = [
                 ctypes.c_char_p, sz, ctypes.c_uint32, p, sz, p, sz, p, sz,
                 psz, psz, psz, ctypes.POINTER(ctypes.c_uint32)]
+            # in, in_len, starts, cap, n
+            L.zzt_bgzf_hop.argtypes = [ctypes.c_char_p, sz, p, sz, psz]
+            # in, in_len, T, starts, nm, cuts, nranges, nthreads, then
+            # as zzt_scan_members from members on
+            L.zzt_scan_members_split.argtypes = [
+                ctypes.c_char_p, sz, ctypes.c_uint32, p, sz, p, sz, sz,
+                p, sz, p, sz, p, sz, psz, psz, psz,
+                ctypes.POINTER(ctypes.c_uint32)]
             # in, in_len, start_bits, end_bytes, nb, hdr_end, desc, ll_sym,
             # d_sym, failed
             L.zzt_parse_headers.argtypes = [
@@ -151,6 +170,7 @@ def lib() -> ctypes.CDLL:
             for fn in (L.zzt_inflate, L.zzt_inflate_stream,
                        L.zzt_optimal_parse, L.zzt_deflate,
                        L.zzt_scan_anchors, L.zzt_scan_members,
+                       L.zzt_bgzf_hop, L.zzt_scan_members_split,
                        L.zzt_parse_headers,
                        L.zzt_plan_lengths, L.zzt_plan_header):
                 fn.restype = ctypes.c_int
@@ -293,7 +313,8 @@ def scan_anchors(data: bytes, anchor_tokens: int, bitpos: int = 0,
         raise StreamError(ERRORS.get(rc, f"inflate error {rc}"))
 
 
-def scan_members(data: bytes, anchor_tokens: int):
+def scan_members(data: bytes, anchor_tokens: int,
+                 threads: int | None = None):
     """scan_anchors over every member of a gzip buffer, in one C pass.
 
     Members follow one another while the two bytes after a trailer are
@@ -308,15 +329,88 @@ def scan_members(data: bytes, anchor_tokens: int):
       crc     -- the CRC-32 of the whole output that the trailers state
                  (their CRC-32s combined over the scanned lengths)
     Each member's window starts empty. Raises ValueError on a malformed
-    header or a cut trailer, StreamError on corrupt deflate data."""
-    L = lib()
+    header or a cut trailer, StreamError on corrupt deflate data.
+
+    When every member states its length (BGZF, bgzf_starts), contiguous
+    ranges of members scan at once on threads, as many as the host's
+    cores with SPLIT_MIN_MEMBERS members a thread or more (`threads` sets
+    the count; 1 is the serial pass), in a span decode_scan_split. The
+    answer is the serial pass's; where a range fails or its members do
+    not end where the hop says, the serial pass runs and decides."""
     data = bytes(data)
+    starts = bgzf_starts(data) if threads != 1 else None
+    if starts is not None:
+        nm = len(starts) - 1
+        if threads is None:
+            threads = min(len(os.sched_getaffinity(0)),
+                          nm // SPLIT_MIN_MEMBERS)
+        threads = min(threads, nm)
+        if threads >= 2:
+            with maybe_stage("decode_scan_split"):
+                got = _scan_ranges(data, anchor_tokens, starts, threads)
+            if got is not None:
+                return got
+    return _scan_serial(data, anchor_tokens)
+
+
+def bgzf_starts(data: bytes) -> np.ndarray | None:
+    """int64 (nm + 1,): each member's start and the end of the last, from
+    a hop through BGZF headers (each FEXTRA's BC subfield states BSIZE,
+    the member's length - 1); None unless every member found has one."""
     n = len(data)
-    # First guesses as scan_anchors', with room for a block a member of
-    # BGZF's 64 KiB members.
-    mcap = max(16, n // 16384)
-    bcap = max(64, n // 8192) + mcap
-    acap = max(64, (8 * n) // max(1, anchor_tokens))
+    starts = np.empty(n // 26 + 3, np.int64)  # 26 B a member at least
+    nm = ctypes.c_size_t(0)
+    rc = lib().zzt_bgzf_hop(data, n, starts.ctypes.data, len(starts),
+                            ctypes.byref(nm))
+    return starts[: nm.value + 1] if rc == OK else None
+
+
+def _scan_caps(n: int, anchor_tokens: int, nm: int) -> tuple[int, int]:
+    """First guesses of the block and anchor caps, with room for a block
+    a member (at least nm members)."""
+    return (max(64, n // 8192) + nm,
+            max(64, (8 * n) // max(1, anchor_tokens)))
+
+
+def _scan_ranges(data: bytes, anchor_tokens: int, starts: np.ndarray,
+                 threads: int):
+    """zzt_scan_members_split on `threads` threads, over ranges of about
+    equal bytes, SPLIT_RANGES_PER_THREAD a thread or one a member; None
+    where the ranges disagree with the hop."""
+    L = lib()
+    n = len(data)
+    nm = len(starts) - 1
+    k = min(nm, threads * SPLIT_RANGES_PER_THREAD)
+    cuts = np.searchsorted(starts, starts[-1] * np.arange(1, k) / k)
+    cuts = np.unique(np.r_[0, np.clip(cuts, 1, nm - 1), nm]).astype(np.int64)
+    bcap, acap = _scan_caps(n, anchor_tokens, nm)
+    while True:
+        members = np.zeros((nm, 7), np.int64)
+        blocks = np.zeros((bcap, 6), np.int64)
+        anchors = np.zeros((acap, 3), np.int64)
+        nmc, nb, na = (ctypes.c_size_t(0) for _ in range(3))
+        crc = ctypes.c_uint32(0)
+        rc = L.zzt_scan_members_split(
+            data, n, anchor_tokens, starts.ctypes.data, nm, cuts.ctypes.data,
+            len(cuts) - 1, threads, members.ctypes.data, nm,
+            blocks.ctypes.data, bcap,
+            anchors.ctypes.data, acap, ctypes.byref(nmc), ctypes.byref(nb),
+            ctypes.byref(na), ctypes.byref(crc))
+        if rc == E_OUTFULL:  # a cap was too small; counts hold the sizes
+            bcap = max(bcap, nb.value)
+            acap = max(acap, na.value)
+            continue
+        if rc != OK:
+            return None
+        return members, blocks[: nb.value], anchors[: na.value], crc.value
+
+
+def _scan_serial(data: bytes, anchor_tokens: int):
+    """zzt_scan_members: the one pass over every member."""
+    L = lib()
+    n = len(data)
+    mcap = max(16, n // 16384)  # BGZF's 64 KiB members
+    bcap, acap = _scan_caps(n, anchor_tokens, mcap)
     while True:
         members = np.zeros((mcap, 7), np.int64)
         blocks = np.zeros((bcap, 6), np.int64)

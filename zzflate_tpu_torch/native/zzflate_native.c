@@ -1,6 +1,7 @@
 /* zzflate_tpu native runtime: fast host-side inflate + checksums.
  * zzflate_tpu_torch's own copy: the JAX package's file plus this line,
- * zzt_scan_members (every member of a gzip buffer in one scan),
+ * zzt_scan_members (every member of a gzip buffer in one scan; BGZF
+ * members in ranges on threads, zzt_bgzf_hop and zzt_scan_members_split),
  * zzt_parse_headers (the block headers of the device decode's plan) and
  * zzt_plan_lengths/zzt_plan_header (the encoder's host Huffman plan).
  *
@@ -18,6 +19,7 @@
 #include <stddef.h>
 #include <string.h>
 #include <stdlib.h>
+#include <pthread.h>
 
 #define ZZT_OK 0
 #define ZZT_E_BTYPE (-1)
@@ -737,16 +739,18 @@ static uint32_t multmodp(uint32_t a, uint32_t b) {
   return p;
 }
 
+static void init_x2n(void) {
+  uint32_t q = 1u << 30; /* x^1 */
+  int n;
+  g_x2n[0] = q;
+  for (n = 1; n < 32; n++) g_x2n[n] = q = multmodp(q, q);
+  g_x2n_ready = 1;
+}
+
 static uint32_t crc32_combine_c(uint32_t crc1, uint32_t crc2, uint64_t len2) {
   uint32_t p = 1u << 31; /* x^0 */
   unsigned k = 3;        /* len2 bytes: x^(8 len2) = x^(2^3 len2) */
-  if (!g_x2n_ready) {
-    uint32_t q = 1u << 30; /* x^1 */
-    int n;
-    g_x2n[0] = q;
-    for (n = 1; n < 32; n++) g_x2n[n] = q = multmodp(q, q);
-    g_x2n_ready = 1;
-  }
+  if (!g_x2n_ready) init_x2n();
   while (len2) {
     if (len2 & 1) p = multmodp(g_x2n[k & 31], p);
     len2 >>= 1;
@@ -787,6 +791,30 @@ static int gz_header(const uint8_t *in, size_t in_len, size_t pos,
   return ZZT_OK;
 }
 
+/* The member whose header starts at pos: its header, its body scanned into
+ * r from output offset out, its trailer at *tr (ZZT_E_TRAILER if cut). */
+static int scan_member(const uint8_t *in, size_t in_len, size_t pos,
+                       uint32_t T, int64_t out, scan_rec_t *r, size_t *body,
+                       size_t *out_len, size_t *end_bit, size_t *tr) {
+  int rc = gz_header(in, in_len, pos, body);
+  if (rc != ZZT_OK) return rc;
+  rc = scan_stream(in, in_len, *body * 8, T, 0, out, r, out_len, end_bit);
+  if (rc != ZZT_OK) return rc;
+  *tr = (*end_bit + 7) >> 3;
+  return *tr + 8 > in_len ? ZZT_E_TRAILER : ZZT_OK;
+}
+
+static void put_member(int64_t *m, size_t pos, size_t body, size_t end_bit,
+                       int64_t out, size_t out_len, const uint8_t *trailer) {
+  m[0] = (int64_t)pos;
+  m[1] = (int64_t)body;
+  m[2] = (int64_t)end_bit;
+  m[3] = out;
+  m[4] = (int64_t)out_len;
+  m[5] = (int64_t)le32(trailer);
+  m[6] = (int64_t)le32(trailer + 4);
+}
+
 int zzt_scan_members(const uint8_t *in, size_t in_len, uint32_t T,
                      int64_t *members, size_t members_cap,
                      int64_t *blocks, size_t blocks_cap,
@@ -800,28 +828,14 @@ int zzt_scan_members(const uint8_t *in, size_t in_len, uint32_t T,
   int rc;
   for (;;) {
     size_t body, out_len, end_bit, tr;
-    rc = gz_header(in, in_len, pos, &body);
-    if (rc != ZZT_OK) break;
     r.member = (int64_t)nm;
-    rc = scan_stream(in, in_len, body * 8, T, 0, out, &r, &out_len, &end_bit);
+    rc = scan_member(in, in_len, pos, T, out, &r, &body, &out_len, &end_bit,
+                     &tr);
     if (rc != ZZT_OK) break;
-    tr = (end_bit + 7) >> 3;
-    if (tr + 8 > in_len) {
-      rc = ZZT_E_TRAILER;
-      break;
-    }
-    if (nm < members_cap) {
-      int64_t *m = members + 7 * nm;
-      m[0] = (int64_t)pos;
-      m[1] = (int64_t)body;
-      m[2] = (int64_t)end_bit;
-      m[3] = out;
-      m[4] = (int64_t)out_len;
-      m[5] = (int64_t)le32(in + tr);
-      m[6] = (int64_t)le32(in + tr + 4);
-    } else {
+    if (nm < members_cap)
+      put_member(members + 7 * nm, pos, body, end_bit, out, out_len, in + tr);
+    else
       r.overflow = 1;
-    }
     c = crc32_combine_c(c, le32(in + tr), out_len);
     out += (int64_t)out_len;
     nm++;
@@ -833,6 +847,246 @@ int zzt_scan_members(const uint8_t *in, size_t in_len, uint32_t T,
   *nanchors = r.na;
   *crc = c;
   if (rc == ZZT_OK && r.overflow) rc = ZZT_E_OUTFULL;
+  return rc;
+}
+
+/* ---------------- BGZF members, scanned in ranges at once -------------
+ *
+ * A BGZF member (SAMv1 4.1) states its own length: its FEXTRA field holds
+ * a BC subfield (SLEN 2) with BSIZE, the member's length - 1. So its
+ * members' starts come from a hop through the headers, with no decoding,
+ * and contiguous ranges of members scan on a pool of threads, each
+ * member's window being empty at its start.
+ *
+ * zzt_bgzf_hop: from byte 0, each member's header has the gzip magic, CM
+ * 8, FEXTRA and a BC subfield (other subfields may come before or after
+ * it) with BSIZE + 1 at least its header and trailer; the next member
+ * starts at start + BSIZE + 1. The hop stops where zzt_scan_members stops:
+ * at the end of the buffer, or where the two bytes after a member are not
+ * the gzip magic. starts: the n members' starts and then the end of the
+ * last (cap entries; every member takes 26 bytes or more, so in_len / 26
+ * + 3 is room enough). Returns ZZT_OK, ZZT_E_HEADER (a member found that
+ * is no such member) or ZZT_E_OUTFULL (cap too small). */
+
+#define ZZT_E_SPLIT (-14)
+
+int zzt_bgzf_hop(const uint8_t *in, size_t in_len, int64_t *starts,
+                 size_t cap, size_t *n) {
+  size_t pos = 0, k = 0;
+  for (;;) {
+    size_t q, end, bsize = 0;
+    int found = 0;
+    if (pos + 12 > in_len || in[pos] != 0x1F || in[pos + 1] != 0x8B ||
+        in[pos + 2] != 8 || !(in[pos + 3] & 0x04))
+      return ZZT_E_HEADER;
+    q = pos + 12;
+    end = q + (in[pos + 10] | ((size_t)in[pos + 11] << 8));
+    if (end > in_len) return ZZT_E_HEADER;
+    while (q + 4 <= end) {
+      size_t slen = in[q + 2] | ((size_t)in[q + 3] << 8);
+      if (q + 4 + slen > end) break;
+      if (in[q] == 66 && in[q + 1] == 67 && slen == 2) {
+        bsize = in[q + 4] | ((size_t)in[q + 5] << 8);
+        found = 1;
+        break;
+      }
+      q += 4 + slen;
+    }
+    if (!found || bsize + 1 < end - pos + 8) return ZZT_E_HEADER;
+    if (k + 2 > cap) return ZZT_E_OUTFULL;
+    starts[k++] = (int64_t)pos;
+    pos += bsize + 1;
+    if (pos + 2 > in_len || in[pos] != 0x1F || in[pos + 1] != 0x8B) break;
+  }
+  starts[k] = (int64_t)pos;
+  *n = k;
+  return ZZT_OK;
+}
+
+/* One range of members [m0, m1): scanned into records of its own, with
+ * output offsets from 0; then copied into the caller's arrays at its
+ * bases. A range allocates its records when a thread takes it. */
+typedef struct {
+  const uint8_t *in;
+  size_t in_len, m0, m1;
+  const int64_t *starts;
+  uint32_t T, crc;
+  int rc;
+  scan_rec_t r;
+  int64_t *mem, out;
+  int64_t *members, *blocks, *anchors; /* the caller's rows at its bases */
+  int64_t out_base, block_base;
+} range_t;
+
+static void range_scan(range_t *g) {
+  size_t m = g->m0, bytes = (size_t)(g->starts[g->m1] - g->starts[g->m0]);
+  /* First room as the serial wrapper guesses it, for this range. */
+  g->r.bcap = bytes / 8192 + (g->m1 - g->m0) + 64;
+  g->r.acap = 8 * bytes / (g->T ? g->T : 1) + 64;
+  g->r.bcols = 6;
+  g->r.acols = 3;
+  g->r.blocks = (int64_t *)malloc(g->r.bcap * 6 * sizeof(int64_t));
+  g->r.anchors = (int64_t *)malloc(g->r.acap * 3 * sizeof(int64_t));
+  g->mem = (int64_t *)malloc((g->m1 - g->m0) * 7 * sizeof(int64_t));
+  g->rc = ZZT_E_SPLIT;
+  if (!g->r.blocks || !g->r.anchors || !g->mem) return;
+  while (m < g->m1) {
+    size_t nb0 = g->r.nb, na0 = g->r.na, body, out_len, end_bit, tr;
+    int rc;
+    g->r.member = (int64_t)m;
+    rc = scan_member(g->in, g->in_len, (size_t)g->starts[m], g->T, g->out,
+                     &g->r, &body, &out_len, &end_bit, &tr);
+    if (rc != ZZT_OK) return;
+    if (g->r.overflow) { /* more room, and the member again */
+      size_t bcap = 2 * g->r.bcap > g->r.nb ? 2 * g->r.bcap : g->r.nb;
+      size_t acap = 2 * g->r.acap > g->r.na ? 2 * g->r.acap : g->r.na;
+      int64_t *b = (int64_t *)realloc(g->r.blocks, bcap * 6 * sizeof *b);
+      int64_t *a;
+      if (b) g->r.blocks = b;
+      a = b ? (int64_t *)realloc(g->r.anchors, acap * 3 * sizeof *a) : NULL;
+      if (!a) return;
+      g->r.anchors = a;
+      g->r.bcap = bcap;
+      g->r.acap = acap;
+      g->r.nb = nb0;
+      g->r.na = na0;
+      g->r.overflow = 0;
+      continue;
+    }
+    if ((int64_t)(tr + 8) != g->starts[m + 1]) return; /* BSIZE disagrees */
+    put_member(g->mem + 7 * (m - g->m0), (size_t)g->starts[m], body, end_bit,
+               g->out, out_len, g->in + tr);
+    g->crc = crc32_combine_c(g->crc, le32(g->in + tr), out_len);
+    g->out += (int64_t)out_len;
+    m++;
+  }
+  g->rc = ZZT_OK;
+}
+
+static void range_copy(range_t *g) {
+  size_t i;
+  memcpy(g->members, g->mem, (g->m1 - g->m0) * 7 * sizeof(int64_t));
+  memcpy(g->blocks, g->r.blocks, g->r.nb * 6 * sizeof(int64_t));
+  memcpy(g->anchors, g->r.anchors, g->r.na * 3 * sizeof(int64_t));
+  for (i = 0; i < g->m1 - g->m0; i++) g->members[7 * i + 3] += g->out_base;
+  for (i = 0; i < g->r.nb; i++) g->blocks[6 * i + 2] += g->out_base;
+  for (i = 0; i < g->r.na; i++) {
+    g->anchors[3 * i + 1] += g->out_base;
+    g->anchors[3 * i + 2] += g->block_base;
+  }
+}
+
+/* The ranges, taken in order by threads as each finishes its last, so a
+ * range slower than the rest (denser data, a core shared with another
+ * process) holds up no share fixed in advance. After a range fails, the
+ * rest are left alone. */
+typedef struct {
+  range_t *g;
+  size_t n, next;
+  int failed;
+  void (*fn)(range_t *);
+} pool_t;
+
+static void *pool_work(void *arg) {
+  pool_t *w = (pool_t *)arg;
+  for (;;) {
+    size_t k = __atomic_fetch_add(&w->next, 1, __ATOMIC_RELAXED);
+    if (k >= w->n || __atomic_load_n(&w->failed, __ATOMIC_RELAXED)) break;
+    w->fn(&w->g[k]);
+    if (w->g[k].rc != ZZT_OK)
+      __atomic_store_n(&w->failed, 1, __ATOMIC_RELAXED);
+  }
+  return NULL;
+}
+
+/* fn on every range, on nthreads threads: the calling thread and
+ * nthreads - 1 more (fewer where a thread cannot start). */
+static void run_pool(range_t *g, size_t n, size_t nthreads, pthread_t *th,
+                     void (*fn)(range_t *)) {
+  pool_t w = {g, n, 0, 0, fn};
+  size_t k, nt = 1;
+  for (k = 1; k < nthreads; k++)
+    if (pthread_create(&th[nt], NULL, pool_work, &w) == 0) nt++;
+  pool_work(&w);
+  for (k = 1; k < nt; k++) pthread_join(th[k], NULL);
+}
+
+/* zzt_scan_members' answer for a buffer whose nm members start at
+ * starts[0..nm) (zzt_bgzf_hop's, starts[nm] the end of the last), the
+ * members [cuts[k], cuts[k + 1]) of each of the nranges ranges scanned on
+ * one of nthreads threads; every member's trailer has to end where the
+ * next member starts (the last one's at starts[nm]). The same arrays,
+ * counts and CRC-32 as zzt_scan_members; ZZT_E_OUTFULL as there (counts
+ * hold the totals); ZZT_E_SPLIT where any range fails or disagrees with
+ * the hop, which leaves the verdict to zzt_scan_members. */
+int zzt_scan_members_split(const uint8_t *in, size_t in_len, uint32_t T,
+                           const int64_t *starts, size_t nm,
+                           const int64_t *cuts, size_t nranges,
+                           size_t nthreads,
+                           int64_t *members, size_t members_cap,
+                           int64_t *blocks, size_t blocks_cap,
+                           int64_t *anchors, size_t anchors_cap,
+                           size_t *nmembers, size_t *nblocks,
+                           size_t *nanchors, uint32_t *crc) {
+  range_t *g = (range_t *)calloc(nranges, sizeof *g);
+  pthread_t *th = (pthread_t *)calloc(nthreads ? nthreads : 1, sizeof *th);
+  size_t k, nb = 0, na = 0;
+  int64_t out = 0;
+  uint32_t c = 0;
+  int rc = ZZT_OK;
+  /* The shared tables are built before any thread reads them: their
+   * flags are not atomic. */
+  if (!g_fixed_ready) init_fixed();
+  if (!g_x2n_ready) init_x2n();
+  if (!g || !th || nranges == 0 || cuts[0] != 0 ||
+      (size_t)cuts[nranges] != nm)
+    rc = ZZT_E_SPLIT;
+  for (k = 0; rc == ZZT_OK && k < nranges; k++) {
+    range_t *q = &g[k];
+    q->in = in;
+    q->in_len = in_len;
+    q->m0 = (size_t)cuts[k];
+    q->m1 = (size_t)cuts[k + 1];
+    q->starts = starts;
+    q->T = T;
+    q->rc = ZZT_E_SPLIT; /* until a thread scans it */
+    if (q->m1 <= q->m0) rc = ZZT_E_SPLIT;
+  }
+  if (rc == ZZT_OK) {
+    run_pool(g, nranges, nthreads, th, range_scan);
+    for (k = 0; k < nranges; k++) {
+      if (g[k].rc != ZZT_OK) {
+        rc = ZZT_E_SPLIT;
+        break;
+      }
+      g[k].out_base = out;
+      g[k].block_base = (int64_t)nb;
+      g[k].members = members + 7 * g[k].m0;
+      g[k].blocks = blocks + 6 * nb;
+      g[k].anchors = anchors + 3 * na;
+      c = crc32_combine_c(c, g[k].crc, (uint64_t)g[k].out);
+      out += g[k].out;
+      nb += g[k].r.nb;
+      na += g[k].r.na;
+    }
+  }
+  if (rc == ZZT_OK) {
+    *nmembers = nm;
+    *nblocks = nb;
+    *nanchors = na;
+    *crc = c;
+    if (nm > members_cap || nb > blocks_cap || na > anchors_cap)
+      rc = ZZT_E_OUTFULL;
+    else
+      run_pool(g, nranges, nthreads, th, range_copy);
+  }
+  for (k = 0; g && k < nranges; k++) {
+    free(g[k].r.blocks);
+    free(g[k].r.anchors);
+    free(g[k].mem);
+  }
+  free(g);
+  free(th);
   return rc;
 }
 
