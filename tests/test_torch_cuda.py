@@ -628,6 +628,28 @@ def test_bgzf_decodes_whole_to_the_card():
         idv.decompress_foreign(bytes(bad), format="gzip", to_device=True)
 
 
+def test_zlib_l1_decodes_to_the_card_with_its_adler_there():
+    """A 16 MiB zlib stream at level 1, as numcodecs' Zlib() writes Zarr
+    chunks, decodes to_device on the card to the input, its Adler-32
+    computed there by adler32_rows once a group (no CRC); with the
+    trailer's Adler-32 flipped it raises on both paths."""
+    _card()
+    data = mixed_corpus(16 << 20, 26)
+    blob = zlib.compress(data, 1)
+    kernels.reset_launches()
+    arr, n = idv.decompress_foreign(blob, format="zlib", to_device=True)
+    assert arr.is_cuda and n == len(data)
+    assert torch.equal(arr, torch.frombuffer(bytearray(data),
+                                             dtype=torch.uint8).cuda())
+    groups = kernels.launches["anchor_walk"]
+    assert groups >= 4 and kernels.launches["adler32_rows"] == groups
+    assert kernels.launches["crc32_rows"] == 0
+    bad = blob[:-4] + bytes(b ^ 0xFF for b in blob[-4:])
+    for to_device in (True, False):
+        with pytest.raises(ValueError, match="adler32 mismatch"):
+            idv.decompress_foreign(bad, format="zlib", to_device=to_device)
+
+
 # ---------------------------------------------------------------------------
 # commit_walk: the per-bit path's kernel (csrc/commit.cu).
 # ---------------------------------------------------------------------------

@@ -32,6 +32,8 @@ DECODE = ("decode_index", "decode_units", "decode_headers", "decode_pack",
           "decode_verify")
 FOREIGN = ("decode_scan", "decode_members", "decode_units", "decode_headers",
            "decode_pack", "decode_verify")
+ZLIB = ("decode_scan", "decode_units", "decode_headers", "decode_pack",
+        "decode_verify")
 # Each nested span and the spans it may lie in: at levels 7-9 the optimal
 # parse re-plans its chunks inside its own stage.
 PARENTS = {
@@ -78,12 +80,19 @@ def _foreign_decode():
                                              device="cpu")
 
 
+def _zlib_foreign_decode(verify: bool = True):
+    return inflate_device.decompress_foreign(zlib.compress(DATA, 1),
+                                             format="zlib", verify=verify,
+                                             device="cpu")
+
+
 PATHS = {
     "gzip6": (_compress("gzip", 6), ENCODE),
     "zlib6": (_compress("zlib", 6), ENCODE),
     "gzip9": (_compress("gzip", 9), ENCODE),
     "indexed_decode": (_decode(True), DECODE),
     "foreign_decode": (_foreign_decode, FOREIGN),
+    "zlib_foreign_decode": (_zlib_foreign_decode, ZLIB),
 }
 
 
@@ -163,6 +172,27 @@ def test_decode_without_verify_has_no_verdict():
     assert out == DATA
     assert "decode_verify" not in names
     assert {"decode_index", "decode_units", "decode_pack"} <= names
+
+
+def test_zlib_decode_checks_its_adler_on_the_decode_device():
+    """A zlib stream's Adler-32: decode_adler once a group, naming the
+    decode device, then one decode_verify after the last of them; no CRC
+    stage. With verify off, neither."""
+    with _recorded() as spans:
+        out = _zlib_foreign_decode()
+    assert out == DATA
+    names = [s[0] for s in spans]
+    adler = [s for s in spans if s[0] == "decode_adler"]
+    assert len(adler) == names.count("decode_units") >= 1
+    assert all(s[1] == torch.device("cpu") for s in adler)
+    assert names.count("decode_verify") == 1 and "decode_crc" not in names
+    (verify,) = [s for s in spans if s[0] == "decode_verify"]
+    assert max(s[3] for s in adler) <= verify[2]
+    with _recorded() as spans:
+        out = _zlib_foreign_decode(verify=False)
+    names = {s[0] for s in spans}
+    assert out == DATA and "decode_units" in names
+    assert not names & {"decode_adler", "decode_verify", "decode_crc"}
 
 
 def test_maybe_stage_off_is_one_shared_null_context():

@@ -201,7 +201,10 @@ def decompress(data: bytes, format: str = "zlib",
     the host decoder takes only the streams the device path declines (no
     index and a dictionary, all-stored, size caps, one block larger than
     a group, corrupt deflate data) and the members after an indexed one.
-    device=None means CUDA and raises RuntimeError without a card."""
+    On the card a gzip stream's CRC-32 and a zlib stream's Adler-32 are
+    computed there and held to the trailer, as they are with
+    to_device=True. device=None means CUDA and raises RuntimeError
+    without a card."""
     data = bytes(data)
     if engine not in ("device", "native"):
         raise ValueError(f"unknown engine {engine!r}")

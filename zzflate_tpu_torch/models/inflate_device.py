@@ -39,8 +39,9 @@ Shared machinery, whole-array torch ops on the decode device:
 - **Groups.** Streams decode in groups of consecutive chunks of at most
   ``_WGROUP_OUT`` output bytes, each carrying the previous 32 KiB of
   output as a resolved prefix across the seam.
-- **Device-resident output.** Bytes stay on the card; CRC-32 runs there
-  (``ops/checksums``) and 4 bytes a group come back to verify.
+- **Device-resident output.** Bytes stay on the card; the CRC-32 (gzip)
+  or Adler-32 (zlib) runs there (``ops/checksums``) and 4 bytes a group
+  come back to verify.
   ``to_device=True`` returns the tensor: the data-loading path.
 
 ``device=None`` means CUDA and raises RuntimeError without a card; only
@@ -636,14 +637,18 @@ def _upload(arrs: dict, dev: torch.device) -> dict:
         return {k: torch.from_numpy(v).to(dev) for k, v in arrs.items()}
 
 
-def _check_crc(group_crc, group_out, crc_expect: int) -> None:
+def _verify(kind: str, group_sums, group_out, expect: int) -> None:
+    """The stream's CRC-32 or Adler-32 from its groups' values on the
+    card (one copy back), combined on the host; ValueError when it is not
+    the container's."""
+    combine, value = ((cs.crc32_combine, 0) if kind == "crc32"
+                      else (cs.adler32_combine, 1))
     with maybe_stage("decode_verify"):
-        crc = 0
-        vals = torch.stack(group_crc).cpu().tolist() if group_crc else []
+        vals = torch.stack(group_sums).cpu().tolist() if group_sums else []
         for v, (_buf, go) in zip(vals, group_out):
-            crc = cs.crc32_combine(crc, int(v), go)
-    if crc != crc_expect:
-        raise ValueError("crc32 mismatch (device inflate)")
+            value = combine(value, int(v), go)
+    if value != expect:
+        raise ValueError(f"{kind} mismatch (device inflate)")
 
 
 def _device_result(group_out, total_out: int, tail: bytes, dev):
@@ -659,27 +664,29 @@ def _device_result(group_out, total_out: int, tail: bytes, dev):
     return torch.cat([buf[_W : _W + go] for buf, go in group_out]), total_out
 
 
-def _decode_groups(body: bytes, plans, s: _Shape, dev, crc_expect,
-                   total_out: int, tail: bytes, to_device: bool, check):
+def _decode_groups(body: bytes, plans, s: _Shape, dev, checksum,
+                   total_out: int, tail: bytes, to_device: bool):
     """Both entries' decode of their planned groups, in order: stage,
     upload, then the walk (or on the per-bit path _decode_all) and the
-    CRC-32 of the group's output unless crc_expect is None, each group's
-    last 32 KiB the next one's prefix. Then the CRC verdict, and either
-    the to_device result or the fetched bytes, held to the entry's
-    check(out), with an indexed member's gzip tail decoded on the host
-    appended."""
-    with_crc = crc_expect is not None
+    checksum of the group's output on the card, each group's last 32 KiB
+    the next one's prefix. checksum: (kind, expected), kind "crc32"
+    (gzip) or "adler32" (zlib), or None for no verdict (raw, or verify
+    off). Then the verdict, the same on both paths, and either the
+    to_device result or the fetched bytes, whose length is held to
+    total_out (an indexed member's ISIZE) under a verdict, with an
+    indexed member's gzip tail decoded on the host appended."""
+    kind, expect = checksum or (None, None)
     prefix = torch.zeros((_W,), dtype=torch.uint8, device=dev)
     group_out: list[tuple[torch.Tensor, int]] = []  # (device buf, out bytes)
-    group_crc: list[torch.Tensor] = []
+    group_sums: list[torch.Tensor] = []
     for g in plans:
         with maybe_stage("decode_plan"):
             staged = _stage_arrays(body, g, s)
         arrs = _upload(staged, dev)
         if s.l_pad is not None:
-            out_dev, crc_dev = _walk_all(
+            out_dev, sum_dev = _walk_all(
                 arrs, prefix, _W + g.go, s.n_out_pad, s.n_stored, s.t_steps,
-                with_crc=with_crc,
+                with_crc=kind == "crc32",
             )
         else:
             with maybe_stage("decode_walk", dev):
@@ -689,25 +696,29 @@ def _decode_groups(body: bytes, plans, s: _Shape, dev, crc_expect,
                     arrs["unit_valid"], prefix, arrs["sr"],
                     s.nbits, s.n_out_pad, s.max_sup_span, s.n_stored,
                 )
-            crc_dev = None
-            if with_crc:
+            sum_dev = None
+            if kind == "crc32":
                 with maybe_stage("decode_crc", dev):
-                    crc_dev = cs._crc32_impl(out_dev, _W + g.go, _W)
-        if with_crc:
-            group_crc.append(crc_dev)
+                    sum_dev = cs._crc32_impl(out_dev, _W + g.go, _W)
+        if kind == "adler32":
+            with maybe_stage("decode_adler", dev):
+                sum_dev = cs._adler32_impl(out_dev, _W + g.go, _W)
+        if kind is not None:
+            group_sums.append(sum_dev)
         group_out.append((out_dev, g.go))
         # Last 32 KiB of output so far: positions [go, go+_W) of this
         # buffer (its own [0,_W) prefix covers the short-output case).
         prefix = out_dev[g.go : g.go + _W]
 
-    if with_crc:
-        _check_crc(group_crc, group_out, crc_expect)
+    if kind is not None:
+        _verify(kind, group_sums, group_out, expect)
     if to_device:
         return _device_result(group_out, total_out, tail, dev)
     with maybe_stage("decode_fetch"):  # one device->host copy a group
         out = b"".join(buf[_W : _W + go].cpu().numpy().tobytes()
                        for buf, go in group_out if go)
-    check(out)
+    if kind is not None and (len(out) & _M32) != (total_out & _M32):
+        raise ValueError("isize mismatch (device inflate)")
     if tail:
         out += inflate.decompress(tail, format="gzip")
     return out
@@ -814,13 +825,9 @@ def decompress_indexed(data: bytes, verify: bool = True,
         shape = _shape(plans, body_cap, anchor_tokens,
                        None if use_walk else 8 * int(sizes.max(initial=0)))
 
-    def check(out: bytes) -> None:
-        if verify and (len(out) & _M32) != (isize & _M32):
-            raise ValueError("isize mismatch (device inflate)")
-
     return _decode_groups(body, plans, shape, dev,
-                          crc_expect if verify else None, total_out, tail,
-                          to_device, check)
+                          ("crc32", crc_expect) if verify else None,
+                          total_out, tail, to_device)
 
 
 # ---------------------------------------------------------------------------
@@ -845,17 +852,18 @@ def decompress_foreign(data: bytes, format: str = "gzip", verify: bool = True,
     window empty at its start, into one output; bytes after the last
     member that do not start another are ignored. Each member's ISIZE is
     checked against its scanned length, and with verify the CRC-32 of the
-    whole output against the members' CRC-32s combined.
+    whole output against the members' CRC-32s combined. A zlib stream's
+    Adler-32 is likewise computed on the card, a group at a time, and
+    held to its trailer; with to_device=True as on the fetch path.
 
     Returns None when the stream is unsuitable (a preset dictionary,
     nothing but stored blocks, a size cap, one block larger than a group,
     or deflate data the scan finds corrupt): the caller falls back to the
-    host C decoder. The gzip CRC verifies on the device; the zlib
-    Adler-32 on the host bytes (fetch path only). device=None means CUDA
-    (RuntimeError without a card)."""
+    host C decoder. device=None means CUDA (RuntimeError without a
+    card)."""
     dev = resolve_device(device)
     data = bytes(data)
-    crc_expect = adler_expect = None
+    checksum = None
     if format == "gzip":
         body = data  # every member, in the buffer's coordinates
     elif format == "zlib":
@@ -874,8 +882,8 @@ def decompress_foreign(data: bytes, format: str = "gzip", verify: bool = True,
     with maybe_stage("decode_scan"):
         try:
             if format == "gzip":
-                members, blocks, anchors, crc_expect = native.scan_members(
-                    data, T)
+                members, blocks, anchors, crc = native.scan_members(data, T)
+                checksum = ("crc32", crc)
             else:
                 blocks, anchors, total_out, end_bit = native.scan_anchors(
                     body, T)
@@ -903,7 +911,8 @@ def decompress_foreign(data: bytes, format: str = "gzip", verify: bool = True,
                 tr = header_len + (end_bit + 7) // 8
                 if tr + 4 > len(data):
                     raise ValueError("truncated zlib trailer")
-                (adler_expect,) = struct.unpack(">I", data[tr : tr + 4])
+                checksum = ("adler32",
+                            struct.unpack(">I", data[tr : tr + 4])[0])
             bit_ends = np.r_[blocks[1:, 0], end_bit]
             item = np.searchsorted(blocks[:, 0], anchors[:, 0],
                                    side="right") - 1
@@ -929,10 +938,6 @@ def decompress_foreign(data: bytes, format: str = "gzip", verify: bool = True,
             np.vstack([anchors[:, :2].T, item]))
         shape = _shape(plans, _WGROUP_BODY, T)
 
-    def check(out: bytes) -> None:
-        if verify and format == "zlib" and native.adler32(out) != adler_expect:
-            raise ValueError("adler32 mismatch (device inflate)")
-
     return _decode_groups(body, plans, shape, dev,
-                          crc_expect if verify else None, total_out, b"",
-                          to_device, check)
+                          checksum if verify else None, total_out, b"",
+                          to_device)
