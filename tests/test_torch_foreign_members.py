@@ -257,35 +257,46 @@ def test_member_scan_equals_scan_of_each_body(name):
 
 # The ranged scan of BGZF members (native.scan_members with threads > 1)
 # against the serial pass (threads=1), on files that BSIZE splits and on
-# files it must leave to the serial pass.
+# files it must leave to the serial pass or, with threads given, to the
+# byte-ranged scan of the members' blocks.
 TINY = mixed_corpus(30000, 26)
-SPLIT_FILES = {  # name: (file, whether the ranges engage)
-    "bgzf_2": (lambda: _bgzf(TINY[:3000]), True),
-    "bgzf_3": (lambda: _bgzf(TINY[:8000], block=4096), True),
-    "bgzf_7": (lambda: _bgzf(TINY[:24576], block=4096), True),
-    "bgzf_64": (lambda: _bgzf(TINY[:25200], block=400), True),
-    "bgzf_200": (lambda: _bgzf(SMALL[:59700], block=300), True),
-    "short_last": (lambda: _bgzf(TINY[:4096 * 5 + 17], block=4096), True),
+SPLIT_FILES = {  # name: (file, the passes with threads)
+    "bgzf_2": (lambda: _bgzf(TINY[:3000]), ["ranges"]),
+    "bgzf_3": (lambda: _bgzf(TINY[:8000], block=4096), ["ranges"]),
+    "bgzf_7": (lambda: _bgzf(TINY[:24576], block=4096), ["ranges"]),
+    "bgzf_64": (lambda: _bgzf(TINY[:25200], block=400), ["ranges"]),
+    "bgzf_200": (lambda: _bgzf(SMALL[:59700], block=300), ["ranges"]),
+    "short_last": (lambda: _bgzf(TINY[:4096 * 5 + 17], block=4096),
+                   ["ranges"]),
     "other_subfield_first": (
-        lambda: _bgzf(TINY, block=4096, before=b"XY\x03\x00abc"), True),
-    "eof_only": (lambda: BGZF_EOF, False),
+        lambda: _bgzf(TINY, block=4096, before=b"XY\x03\x00abc"),
+        ["ranges"]),
+    "eof_only": (lambda: BGZF_EOF, ["serial"]),
     "middle_without_bc": (
         lambda: _bgzf(TINY, block=4096, before=b"XY\x00\x00", plain=(3,)),
-        False),
-    "cat": (lambda: _cat(TINY), False),
+        ["byte ranges"]),
+    "cat": (lambda: _cat(TINY), ["byte ranges"]),
 }
 
 
 @pytest.fixture
 def paths(monkeypatch):
     """Yields the list of the member scan's passes as they run: "ranges"
-    (agreed), "ranges declined" or "serial"."""
+    (agreed), "ranges declined", "byte ranges" (the byte-ranged scan of
+    the members' blocks), "byte ranges declined" or "serial"."""
     seen = []
     ranged, serial = native._scan_ranges, native._scan_serial
+    byte_ranged = native._scan_gzip_ranges
 
     def scan_ranges(*a):
         got = ranged(*a)
         seen.append("ranges" if got is not None else "ranges declined")
+        return got
+
+    def scan_gzip_ranges(*a):
+        got = byte_ranged(*a)
+        seen.append("byte ranges" if got is not None
+                    else "byte ranges declined")
         return got
 
     def scan_serial(*a):
@@ -293,6 +304,7 @@ def paths(monkeypatch):
         return serial(*a)
 
     monkeypatch.setattr(native, "_scan_ranges", scan_ranges)
+    monkeypatch.setattr(native, "_scan_gzip_ranges", scan_gzip_ranges)
     monkeypatch.setattr(native, "_scan_serial", scan_serial)
     return seen
 
@@ -300,7 +312,7 @@ def paths(monkeypatch):
 @pytest.mark.parametrize("threads", [2, 3, 7])
 @pytest.mark.parametrize("name", list(SPLIT_FILES))
 def test_ranged_member_scan_equals_serial_scan(paths, name, threads):
-    blob, engages = SPLIT_FILES[name][0](), SPLIT_FILES[name][1]
+    blob, passes = SPLIT_FILES[name][0](), SPLIT_FILES[name][1]
     want = native.scan_members(blob, 64, threads=1)
     assert paths == ["serial"]
     paths.clear()
@@ -309,7 +321,7 @@ def test_ranged_member_scan_equals_serial_scan(paths, name, threads):
         assert g.dtype == w.dtype
         np.testing.assert_array_equal(g, w)
     assert got[3] == want[3] == zlib.crc32(gzip.decompress(blob))
-    assert paths == (["ranges"] if engages else ["serial"])
+    assert paths == passes
     if name.startswith("bgzf_"):
         assert len(want[0]) == int(name[5:])
     if name == "short_last":
@@ -362,7 +374,8 @@ BAD_FILES = {  # name: (file, the passes with threads)
     "cut_trailer": (lambda: BAD[:-len(BGZF_EOF) - 3],
                     ["ranges declined", "serial"]),
     "trailing_junk": (lambda: BAD + b"trailing junk", ["ranges"]),
-    "trailing_magic": (lambda: BAD + b"\x1f\x8b\x08", ["serial"]),
+    "trailing_magic": (lambda: BAD + b"\x1f\x8b\x08",
+                       ["byte ranges declined", "serial"]),
 }
 
 
@@ -380,7 +393,8 @@ def test_ranged_member_scan_gives_the_serial_verdict(monkeypatch, paths,
     """A corrupt member in the first, a middle or the last range, a BSIZE
     one off, a cut trailer, trailing bytes: decompress_foreign gives with
     threads the bytes, the None or the exception it gives with the serial
-    pass, a disagreement rerunning the serial pass."""
+    pass, a disagreement rerunning the serial pass (after the byte-ranged
+    scan, where a bad header stops the hop)."""
     blob, passes = BAD_FILES[name][0](), BAD_FILES[name][1]
     scan = native.scan_members
     for r in (1, threads):

@@ -835,11 +835,12 @@ def decompress_indexed(data: bytes, verify: bool = True,
 #
 # Arbitrary zlib/gzip/raw streams carry no index, so the C scanner
 # (native.scan_anchors; for gzip native.scan_members, every member of the
-# buffer in one pass, or BGZF members in ranges on the host's cores) walks
-# the bitstream once without materializing
-# output and records exactly the lane set the walk needs: every block's
-# first token plus every FOREIGN_ANCHOR_TOKENS-th token's (bit, out)
-# position.
+# buffer) walks the bitstream without materializing output and records
+# exactly the lane set the walk needs: every block's first token plus every
+# FOREIGN_ANCHOR_TOKENS-th token's (bit, out) position. It runs on the
+# host's cores: BGZF members in ranges of members, any other stream of a
+# few MiB in byte ranges, each from a block start it finds, kept only where
+# the chain of scans from the stream's first bit lands on that start.
 # ---------------------------------------------------------------------------
 
 

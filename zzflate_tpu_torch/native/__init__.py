@@ -77,6 +77,10 @@ SPLIT_MIN_MEMBERS = 8
 # order as each finishes its last, so one range slower than the rest holds
 # up a sixteenth of a thread's share, not all of it.
 SPLIT_RANGES_PER_THREAD = 16
+# Bytes of deflate data a range of the byte-ranged scan of one stream takes
+# at least (a thread's share): a range first looks for a block start, 0.2-2
+# ms of search on the card host's cores against ~8.5 ms a MB of its scan.
+SPLIT_MIN_BYTES = 1 << 20
 
 
 class StreamError(ValueError):
@@ -156,6 +160,20 @@ def lib() -> ctypes.CDLL:
                 ctypes.c_char_p, sz, ctypes.c_uint32, p, sz, p, sz, sz,
                 p, sz, p, sz, p, sz, psz, psz, psz,
                 ctypes.POINTER(ctypes.c_uint32)]
+            # in, in_len, start_bit, T, dict_len, cuts, ncuts, nthreads,
+            # then as zzt_scan_anchors from blocks on, and taken
+            L.zzt_scan_stream_split.argtypes = [
+                ctypes.c_char_p, sz, sz, ctypes.c_uint32, sz, p, sz, sz,
+                p, sz, p, sz, psz, psz, psz, psz, psz]
+            # in, in_len, T, cuts, ncuts, nthreads, then as
+            # zzt_scan_members from members on, and taken
+            L.zzt_scan_gzip_split.argtypes = [
+                ctypes.c_char_p, sz, ctypes.c_uint32, p, sz, sz,
+                p, sz, p, sz, p, sz, psz, psz, psz,
+                ctypes.POINTER(ctypes.c_uint32), psz]
+            # in, in_len, bit, lim
+            L.zzt_find_block.argtypes = [ctypes.c_char_p, sz, sz, sz]
+            L.zzt_find_block.restype = sz
             # in, in_len, start_bits, end_bytes, nb, hdr_end, desc, ll_sym,
             # d_sym, failed
             L.zzt_parse_headers.argtypes = [
@@ -171,6 +189,7 @@ def lib() -> ctypes.CDLL:
                        L.zzt_optimal_parse, L.zzt_deflate,
                        L.zzt_scan_anchors, L.zzt_scan_members,
                        L.zzt_bgzf_hop, L.zzt_scan_members_split,
+                       L.zzt_scan_stream_split, L.zzt_scan_gzip_split,
                        L.zzt_parse_headers,
                        L.zzt_plan_lengths, L.zzt_plan_header):
                 fn.restype = ctypes.c_int
@@ -272,7 +291,7 @@ def inflate_stream(
 
 
 def scan_anchors(data: bytes, anchor_tokens: int, bitpos: int = 0,
-                 dict_len: int = 0):
+                 dict_len: int = 0, threads: int | None = None):
     """Anchor pre-scan of a raw deflate stream (no output materialized).
 
     Returns (blocks, anchors, total_out, end_bit):
@@ -282,35 +301,39 @@ def scan_anchors(data: bytes, anchor_tokens: int, bitpos: int = 0,
                  token within its block (bit BEFORE the token's code)
     These are the lane records the device anchor walk consumes
     (models/inflate_device.py), so a foreign (unindexed) stream decodes
-    on the card after this host scan. Raises StreamError on corruption."""
-    L = lib()
+    on the card after this host scan. Raises StreamError on corruption.
+
+    A stream of SPLIT_MIN_BYTES a thread or more scans in byte ranges at
+    once, on as many threads as the host's cores (`threads` sets the
+    count; 1 is the serial pass), in a span decode_scan_stream_split.
+    The answer is the serial pass's; where the ranged scan fails (a
+    corrupt stream), the serial pass runs and gives the verdict."""
     data = bytes(data)
     n = len(data)
-    # Generous first guesses; the scan reports the required counts when a
-    # cap is too small, so there is at most one retry.
-    bcap = max(64, n // 8192)
-    acap = max(64, (8 * n) // max(1, anchor_tokens))
-    while True:
-        blocks = np.zeros((bcap, 5), np.int64)
-        anchors = np.zeros((acap, 2), np.int64)
-        nb = ctypes.c_size_t(0)
-        na = ctypes.c_size_t(0)
-        total_out = ctypes.c_size_t(0)
-        end_bit = ctypes.c_size_t(0)
+    threads = _split_threads(n - bitpos // 8, threads)
+    if threads >= 2:
+        with maybe_stage("decode_scan_stream_split"):
+            got = _scan_stream_ranges(
+                data, anchor_tokens, _cuts(bitpos // 8, n, threads), threads,
+                bitpos, dict_len)
+        if got is not None:
+            return got[:4]
+    L = lib()
+    nb, na, total_out, end_bit = (ctypes.c_size_t(0) for _ in range(4))
+
+    def scan(blocks, anchors):
         rc = L.zzt_scan_anchors(
             data, n, bitpos, anchor_tokens, dict_len,
-            blocks.ctypes.data, bcap, anchors.ctypes.data, acap,
-            ctypes.byref(nb), ctypes.byref(na),
-            ctypes.byref(total_out), ctypes.byref(end_bit),
-        )
-        if rc == E_OUTFULL:  # a cap was too small; counts hold the sizes
-            bcap = max(bcap, nb.value + 1)
-            acap = max(acap, na.value + 1)
-            continue
-        if rc == OK:
-            return (blocks[: nb.value], anchors[: na.value],
-                    total_out.value, end_bit.value)
+            blocks.ctypes.data, len(blocks), anchors.ctypes.data,
+            len(anchors), ctypes.byref(nb), ctypes.byref(na),
+            ctypes.byref(total_out), ctypes.byref(end_bit))
+        return rc, (nb.value, na.value)
+
+    rc, (blocks, anchors) = _scan_grown(
+        scan, _scan_caps(n, anchor_tokens, 0), (5, 2))
+    if rc != OK:
         raise StreamError(ERRORS.get(rc, f"inflate error {rc}"))
+    return blocks, anchors, total_out.value, end_bit.value
 
 
 def scan_members(data: bytes, anchor_tokens: int,
@@ -333,10 +356,13 @@ def scan_members(data: bytes, anchor_tokens: int,
 
     When every member states its length (BGZF, bgzf_starts), contiguous
     ranges of members scan at once on threads, as many as the host's
-    cores with SPLIT_MIN_MEMBERS members a thread or more (`threads` sets
-    the count; 1 is the serial pass), in a span decode_scan_split. The
-    answer is the serial pass's; where a range fails or its members do
-    not end where the hop says, the serial pass runs and decides."""
+    cores with SPLIT_MIN_MEMBERS members a thread or more, in a span
+    decode_scan_split. Any other buffer of SPLIT_MIN_BYTES a thread or
+    more scans in byte ranges of its members' blocks, as one stream does
+    in scan_anchors, in a span decode_scan_stream_split. `threads` sets
+    the count (1 is the serial pass). The answer is the serial pass's;
+    where a range fails or its members do not end where the hop says, the
+    serial pass runs and decides."""
     data = bytes(data)
     starts = bgzf_starts(data) if threads != 1 else None
     if starts is not None:
@@ -350,6 +376,14 @@ def scan_members(data: bytes, anchor_tokens: int,
                 got = _scan_ranges(data, anchor_tokens, starts, threads)
             if got is not None:
                 return got
+    elif threads != 1:
+        threads = _split_threads(len(data), threads)
+        if threads >= 2:
+            with maybe_stage("decode_scan_stream_split"):
+                got = _scan_gzip_ranges(data, anchor_tokens,
+                                        _cuts(0, len(data), threads), threads)
+            if got is not None:
+                return got[:4]
     return _scan_serial(data, anchor_tokens)
 
 
@@ -372,6 +406,96 @@ def _scan_caps(n: int, anchor_tokens: int, nm: int) -> tuple[int, int]:
             max(64, (8 * n) // max(1, anchor_tokens)))
 
 
+def _scan_grown(scan, caps, cols):
+    """scan(*arrays) on zeroed int64 arrays of caps[i] rows and cols[i]
+    columns, again on larger ones while a cap is too small (E_OUTFULL:
+    the counts scan returns hold the sizes). Returns its code and the
+    arrays cut to its counts."""
+    while True:
+        arrays = [np.zeros((c, k), np.int64) for c, k in zip(caps, cols)]
+        rc, counts = scan(*arrays)
+        if rc != E_OUTFULL:
+            return rc, [a[:m] for a, m in zip(arrays, counts)]
+        caps = [max(c, m + 1) for c, m in zip(caps, counts)]
+
+
+def _split_threads(body: int, threads: int | None) -> int:
+    """Threads of a byte-ranged scan of `body` bytes: as many as the host's
+    cores with SPLIT_MIN_BYTES a range, or `threads`; at most one a
+    byte."""
+    if threads is None:
+        threads = min(len(os.sched_getaffinity(0)), body // SPLIT_MIN_BYTES)
+    return min(threads, body)
+
+
+def _cuts(lo: int, hi: int, k: int) -> np.ndarray:
+    """The k - 1 bytes that cut [lo, hi) into k ranges of about equal
+    bytes (hi - lo >= k)."""
+    return lo + (hi - lo) * np.arange(1, k, dtype=np.int64) // k
+
+
+def _scan_stream_ranges(data: bytes, anchor_tokens: int, cuts, threads: int,
+                        bitpos: int = 0, dict_len: int = 0):
+    """zzt_scan_stream_split: scan_anchors' answer and the count of ranges
+    whose records it took, the stream cut into ranges at the bytes `cuts`
+    (rising strictly inside (bitpos // 8, len(data))) and scanned on
+    `threads` threads; None where the ranged scan fails (a corrupt stream,
+    cuts out of order)."""
+    L = lib()
+    n = len(data)
+    cuts = np.ascontiguousarray(cuts, np.int64)
+    nb, na, total_out, end_bit, taken = (
+        ctypes.c_size_t(0) for _ in range(5))
+
+    def scan(blocks, anchors):
+        rc = L.zzt_scan_stream_split(
+            data, n, bitpos, anchor_tokens, dict_len, cuts.ctypes.data,
+            len(cuts), threads, blocks.ctypes.data, len(blocks),
+            anchors.ctypes.data, len(anchors), ctypes.byref(nb),
+            ctypes.byref(na), ctypes.byref(total_out), ctypes.byref(end_bit),
+            ctypes.byref(taken))
+        return rc, (nb.value, na.value)
+
+    rc, (blocks, anchors) = _scan_grown(
+        scan, _scan_caps(n, anchor_tokens, 0), (5, 2))
+    if rc != OK:
+        return None
+    return blocks, anchors, total_out.value, end_bit.value, taken.value
+
+
+def _scan_gzip_ranges(data: bytes, anchor_tokens: int, cuts, threads: int):
+    """zzt_scan_gzip_split: scan_members' answer and the count of ranges
+    taken, the buffer cut into ranges of its members' blocks at the bytes
+    `cuts` (rising strictly inside (0, len(data))) and scanned on
+    `threads` threads; None where the ranged scan fails."""
+    L = lib()
+    n = len(data)
+    cuts = np.ascontiguousarray(cuts, np.int64)
+    nm, nb, na, taken = (ctypes.c_size_t(0) for _ in range(4))
+    crc = ctypes.c_uint32(0)
+
+    def scan(members, blocks, anchors):
+        rc = L.zzt_scan_gzip_split(
+            data, n, anchor_tokens, cuts.ctypes.data, len(cuts), threads,
+            members.ctypes.data, len(members), blocks.ctypes.data,
+            len(blocks), anchors.ctypes.data, len(anchors),
+            ctypes.byref(nm), ctypes.byref(nb), ctypes.byref(na),
+            ctypes.byref(crc), ctypes.byref(taken))
+        return rc, (nm.value, nb.value, na.value)
+
+    mcap = max(16, n // 16384)
+    rc, got = _scan_grown(scan, (mcap, *_scan_caps(n, anchor_tokens, mcap)),
+                          (7, 6, 3))
+    return (*got, crc.value, taken.value) if rc == OK else None
+
+
+def _find_block(data: bytes, bit: int, lim: int) -> int | None:
+    """The first bit in [bit, lim) where the ranged scan's finder lets a
+    range begin (zzflate_native.c find_block), or None."""
+    got = lib().zzt_find_block(data, len(data), bit, lim)
+    return None if got == ctypes.c_size_t(-1).value else got
+
+
 def _scan_ranges(data: bytes, anchor_tokens: int, starts: np.ndarray,
                  threads: int):
     """zzt_scan_members_split on `threads` threads, over ranges of about
@@ -383,58 +507,48 @@ def _scan_ranges(data: bytes, anchor_tokens: int, starts: np.ndarray,
     k = min(nm, threads * SPLIT_RANGES_PER_THREAD)
     cuts = np.searchsorted(starts, starts[-1] * np.arange(1, k) / k)
     cuts = np.unique(np.r_[0, np.clip(cuts, 1, nm - 1), nm]).astype(np.int64)
-    bcap, acap = _scan_caps(n, anchor_tokens, nm)
-    while True:
-        members = np.zeros((nm, 7), np.int64)
-        blocks = np.zeros((bcap, 6), np.int64)
-        anchors = np.zeros((acap, 3), np.int64)
-        nmc, nb, na = (ctypes.c_size_t(0) for _ in range(3))
-        crc = ctypes.c_uint32(0)
+    nmc, nb, na = (ctypes.c_size_t(0) for _ in range(3))
+    crc = ctypes.c_uint32(0)
+
+    def scan(members, blocks, anchors):
         rc = L.zzt_scan_members_split(
             data, n, anchor_tokens, starts.ctypes.data, nm, cuts.ctypes.data,
-            len(cuts) - 1, threads, members.ctypes.data, nm,
-            blocks.ctypes.data, bcap,
-            anchors.ctypes.data, acap, ctypes.byref(nmc), ctypes.byref(nb),
+            len(cuts) - 1, threads, members.ctypes.data, len(members),
+            blocks.ctypes.data, len(blocks), anchors.ctypes.data,
+            len(anchors), ctypes.byref(nmc), ctypes.byref(nb),
             ctypes.byref(na), ctypes.byref(crc))
-        if rc == E_OUTFULL:  # a cap was too small; counts hold the sizes
-            bcap = max(bcap, nb.value)
-            acap = max(acap, na.value)
-            continue
-        if rc != OK:
-            return None
-        return members, blocks[: nb.value], anchors[: na.value], crc.value
+        return rc, (nmc.value, nb.value, na.value)
+
+    rc, got = _scan_grown(scan, (nm, *_scan_caps(n, anchor_tokens, nm)),
+                          (7, 6, 3))
+    return (*got, crc.value) if rc == OK else None
 
 
 def _scan_serial(data: bytes, anchor_tokens: int):
     """zzt_scan_members: the one pass over every member."""
     L = lib()
     n = len(data)
-    mcap = max(16, n // 16384)  # BGZF's 64 KiB members
-    bcap, acap = _scan_caps(n, anchor_tokens, mcap)
-    while True:
-        members = np.zeros((mcap, 7), np.int64)
-        blocks = np.zeros((bcap, 6), np.int64)
-        anchors = np.zeros((acap, 3), np.int64)
-        nm, nb, na = (ctypes.c_size_t(0) for _ in range(3))
-        crc = ctypes.c_uint32(0)
+    nm, nb, na = (ctypes.c_size_t(0) for _ in range(3))
+    crc = ctypes.c_uint32(0)
+
+    def scan(members, blocks, anchors):
         rc = L.zzt_scan_members(
-            data, n, anchor_tokens, members.ctypes.data, mcap,
-            blocks.ctypes.data, bcap, anchors.ctypes.data, acap,
-            ctypes.byref(nm), ctypes.byref(nb), ctypes.byref(na),
-            ctypes.byref(crc))
-        if rc == E_OUTFULL:  # a cap was too small; counts hold the sizes
-            mcap = max(mcap, nm.value + 1)
-            bcap = max(bcap, nb.value + 1)
-            acap = max(acap, na.value + 1)
-            continue
-        if rc == OK:
-            return (members[: nm.value], blocks[: nb.value],
-                    anchors[: na.value], crc.value)
-        if rc == E_HEADER:
-            raise ValueError(f"gzip member {nm.value}: bad header")
-        if rc == E_TRAILER:
-            raise ValueError("truncated gzip member")
-        raise StreamError(ERRORS.get(rc, f"inflate error {rc}"))
+            data, n, anchor_tokens, members.ctypes.data, len(members),
+            blocks.ctypes.data, len(blocks), anchors.ctypes.data,
+            len(anchors), ctypes.byref(nm), ctypes.byref(nb),
+            ctypes.byref(na), ctypes.byref(crc))
+        return rc, (nm.value, nb.value, na.value)
+
+    mcap = max(16, n // 16384)  # BGZF's 64 KiB members
+    rc, got = _scan_grown(scan, (mcap, *_scan_caps(n, anchor_tokens, mcap)),
+                          (7, 6, 3))
+    if rc == OK:
+        return (*got, crc.value)
+    if rc == E_HEADER:
+        raise ValueError(f"gzip member {nm.value}: bad header")
+    if rc == E_TRAILER:
+        raise ValueError("truncated gzip member")
+    raise StreamError(ERRORS.get(rc, f"inflate error {rc}"))
 
 
 def parse_headers(body: bytes, start_bits, end_bytes):

@@ -1,7 +1,9 @@
 /* zzflate_tpu native runtime: fast host-side inflate + checksums.
  * zzflate_tpu_torch's own copy: the JAX package's file plus this line,
  * zzt_scan_members (every member of a gzip buffer in one scan; BGZF
- * members in ranges on threads, zzt_bgzf_hop and zzt_scan_members_split),
+ * members in ranges on threads, zzt_bgzf_hop and zzt_scan_members_split;
+ * one stream's blocks in byte ranges on threads, zzt_scan_stream_split and
+ * zzt_scan_gzip_split),
  * zzt_parse_headers (the block headers of the device decode's plan) and
  * zzt_plan_lengths/zzt_plan_header (the encoder's host Huffman plan).
  *
@@ -30,6 +32,7 @@
 #define ZZT_E_OUTFULL (-6)
 #define ZZT_E_INPUT (-7)
 #define ZZT_E_AGAIN (-8) /* stream mode: need more input to finish a block */
+#define ZZT_STOPPED 1 /* a scan reached its stop bit (scan_stream) */
 
 /* ---------------- bit reader ---------------- */
 
@@ -535,13 +538,58 @@ static void scan_anchor(scan_rec_t *r, size_t bit, int64_t out) {
   r->na++;
 }
 
+/* A dynamic block's code lengths, its header read from b on (past BTYPE):
+ * lens[0, *hlit + *hdist). ZZT_OK, or the scan's ZZT_E_TABLE or
+ * ZZT_E_SYMBOL. */
+static int read_lengths(bits_t *b, uint8_t *lens, uint32_t *hlit_out,
+                        uint32_t *hdist_out) {
+  uint32_t hlit = br_get(b, 5) + 257;
+  uint32_t hdist = br_get(b, 5) + 1;
+  uint32_t hclen = br_get(b, 4) + 4;
+  uint8_t cl_lens[19] = {0};
+  uint32_t i;
+  htab_t cl_tab;
+  if (hlit > 286 || hdist > 30) return ZZT_E_TABLE;
+  for (i = 0; i < hclen; i++) cl_lens[CLORD[i]] = (uint8_t)br_get(b, 3);
+  if (build_table(cl_lens, 19, &cl_tab) != ZZT_OK) return ZZT_E_TABLE;
+  for (i = 0; i < hlit + hdist;) {
+    int s = decode_sym(b, &cl_tab);
+    if (s < 0) return ZZT_E_SYMBOL;
+    if (s < 16) {
+      lens[i++] = (uint8_t)s;
+    } else if (s == 16) {
+      uint32_t r16;
+      uint8_t prev;
+      if (i == 0) return ZZT_E_TABLE;
+      r16 = 3 + br_get(b, 2);
+      prev = lens[i - 1];
+      if (i + r16 > hlit + hdist) return ZZT_E_TABLE;
+      while (r16--) lens[i++] = prev;
+    } else {
+      uint32_t rz = (s == 17) ? 3 + br_get(b, 3) : 11 + br_get(b, 7);
+      if (i + rz > hlit + hdist) return ZZT_E_TABLE;
+      while (rz--) lens[i++] = 0;
+    }
+  }
+  *hlit_out = hlit;
+  *hdist_out = hdist;
+  return ZZT_OK;
+}
+
 /* One raw deflate stream from start_bit to its final block, its records
  * appended to r with output offsets from out_base (dict_len bytes of
  * history precede its output). *out_len: the stream's output bytes;
- * *end_bit: the bit after its final block (also set on an error). */
+ * *end_bit: the bit after its final block (also set on an error).
+ *
+ * A block that starts at or after stop_bit is left alone: ZZT_STOPPED,
+ * *end_bit its first bit. With least non-NULL the window is unknown (a
+ * range of a stream scanned from a block inside it): a distance past the
+ * output so far fails nothing, and *least keeps the least output offset
+ * that one reaches, for the caller to hold to the window once known. */
 static int scan_stream(const uint8_t *in, size_t in_len, size_t start_bit,
-                       uint32_t T, size_t dict_len, int64_t out_base,
-                       scan_rec_t *r, size_t *out_len, size_t *end_bit) {
+                       size_t stop_bit, uint32_t T, size_t dict_len,
+                       int64_t out_base, scan_rec_t *r, int64_t *least,
+                       size_t *out_len, size_t *end_bit) {
   bits_t b;
   size_t w = dict_len;
   int rc;
@@ -554,6 +602,7 @@ static int scan_stream(const uint8_t *in, size_t in_len, size_t start_bit,
     uint32_t bfinal, btype;
     size_t blk_bit = br_pos(&b);
     const htab_t *ll, *dd;
+    if (blk_bit >= stop_bit) ZFAIL(ZZT_STOPPED);
     bfinal = br_get(&b, 1);
     btype = br_get(&b, 2);
     if (btype == 0) {
@@ -575,35 +624,10 @@ static int scan_stream(const uint8_t *in, size_t in_len, size_t start_bit,
       ll = &g_fixed_ll;
       dd = &g_fixed_d;
     } else if (btype == 2) {
-      uint32_t hlit = br_get(&b, 5) + 257;
-      uint32_t hdist = br_get(&b, 5) + 1;
-      uint32_t hclen = br_get(&b, 4) + 4;
-      uint8_t cl_lens[19] = {0};
       uint8_t lens[288 + 32];
-      uint32_t i;
-      htab_t cl_tab;
-      if (hlit > 286 || hdist > 30) ZFAIL(ZZT_E_TABLE);
-      for (i = 0; i < hclen; i++) cl_lens[CLORD[i]] = (uint8_t)br_get(&b, 3);
-      if (build_table(cl_lens, 19, &cl_tab) != ZZT_OK) ZFAIL(ZZT_E_TABLE);
-      for (i = 0; i < hlit + hdist;) {
-        int s = decode_sym(&b, &cl_tab);
-        if (s < 0) ZFAIL(ZZT_E_SYMBOL);
-        if (s < 16) {
-          lens[i++] = (uint8_t)s;
-        } else if (s == 16) {
-          uint32_t r16;
-          uint8_t prev;
-          if (i == 0) ZFAIL(ZZT_E_TABLE);
-          r16 = 3 + br_get(&b, 2);
-          prev = lens[i - 1];
-          if (i + r16 > hlit + hdist) ZFAIL(ZZT_E_TABLE);
-          while (r16--) lens[i++] = prev;
-        } else {
-          uint32_t rz = (s == 17) ? 3 + br_get(&b, 3) : 11 + br_get(&b, 7);
-          if (i + rz > hlit + hdist) ZFAIL(ZZT_E_TABLE);
-          while (rz--) lens[i++] = 0;
-        }
-      }
+      uint32_t hlit, hdist;
+      rc = read_lengths(&b, lens, &hlit, &hdist);
+      if (rc != ZZT_OK) goto zz_fail;
       if (build_table(lens, (int)hlit, &dyn_ll) != ZZT_OK) ZFAIL(ZZT_E_TABLE);
       if (build_table(lens + hlit, (int)hdist, &dyn_d) != ZZT_OK)
         ZFAIL(ZZT_E_TABLE);
@@ -662,7 +686,11 @@ static int scan_stream(const uint8_t *in, size_t in_len, size_t start_bit,
           b.acc >>= DEXT[ds];
           b.n -= DEXT[ds];
         }
-        if (dist > w) ZFAIL(ZZT_E_DIST);
+        if (dist > w) {
+          int64_t reach = out_base + (int64_t)(w - dict_len) - (int64_t)dist;
+          if (!least) ZFAIL(ZZT_E_DIST);
+          if (reach < *least) *least = reach;
+        }
         w += len;
         tok++;
       }
@@ -685,8 +713,8 @@ int zzt_scan_anchors(const uint8_t *in, size_t in_len, size_t start_bit,
                      size_t *nblocks, size_t *nanchors,
                      size_t *total_out, size_t *end_bit) {
   scan_rec_t r = {blocks, anchors, blocks_cap, anchors_cap, 0, 0, 5, 2, 0, 0};
-  int rc = scan_stream(in, in_len, start_bit, T, dict_len, 0, &r, total_out,
-                       end_bit);
+  int rc = scan_stream(in, in_len, start_bit, SIZE_MAX, T, dict_len, 0, &r,
+                       NULL, total_out, end_bit);
   *nblocks = r.nb;
   *nanchors = r.na;
   if (rc == ZZT_OK && r.overflow) rc = ZZT_E_OUTFULL;
@@ -791,14 +819,24 @@ static int gz_header(const uint8_t *in, size_t in_len, size_t pos,
   return ZZT_OK;
 }
 
+/* A scan of one stream that takes the records of ranges scanned ahead
+ * where it lands on their starts (chain_scan, below); NULL: no ranges. */
+typedef struct chain chain_t;
+static int chain_scan(chain_t *ch, const uint8_t *in, size_t in_len,
+                      size_t bit, uint32_t T, size_t dict_len,
+                      int64_t out_base, scan_rec_t *r, size_t *out_len,
+                      size_t *end_bit);
+
 /* The member whose header starts at pos: its header, its body scanned into
  * r from output offset out, its trailer at *tr (ZZT_E_TRAILER if cut). */
-static int scan_member(const uint8_t *in, size_t in_len, size_t pos,
-                       uint32_t T, int64_t out, scan_rec_t *r, size_t *body,
-                       size_t *out_len, size_t *end_bit, size_t *tr) {
+static int scan_member(chain_t *ch, const uint8_t *in, size_t in_len,
+                       size_t pos, uint32_t T, int64_t out, scan_rec_t *r,
+                       size_t *body, size_t *out_len, size_t *end_bit,
+                       size_t *tr) {
   int rc = gz_header(in, in_len, pos, body);
   if (rc != ZZT_OK) return rc;
-  rc = scan_stream(in, in_len, *body * 8, T, 0, out, r, out_len, end_bit);
+  rc = chain_scan(ch, in, in_len, *body * 8, T, 0, out, r, out_len,
+                  end_bit);
   if (rc != ZZT_OK) return rc;
   *tr = (*end_bit + 7) >> 3;
   return *tr + 8 > in_len ? ZZT_E_TRAILER : ZZT_OK;
@@ -815,27 +853,24 @@ static void put_member(int64_t *m, size_t pos, size_t body, size_t end_bit,
   m[6] = (int64_t)le32(trailer + 4);
 }
 
-int zzt_scan_members(const uint8_t *in, size_t in_len, uint32_t T,
-                     int64_t *members, size_t members_cap,
-                     int64_t *blocks, size_t blocks_cap,
-                     int64_t *anchors, size_t anchors_cap,
-                     size_t *nmembers, size_t *nblocks, size_t *nanchors,
-                     uint32_t *crc) {
-  scan_rec_t r = {blocks, anchors, blocks_cap, anchors_cap, 0, 0, 6, 3, 0, 0};
+/* zzt_scan_members' pass, its bodies through chain_scan. */
+static int scan_gzip(chain_t *ch, const uint8_t *in, size_t in_len,
+                     uint32_t T, scan_rec_t *r, int64_t *members,
+                     size_t members_cap, size_t *nmembers, uint32_t *crc) {
   size_t pos = 0, nm = 0;
   int64_t out = 0;
   uint32_t c = 0;
   int rc;
   for (;;) {
     size_t body, out_len, end_bit, tr;
-    r.member = (int64_t)nm;
-    rc = scan_member(in, in_len, pos, T, out, &r, &body, &out_len, &end_bit,
-                     &tr);
+    r->member = (int64_t)nm;
+    rc = scan_member(ch, in, in_len, pos, T, out, r, &body, &out_len,
+                     &end_bit, &tr);
     if (rc != ZZT_OK) break;
     if (nm < members_cap)
       put_member(members + 7 * nm, pos, body, end_bit, out, out_len, in + tr);
     else
-      r.overflow = 1;
+      r->overflow = 1;
     c = crc32_combine_c(c, le32(in + tr), out_len);
     out += (int64_t)out_len;
     nm++;
@@ -843,10 +878,22 @@ int zzt_scan_members(const uint8_t *in, size_t in_len, uint32_t T,
     if (pos + 2 > in_len || in[pos] != 0x1F || in[pos + 1] != 0x8B) break;
   }
   *nmembers = nm;
+  *crc = c;
+  if (rc == ZZT_OK && r->overflow) rc = ZZT_E_OUTFULL;
+  return rc;
+}
+
+int zzt_scan_members(const uint8_t *in, size_t in_len, uint32_t T,
+                     int64_t *members, size_t members_cap,
+                     int64_t *blocks, size_t blocks_cap,
+                     int64_t *anchors, size_t anchors_cap,
+                     size_t *nmembers, size_t *nblocks, size_t *nanchors,
+                     uint32_t *crc) {
+  scan_rec_t r = {blocks, anchors, blocks_cap, anchors_cap, 0, 0, 6, 3, 0, 0};
+  int rc = scan_gzip(NULL, in, in_len, T, &r, members, members_cap,
+                     nmembers, crc);
   *nblocks = r.nb;
   *nanchors = r.na;
-  *crc = c;
-  if (rc == ZZT_OK && r.overflow) rc = ZZT_E_OUTFULL;
   return rc;
 }
 
@@ -903,9 +950,10 @@ int zzt_bgzf_hop(const uint8_t *in, size_t in_len, int64_t *starts,
   return ZZT_OK;
 }
 
-/* One range of members [m0, m1): scanned into records of its own, with
- * output offsets from 0; then copied into the caller's arrays at its
- * bases. A range allocates its records when a thread takes it. */
+/* One range of members [m0, m1), or (zzt_scan_stream_split) of one
+ * stream's blocks: scanned into records of its own, with output offsets
+ * from 0; then copied into the caller's arrays at its bases. A range
+ * allocates its records when a thread takes it. */
 typedef struct {
   const uint8_t *in;
   size_t in_len, m0, m1;
@@ -915,10 +963,37 @@ typedef struct {
   scan_rec_t r;
   int64_t *mem, out;
   int64_t *members, *blocks, *anchors; /* the caller's rows at its bases */
-  int64_t out_base, block_base;
+  int64_t out_base, block_base, member_base;
+  /* A range of a stream: its first byte, the bit its scan stops at (the
+   * next range's cut), the block start found (SIZE_MAX: none), where its
+   * scan ended, and the least output offset a distance reached. */
+  size_t cut, stop, start, end;
+  int64_t least;
 } range_t;
 
-static void range_scan(range_t *g) {
+/* More room for a range's records, as many rows as its counts say it
+ * needs (they go on past a cap), and the counts back to nb0, na0. */
+static int range_room(range_t *g, size_t nb0, size_t na0) {
+  size_t bcap = 2 * g->r.bcap > g->r.nb ? 2 * g->r.bcap : g->r.nb;
+  size_t acap = 2 * g->r.acap > g->r.na ? 2 * g->r.acap : g->r.na;
+  int64_t *b = (int64_t *)realloc(g->r.blocks,
+                                  bcap * (size_t)g->r.bcols * sizeof *b);
+  int64_t *a;
+  if (b) g->r.blocks = b;
+  a = b ? (int64_t *)realloc(g->r.anchors,
+                             acap * (size_t)g->r.acols * sizeof *a)
+        : NULL;
+  if (!a) return 1;
+  g->r.anchors = a;
+  g->r.bcap = bcap;
+  g->r.acap = acap;
+  g->r.nb = nb0;
+  g->r.na = na0;
+  g->r.overflow = 0;
+  return ZZT_OK;
+}
+
+static int range_scan(range_t *g) {
   size_t m = g->m0, bytes = (size_t)(g->starts[g->m1] - g->starts[g->m0]);
   /* First room as the serial wrapper guesses it, for this range. */
   g->r.bcap = bytes / 8192 + (g->m1 - g->m0) + 64;
@@ -929,31 +1004,19 @@ static void range_scan(range_t *g) {
   g->r.anchors = (int64_t *)malloc(g->r.acap * 3 * sizeof(int64_t));
   g->mem = (int64_t *)malloc((g->m1 - g->m0) * 7 * sizeof(int64_t));
   g->rc = ZZT_E_SPLIT;
-  if (!g->r.blocks || !g->r.anchors || !g->mem) return;
+  if (!g->r.blocks || !g->r.anchors || !g->mem) return 1;
   while (m < g->m1) {
     size_t nb0 = g->r.nb, na0 = g->r.na, body, out_len, end_bit, tr;
-    int rc;
     g->r.member = (int64_t)m;
-    rc = scan_member(g->in, g->in_len, (size_t)g->starts[m], g->T, g->out,
-                     &g->r, &body, &out_len, &end_bit, &tr);
-    if (rc != ZZT_OK) return;
+    if (scan_member(NULL, g->in, g->in_len, (size_t)g->starts[m], g->T,
+                    g->out, &g->r, &body, &out_len, &end_bit,
+                    &tr) != ZZT_OK)
+      return 1;
     if (g->r.overflow) { /* more room, and the member again */
-      size_t bcap = 2 * g->r.bcap > g->r.nb ? 2 * g->r.bcap : g->r.nb;
-      size_t acap = 2 * g->r.acap > g->r.na ? 2 * g->r.acap : g->r.na;
-      int64_t *b = (int64_t *)realloc(g->r.blocks, bcap * 6 * sizeof *b);
-      int64_t *a;
-      if (b) g->r.blocks = b;
-      a = b ? (int64_t *)realloc(g->r.anchors, acap * 3 * sizeof *a) : NULL;
-      if (!a) return;
-      g->r.anchors = a;
-      g->r.bcap = bcap;
-      g->r.acap = acap;
-      g->r.nb = nb0;
-      g->r.na = na0;
-      g->r.overflow = 0;
+      if (range_room(g, nb0, na0) != ZZT_OK) return 1;
       continue;
     }
-    if ((int64_t)(tr + 8) != g->starts[m + 1]) return; /* BSIZE disagrees */
+    if ((int64_t)(tr + 8) != g->starts[m + 1]) return 1; /* BSIZE disagrees */
     put_member(g->mem + 7 * (m - g->m0), (size_t)g->starts[m], body, end_bit,
                g->out, out_len, g->in + tr);
     g->crc = crc32_combine_c(g->crc, le32(g->in + tr), out_len);
@@ -961,30 +1024,40 @@ static void range_scan(range_t *g) {
     m++;
   }
   g->rc = ZZT_OK;
+  return 0;
 }
 
-static void range_copy(range_t *g) {
-  size_t i;
-  memcpy(g->members, g->mem, (g->m1 - g->m0) * 7 * sizeof(int64_t));
-  memcpy(g->blocks, g->r.blocks, g->r.nb * 6 * sizeof(int64_t));
-  memcpy(g->anchors, g->r.anchors, g->r.na * 3 * sizeof(int64_t));
-  for (i = 0; i < g->m1 - g->m0; i++) g->members[7 * i + 3] += g->out_base;
-  for (i = 0; i < g->r.nb; i++) g->blocks[6 * i + 2] += g->out_base;
-  for (i = 0; i < g->r.na; i++) {
-    g->anchors[3 * i + 1] += g->out_base;
-    g->anchors[3 * i + 2] += g->block_base;
+/* A range's records into the caller's rows; none where the caller set no
+ * rows (a stream's range that the join did not take). */
+static int range_copy(range_t *g) {
+  size_t i, bc = (size_t)g->r.bcols, ac = (size_t)g->r.acols;
+  if (!g->blocks) return 0;
+  if (g->m1 > g->m0) {
+    memcpy(g->members, g->mem, (g->m1 - g->m0) * 7 * sizeof(int64_t));
+    for (i = 0; i < g->m1 - g->m0; i++) g->members[7 * i + 3] += g->out_base;
   }
+  memcpy(g->blocks, g->r.blocks, g->r.nb * bc * sizeof(int64_t));
+  memcpy(g->anchors, g->r.anchors, g->r.na * ac * sizeof(int64_t));
+  for (i = 0; i < g->r.nb; i++) {
+    g->blocks[bc * i + 2] += g->out_base;
+    if (bc > 5) g->blocks[bc * i + 5] += g->member_base;
+  }
+  for (i = 0; i < g->r.na; i++) {
+    g->anchors[ac * i + 1] += g->out_base;
+    if (ac > 2) g->anchors[ac * i + 2] += g->block_base;
+  }
+  return 0;
 }
 
 /* The ranges, taken in order by threads as each finishes its last, so a
  * range slower than the rest (denser data, a core shared with another
- * process) holds up no share fixed in advance. After a range fails, the
- * rest are left alone. */
+ * process) holds up no share fixed in advance. After fn returns nonzero
+ * for a range, the rest are left alone. */
 typedef struct {
   range_t *g;
   size_t n, next;
   int failed;
-  void (*fn)(range_t *);
+  int (*fn)(range_t *);
 } pool_t;
 
 static void *pool_work(void *arg) {
@@ -992,9 +1065,7 @@ static void *pool_work(void *arg) {
   for (;;) {
     size_t k = __atomic_fetch_add(&w->next, 1, __ATOMIC_RELAXED);
     if (k >= w->n || __atomic_load_n(&w->failed, __ATOMIC_RELAXED)) break;
-    w->fn(&w->g[k]);
-    if (w->g[k].rc != ZZT_OK)
-      __atomic_store_n(&w->failed, 1, __ATOMIC_RELAXED);
+    if (w->fn(&w->g[k])) __atomic_store_n(&w->failed, 1, __ATOMIC_RELAXED);
   }
   return NULL;
 }
@@ -1002,7 +1073,7 @@ static void *pool_work(void *arg) {
 /* fn on every range, on nthreads threads: the calling thread and
  * nthreads - 1 more (fewer where a thread cannot start). */
 static void run_pool(range_t *g, size_t n, size_t nthreads, pthread_t *th,
-                     void (*fn)(range_t *)) {
+                     int (*fn)(range_t *)) {
   pool_t w = {g, n, 0, 0, fn};
   size_t k, nt = 1;
   for (k = 1; k < nthreads; k++)
@@ -1087,6 +1158,297 @@ int zzt_scan_members_split(const uint8_t *in, size_t in_len, uint32_t T,
   }
   free(g);
   free(th);
+  return rc;
+}
+
+/* ---------------- one deflate stream, scanned in ranges at once -------
+ *
+ * A deflate stream states no boundary inside it, but its scan needs no
+ * window: it records bit positions and output offsets, and each block's
+ * anchors count from the block's first token. So from a true block start a
+ * scan gives the serial pass's records, their output offsets shifted by
+ * one constant, save the check that no distance reaches before the window,
+ * which waits for that constant.
+ *
+ * The input is cut at bytes. Each range looks from its cut for a bit where
+ * a block could start (find_block; range 0 of one stream begins at its
+ * first bit), scans from there with no window (scan_stream with least) and
+ * stops at the first block start at or after the next range's cut. Then
+ * chain_scan walks the stream from its first bit as the serial pass does:
+ * where it stands on a range's start, that start is a true block start and
+ * it takes the range's records, once the window is seen to hold every
+ * distance, and goes on from the range's end; anywhere else (the finder
+ * passed over a stored or fixed block, found what is no block, or a range
+ * failed) it scans on itself up to the next range's start. So the answer
+ * is the serial pass's whatever the ranges found; a range that found
+ * nothing true costs its own work only. */
+
+/* Bytes past its cut in which a range looks for a block start: zlib's
+ * blocks are some 10-60 KB coded, so a start lies well inside; inside
+ * stored data (level 0) a range gives up after this. */
+#define SPLIT_SEARCH_BYTES ((size_t)256 << 10)
+
+/* The bits of in from bit on, LSB first: 57 or more, zeros past its end. */
+static inline uint64_t peek_at(const uint8_t *in, size_t in_len, size_t bit) {
+  size_t p = bit >> 3, k;
+  uint64_t v = 0;
+  if (p + 8 <= in_len) {
+    memcpy(&v, in + p, 8);
+  } else {
+    for (k = 0; p + k < in_len; k++) v |= (uint64_t)in[p + k] << (8 * k);
+  }
+  return v >> (bit & 7);
+}
+
+/* The first bit in [bit, lim) where a range may begin (SIZE_MAX: none): a
+ * dynamic, non-final block header with hlit <= 286 and hdist <= 30, whose
+ * code-length code and literal/length code are complete and give EOB a
+ * length, one whole block decoding from it to EOB, and after it a header
+ * that is not BTYPE 3. These filter the speculation and judge no stream:
+ * a block they pass over the join scans, and a bit they let through that
+ * starts no block the join never stands on. */
+static size_t find_block(const uint8_t *in, size_t in_len, size_t bit,
+                         size_t lim) {
+  for (; bit < lim; bit++) {
+    uint64_t v = peek_at(in, in_len, bit), cl;
+    uint32_t hlit, hdist, hclen, i, kraft = 0;
+    uint8_t lens[288 + 32];
+    scan_rec_t none = {0};
+    int64_t least = 0;
+    size_t len, end;
+    bits_t b;
+    if ((v & 7) != 4 || ((v >> 3) & 31) > 29 || ((v >> 8) & 31) > 29)
+      continue;
+    hclen = (uint32_t)((v >> 13) & 15) + 4;
+    cl = peek_at(in, in_len, bit + 17);
+    for (i = 0; i < hclen; i++, cl >>= 3)
+      if (cl & 7) kraft += 128u >> (cl & 7);
+    if (kraft != 128) continue;
+    br_init(&b, in, in_len, bit + 3);
+    if (read_lengths(&b, lens, &hlit, &hdist) != ZZT_OK || !lens[256])
+      continue;
+    for (i = 0, kraft = 0; i < hlit; i++)
+      if (lens[i]) kraft += 32768u >> lens[i];
+    if (kraft != 32768) continue;
+    if (scan_stream(in, in_len, bit, bit + 1, 0, 0, 0, &none, &least, &len,
+                    &end) != ZZT_STOPPED ||
+        ((peek_at(in, in_len, end) >> 1) & 3) == 3)
+      continue;
+    return bit;
+  }
+  return SIZE_MAX;
+}
+
+/* find_block, for the tests. */
+size_t zzt_find_block(const uint8_t *in, size_t in_len, size_t bit,
+                      size_t lim) {
+  if (!g_fixed_ready) init_fixed();
+  return find_block(in, in_len, bit, lim);
+}
+
+/* A range of a stream: its start (given, or found within
+ * SPLIT_SEARCH_BYTES of its cut and before its stop), then its blocks
+ * scanned with no window until the first block start at or after its stop
+ * or a final block: rc ZZT_STOPPED or ZZT_OK, else it failed. */
+static int stream_range(range_t *g) {
+  size_t end = g->stop < 8 * g->in_len ? g->stop : 8 * g->in_len;
+  size_t lim = 8 * (g->cut + SPLIT_SEARCH_BYTES) < end
+                   ? 8 * (g->cut + SPLIT_SEARCH_BYTES) : end;
+  size_t bytes = end / 8 - g->cut, len;
+  if (g->start == SIZE_MAX)
+    g->start = find_block(g->in, g->in_len, 8 * g->cut, lim);
+  if (g->start == SIZE_MAX) return 0;
+  /* First room as the serial wrapper guesses it, for this range. */
+  g->r.bcap = bytes / 8192 + 64;
+  g->r.acap = 8 * bytes / (g->T ? g->T : 1) + 64;
+  g->r.blocks = (int64_t *)malloc(g->r.bcap * g->r.bcols * sizeof(int64_t));
+  g->r.anchors = (int64_t *)malloc(g->r.acap * g->r.acols * sizeof(int64_t));
+  if (!g->r.blocks || !g->r.anchors) return 0;
+  for (;;) {
+    g->least = 0;
+    g->rc = scan_stream(g->in, g->in_len, g->start, g->stop, g->T, 0, 0,
+                        &g->r, &g->least, &len, &g->end);
+    if (!g->r.overflow) break;
+    if (range_room(g, 0, 0) != ZZT_OK) { /* more room, and the range again */
+      g->rc = ZZT_E_SPLIT;
+      break;
+    }
+  }
+  g->out = (int64_t)len;
+  return 0;
+}
+
+struct chain {
+  range_t *g;
+  size_t n, next, nthreads, taken;
+  pthread_t *th;
+};
+
+/* Range q's records at the end of r's: their rows reserved there, out its
+ * first output offset; range_copy fills them once the chain is done. */
+static void chain_take(range_t *q, scan_rec_t *r, int64_t out) {
+  q->out_base = out;
+  q->block_base = (int64_t)r->nb;
+  q->member_base = r->member;
+  if (r->nb + q->r.nb <= r->bcap && r->na + q->r.na <= r->acap) {
+    q->blocks = r->blocks + (size_t)r->bcols * r->nb;
+    q->anchors = r->anchors + (size_t)r->acols * r->na;
+  } else {
+    r->overflow = 1;
+  }
+  r->nb += q->r.nb;
+  r->na += q->r.na;
+}
+
+/* scan_stream from bit (a block start) to the stream's final block, with no
+ * stop: the same records, counts and code, the ranges' records taken where
+ * it stands on their starts. ch NULL: scan_stream itself. */
+static int chain_scan(chain_t *ch, const uint8_t *in, size_t in_len,
+                      size_t bit, uint32_t T, size_t dict_len,
+                      int64_t out_base, scan_rec_t *r, size_t *out_len,
+                      size_t *end_bit) {
+  size_t w = 0, len;
+  int rc;
+  if (!ch)
+    return scan_stream(in, in_len, bit, SIZE_MAX, T, dict_len, out_base, r,
+                       NULL, out_len, end_bit);
+  for (;;) {
+    range_t *q = NULL;
+    /* The next range that scanned to its end from a start not behind. */
+    while (ch->next < ch->n) {
+      q = &ch->g[ch->next];
+      if (q->rc >= ZZT_OK && q->start >= bit) break;
+      ch->next++;
+      q = NULL;
+    }
+    if (q && q->start == bit) {
+      if ((int64_t)(dict_len + w) + q->least < 0) {
+        q->rc = ZZT_E_DIST; /* a distance before the window: scan it here */
+        continue;
+      }
+      ch->next++;
+      ch->taken++;
+      chain_take(q, r, out_base + (int64_t)w);
+      w += (size_t)q->out;
+      bit = q->end;
+      rc = q->rc;
+      if (rc == ZZT_OK) break; /* its last block was the final one */
+      continue;
+    }
+    rc = scan_stream(in, in_len, bit, q ? q->start : SIZE_MAX, T,
+                     dict_len + w, out_base + (int64_t)w, r, NULL, &len,
+                     &bit);
+    w += len;
+    if (rc != ZZT_STOPPED) break;
+  }
+  *out_len = w;
+  *end_bit = bit;
+  return rc;
+}
+
+/* The ranges of a split scan made and scanned on nthreads threads: range k
+ * >= 1 from byte cuts[k - 1], range 0 from start_bit's byte (beginning at
+ * start_bit itself where exact), each stopping at the next one's cut.
+ * ZZT_E_SPLIT where the cuts do not rise strictly inside (start_bit / 8,
+ * in_len) or memory runs out. */
+static int split_run(chain_t *ch, const uint8_t *in, size_t in_len,
+                     size_t start_bit, int exact, uint32_t T, int bcols,
+                     int acols, const int64_t *cuts, size_t ncuts,
+                     size_t nthreads) {
+  size_t k;
+  memset(ch, 0, sizeof *ch);
+  ch->n = ncuts + 1;
+  ch->nthreads = nthreads;
+  ch->g = (range_t *)calloc(ch->n, sizeof(range_t));
+  ch->th = (pthread_t *)calloc(nthreads ? nthreads : 1, sizeof(pthread_t));
+  if (!ch->g || !ch->th) return ZZT_E_SPLIT;
+  for (k = 0; k < ch->n; k++) {
+    range_t *q = &ch->g[k];
+    q->in = in;
+    q->in_len = in_len;
+    q->T = T;
+    q->r.bcols = bcols;
+    q->r.acols = acols;
+    q->cut = k ? (size_t)cuts[k - 1] : start_bit / 8;
+    q->stop = k < ncuts ? 8 * (size_t)cuts[k] : SIZE_MAX;
+    q->start = k || !exact ? SIZE_MAX : start_bit;
+    q->rc = ZZT_E_SPLIT; /* until a thread scans it */
+    if (k && (cuts[k - 1] <= (int64_t)ch->g[k - 1].cut ||
+              (size_t)cuts[k - 1] >= in_len))
+      return ZZT_E_SPLIT;
+  }
+  /* The shared tables are built before any thread reads them: their
+   * flags are not atomic. */
+  if (!g_fixed_ready) init_fixed();
+  if (!g_x2n_ready) init_x2n();
+  run_pool(ch->g, ch->n, nthreads, ch->th, stream_range);
+  return ZZT_OK;
+}
+
+/* After the chain: the taken ranges' records copied (rc ZZT_OK), the ranges
+ * freed. */
+static void split_end(chain_t *ch, int rc) {
+  size_t k;
+  if (rc == ZZT_OK) run_pool(ch->g, ch->n, ch->nthreads, ch->th, range_copy);
+  for (k = 0; ch->g && k < ch->n; k++) {
+    free(ch->g[k].r.blocks);
+    free(ch->g[k].r.anchors);
+  }
+  free(ch->g);
+  free(ch->th);
+}
+
+/* zzt_scan_anchors' answer (the same arrays and counts; ZZT_E_OUTFULL as
+ * there), the stream cut at the ncuts bytes cuts[] into ranges scanned on
+ * nthreads threads; *taken: the ranges whose records it took. ZZT_E_SPLIT
+ * where the cuts are out of order or memory runs out; on a corrupt stream
+ * an error code, the verdict being the serial pass's to give. */
+int zzt_scan_stream_split(const uint8_t *in, size_t in_len, size_t start_bit,
+                          uint32_t T, size_t dict_len, const int64_t *cuts,
+                          size_t ncuts, size_t nthreads,
+                          int64_t *blocks, size_t blocks_cap,
+                          int64_t *anchors, size_t anchors_cap,
+                          size_t *nblocks, size_t *nanchors,
+                          size_t *total_out, size_t *end_bit,
+                          size_t *taken) {
+  scan_rec_t r = {blocks, anchors, blocks_cap, anchors_cap, 0, 0, 5, 2, 0, 0};
+  chain_t ch;
+  int rc = split_run(&ch, in, in_len, start_bit, 1, T, 5, 2, cuts, ncuts,
+                     nthreads);
+  if (rc == ZZT_OK)
+    rc = chain_scan(&ch, in, in_len, start_bit, T, dict_len, 0, &r,
+                    total_out, end_bit);
+  if (rc == ZZT_OK && r.overflow) rc = ZZT_E_OUTFULL;
+  *taken = ch.taken;
+  split_end(&ch, rc);
+  *nblocks = r.nb;
+  *nanchors = r.na;
+  return rc;
+}
+
+/* zzt_scan_members' answer (the same arrays, counts and CRC-32;
+ * ZZT_E_OUTFULL as there), the buffer cut at the ncuts bytes cuts[] into
+ * ranges of its members' blocks, scanned on nthreads threads; range 0 too
+ * looks for a block start, from byte 0. *taken, ZZT_E_SPLIT and errors as
+ * zzt_scan_stream_split. */
+int zzt_scan_gzip_split(const uint8_t *in, size_t in_len, uint32_t T,
+                        const int64_t *cuts, size_t ncuts, size_t nthreads,
+                        int64_t *members, size_t members_cap,
+                        int64_t *blocks, size_t blocks_cap,
+                        int64_t *anchors, size_t anchors_cap,
+                        size_t *nmembers, size_t *nblocks, size_t *nanchors,
+                        uint32_t *crc, size_t *taken) {
+  scan_rec_t r = {blocks, anchors, blocks_cap, anchors_cap, 0, 0, 6, 3, 0, 0};
+  chain_t ch;
+  int rc = split_run(&ch, in, in_len, 0, 0, T, 6, 3, cuts, ncuts, nthreads);
+  *nmembers = 0;
+  if (rc == ZZT_OK)
+    rc = scan_gzip(&ch, in, in_len, T, &r, members, members_cap, nmembers,
+                   crc);
+  *taken = ch.taken;
+  split_end(&ch, rc);
+  *nblocks = r.nb;
+  *nanchors = r.na;
   return rc;
 }
 
